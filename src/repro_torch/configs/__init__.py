@@ -1,0 +1,1 @@
+"""Model configurations of the port (copies of the JAX package's)."""

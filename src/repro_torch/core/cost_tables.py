@@ -1,0 +1,231 @@
+"""Batched cost tables — the planner's scalar-call hot path, precomputed.
+
+Every (layer, scheme, halo) compute query and every (boundary, src-scheme,
+dst-scheme) sync query a search could touch is enumerated up front,
+deduplicated, evaluated in **one** ``i_cost_batch`` / ``s_cost_batch`` call
+each, and served back as numpy tables.  The tables hold exactly the values
+the scalar protocol would have returned (the estimator guarantees bit-parity
+between its scalar and batched paths), so any search driven from them
+reproduces the scalar reference bit for bit.
+
+A trimmed copy of the JAX package's ``core/cost_tables.py``: the metrics
+pushes, the Pareto reductions of the throughput objectives, the
+re-evaluation hooks of incremental replanning and ``PrefetchedEstimator``
+are left out.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List, Sequence, Tuple
+
+import numpy as np
+
+from .cost import Testbed
+from .estimator import CostEstimator, i_features, s_features
+from .graph import LayerSpec, halo_growth
+from .partition import Scheme, min_shard_extent
+
+_INF = float("inf")
+
+
+class CostTableBuilder:
+    """Two-phase batched evaluation: register unique queries, then resolve
+    them all with one ``i_cost_batch`` and one ``s_cost_batch`` call.
+
+    Deduplication keys carry exactly the information the estimator reads —
+    repeated blocks (e.g. resnet101's 23 identical bottlenecks) collapse to
+    one row.
+    """
+
+    def __init__(self, est: CostEstimator, tb: Testbed):
+        self._est = est
+        self._tb = tb
+        self._i_keys: Dict[tuple, int] = {}
+        self._i_rows: List[List[float]] = []
+        self._i_factors: List[float] = []
+        self._s_keys: Dict[tuple, int] = {}
+        self._s_rows: List[List[float]] = []
+        # geometric identity per layer *object* (pinned so ids stay unique):
+        # the estimator reads only feature_vector() (+ extra_flop_factor),
+        # so name-blind keys make repeated blocks share one row
+        self._layer_memo: Dict[int, tuple] = {}
+        self._pinned: List[LayerSpec] = []
+
+    def layer_key(self, layer: LayerSpec) -> tuple:
+        """Name-blind geometric identity of ``layer`` — everything the
+        estimators can read.  Layers (and whole branches) with equal keys
+        have equal costs and can share rows and DP tables."""
+        key = self._layer_memo.get(id(layer))
+        if key is None:
+            key = (layer.feature_vector(), layer.extra_flop_factor)
+            self._layer_memo[id(layer)] = key
+            self._pinned.append(layer)
+        return key
+
+    def i_index(self, layer: LayerSpec, scheme: Scheme, halo: int) -> int:
+        key = (self.layer_key(layer), scheme, halo)
+        idx = self._i_keys.get(key)
+        if idx is None:
+            idx = len(self._i_rows)
+            self._i_keys[key] = idx
+            self._i_rows.append(i_features(layer, scheme, self._tb, halo))
+            self._i_factors.append(layer.extra_flop_factor)
+        return idx
+
+    def s_index(self, layer: LayerSpec, nxt, src: Scheme, dst) -> int:
+        key = (self.layer_key(layer),
+               None if nxt is None else (nxt.k, nxt.fan_in, nxt.conv_t),
+               src, dst)
+        idx = self._s_keys.get(key)
+        if idx is None:
+            idx = len(self._s_rows)
+            self._s_keys[key] = idx
+            self._s_rows.append(s_features(layer, nxt, src, dst, self._tb))
+        return idx
+
+    @property
+    def i_entries(self) -> int:
+        return len(self._i_rows)
+
+    @property
+    def s_entries(self) -> int:
+        return len(self._s_rows)
+
+    def evaluate(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Resolve every registered query in two batched estimator calls."""
+        est = self._est
+        ivals = (est.i_cost_batch(
+            np.asarray(self._i_rows, np.float64), self._tb,
+            np.asarray(self._i_factors, np.float64))
+            if self._i_rows else np.empty(0))
+        svals = (est.s_cost_batch(
+            np.asarray(self._s_rows, np.float64), self._tb)
+            if self._s_rows else np.empty(0))
+        return np.asarray(ivals, np.float64), np.asarray(svals, np.float64)
+
+
+def admissible_segments(ls: Sequence[LayerSpec],
+                        schemes: Sequence[Scheme], nodes: int, cap: int):
+    """Enumerate every admissible NT segment of a chain — the single source
+    of the halo-degeneration rule of table building.
+
+    Yields ``(i, pi, seg_queries, halo_cut)`` per segment start and scheme:
+    ``seg_queries[L-1]`` lists the ``(layer_index, halo)`` i-queries of
+    segment ``[i .. i+L-1]`` (ascending offset, the scalar accumulation
+    order); ``halo_cut`` is True when the halo degenerated into full
+    replication before ``cap`` was reached.  Non-spatial schemes only admit
+    singleton segments (NT is undefined for OutC).
+    """
+    n = len(ls)
+    for i in range(n):
+        hi = min(i + cap, n)
+        # halo vectors are scheme-independent: compute once per (i, b)
+        halos_by_b = {b: halo_growth(ls[i:b + 1], b - i)
+                      for b in range(i + 1, hi)}
+        for pi, p in enumerate(schemes):
+            queries: List[List[Tuple[int, int]]] = [[(i, 0)]]
+            halo_cut = False
+            if p.spatial:
+                ext = min_shard_extent(ls[i], p, nodes)
+                for b in range(i + 1, hi):
+                    halos = halos_by_b[b]
+                    if 2 * halos[0] >= ext:
+                        halo_cut = True
+                        break   # degenerated into replication
+                    queries.append([(i + off, halos[off])
+                                    for off in range(b - i + 1)])
+            yield i, pi, queries, halo_cut
+
+
+@dataclasses.dataclass
+class ChainTables:
+    """Precomputed costs for one chain of layers.
+
+    ``seg[i, pi, L-1]`` is the summed i-cost (halos included) of segment
+    ``[i .. i+L-1]`` under ``schemes[pi]``, ``+inf`` where inadmissible
+    (non-spatial multi-layer fusion, halo degenerated into replication, or
+    beyond ``max_segment``).  Admissible lengths form a prefix per
+    ``(i, pi)`` because the halo is monotone in segment length.
+    ``sbound[b, pi, qi]`` is the T-boundary s-cost between layers ``b`` and
+    ``b+1``; ``s_final[pi]`` the gather-to-root of the last layer (NaN-free
+    only when built ``with_final``).
+    """
+
+    schemes: Tuple[Scheme, ...]
+    seg: np.ndarray
+    sbound: np.ndarray
+    s_final: np.ndarray
+    halo_cuts: int = 0
+
+    @property
+    def n(self) -> int:
+        return self.seg.shape[0]
+
+    def seg_options(self, i: int, pi: int,
+                    head_solo: bool = False) -> List[Tuple[int, float]]:
+        """Ascending ``(b, segcost)`` options for segments starting at
+        ``i``."""
+        if head_solo and i == 0:
+            cap = 1
+        else:
+            cap = min(self.seg.shape[2], self.n - i)
+        row = self.seg[i, pi]
+        out: List[Tuple[int, float]] = []
+        for L in range(cap):
+            v = row[L]
+            if v == _INF:
+                break   # admissible lengths are a prefix
+            out.append((i + L, float(v)))
+        return out
+
+    def bound(self, b: int, pi: int, qi: int) -> float:
+        return float(self.sbound[b, pi, qi])
+
+
+def plan_chain_tables(ls: Sequence[LayerSpec], registry: CostTableBuilder,
+                      schemes: Sequence[Scheme], max_segment: int,
+                      allow_fusion: bool, nodes: int,
+                      with_final: bool = True
+                      ) -> Callable[[np.ndarray, np.ndarray], ChainTables]:
+    """Phase 1: register every admissible segment/boundary query of one
+    chain with ``registry``.  Returns a finalizer that assembles the
+    :class:`ChainTables` once the registry has been evaluated (several
+    chains — e.g. all branches of a DAG — share one registry and thus one
+    batched estimator call)."""
+    n = len(ls)
+    k = len(schemes)
+    cap = max(1, min(max_segment, n)) if allow_fusion else 1
+    # segment index plans: seg_idx[(i, pi)] = list over L of per-layer row
+    # indices (ascending offset — summed in scalar order later)
+    seg_idx: Dict[Tuple[int, int], List[List[int]]] = {}
+    halo_cuts = 0
+    for i, pi, queries, halo_cut in admissible_segments(ls, schemes, nodes,
+                                                        cap):
+        p = schemes[pi]
+        seg_idx[(i, pi)] = [[registry.i_index(ls[m], p, halo)
+                             for m, halo in q] for q in queries]
+        halo_cuts += halo_cut
+    bound_idx = np.empty((max(n - 1, 0), k, k), np.int64)
+    for b in range(n - 1):
+        for pi, p in enumerate(schemes):
+            for qi, q in enumerate(schemes):
+                bound_idx[b, pi, qi] = registry.s_index(ls[b], ls[b + 1], p, q)
+    final_idx = np.asarray(
+        [registry.s_index(ls[-1], None, p, None) for p in schemes]
+        if (with_final and n) else [], np.int64)
+
+    def finalize(ivals: np.ndarray, svals: np.ndarray) -> ChainTables:
+        seg = np.full((n, k, cap), _INF)
+        for (i, pi), rows in seg_idx.items():
+            for L, idxs in enumerate(rows):
+                c = 0.0
+                for idx in idxs:   # scalar accumulation order
+                    c += ivals[idx]
+                seg[i, pi, L] = c
+        sbound = svals[bound_idx] if n > 1 else \
+            np.empty((0, k, k), np.float64)
+        s_final = svals[final_idx] if final_idx.size else \
+            np.full(k, np.nan)
+        return ChainTables(tuple(schemes), seg, sbound, s_final, halo_cuts)
+
+    return finalize

@@ -1,0 +1,84 @@
+"""FC matmul kernel for the H100 and the conv convenience wrappers.
+
+:func:`matmul_tiled` is the port of the Pallas TPU kernel
+``repro/kernels/ops.py::matmul_tiled``: ``[M, Cin] @ [Cin, Cout]`` with f32
+accumulation, computed by the hand-written shared-memory-tiled kernel in
+``csrc/matmul_tiled.cu`` (no library GEMM).  It raises
+:class:`UnsupportedGeometry` on a zero-size dimension; CPU tensors run the
+plain version, CUDA tensors launch the kernel or raise (see
+:mod:`repro_torch.kernels.conv2d` for the dispatch rules).  The weight is
+read through its leading dimension, so the plan's column slice
+``w[:, c0:c1]`` is not copied.  ``matmul_tiled.launches`` counts kernel
+launches.
+
+``matmul`` / ``conv2d`` / ``dwconv2d`` route through the kernels for any
+supported geometry and fall back to the plain versions on
+:class:`UnsupportedGeometry` only.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import build
+from .conv2d import UnsupportedGeometry, conv2d_shard, on_cpu
+from .ref import conv2d_ref, dwconv2d_ref, matmul_ref
+
+
+def matmul_tiled(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x: [M, Cin] @ w: [Cin, Cout].  Engine FC shards are [seq, Cin] with
+    Cout possibly channel-sliced by the plan — any shape goes."""
+    M, cin = x.shape
+    if w.shape[0] != cin:
+        raise ValueError(f"matmul shapes {tuple(x.shape)} @ "
+                         f"{tuple(w.shape)} do not chain")
+    cout = w.shape[1]
+    if M == 0 or cin == 0 or cout == 0:
+        raise UnsupportedGeometry(
+            f"degenerate matmul {tuple(x.shape)} @ {tuple(w.shape)}")
+    if on_cpu(x, w):
+        return matmul_ref(x, w)
+    if x.stride(1) != 1 or w.stride(1) != 1:
+        raise RuntimeError(f"matmul_tiled needs unit column strides, got "
+                           f"{x.stride()} and {w.stride()}")
+    out = torch.empty((M, cout), dtype=torch.float32, device=x.device)
+    lib = build.load("matmul_tiled")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = lib.matmul_tiled_f32(x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                              M, cout, cin, x.stride(0), w.stride(0), cout,
+                              stream)
+    if rc != 0:
+        raise RuntimeError(f"matmul_tiled launch failed: cudaError {rc}")
+    matmul_tiled.launches += 1
+    return out
+
+
+matmul_tiled.launches = 0
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """:func:`matmul_tiled` with the plain fallback on degenerate shapes."""
+    try:
+        return matmul_tiled(x, w)
+    except UnsupportedGeometry:
+        return matmul_ref(x, w)
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor, *, padding: int = 0,
+           stride: int = 1) -> torch.Tensor:
+    """x: [H, W, Cin]; w: [K, K, Cin, Cout]; any stride.  Kernel path for
+    every non-degenerate square-kernel geometry; degenerate outputs
+    (``out_h/out_w <= 0``) fall back to the plain version."""
+    try:
+        return conv2d_shard(x, w, pads=(padding,) * 4, stride=stride)
+    except UnsupportedGeometry:
+        return conv2d_ref(x, w, padding=padding, stride=stride)
+
+
+def dwconv2d(x: torch.Tensor, w: torch.Tensor, *, padding: int = 0,
+             stride: int = 1) -> torch.Tensor:
+    """Depthwise conv: x [H, W, C]; w [K, K, 1, C] (engine layout)."""
+    try:
+        return conv2d_shard(x, w, pads=(padding,) * 4, stride=stride,
+                            depthwise=True)
+    except UnsupportedGeometry:
+        return dwconv2d_ref(x, w, padding=padding, stride=stride)
