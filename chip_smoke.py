@@ -6,22 +6,35 @@
 From the root of a checkout, on a machine with one CUDA card and the CUDA
 toolkit.  It builds the hand-written kernels from ``src/repro_torch/
 kernels/csrc``, holds each against its plain PyTorch version on the card,
-then drives the port's main path — ``plan_search`` -> ``Session(...,
-ExecConfig(backend="cuda")).run(x)`` — at full width on MobileNet v1
-(224x224), ResNet-18 (224x224) and bert-base (seq 128, d 768, 12 layers)
-with random weights from a fixed seed, and checks each output against the
-unpartitioned reference and each ``ExecStats`` against the generic
-``backend="torch"`` run.  The kernels' launch counters are zeroed just
-before each model's run and must then equal the number of conv and FC
-records the plan hands to the kernels.
+then drives the port's three paths at full width with random weights from
+fixed seeds:
 
-Times are taken on the card: the warm ``Session.run`` wall time per model
-(synchronised), and each kernel's device time over the calls one main-path
-run makes, replayed as a CUDA graph so host launch overhead is left out,
-beside the same calls through the plain version, through one PyTorch
-library call (``F.conv2d`` after ``F.pad`` where the pads are asymmetric;
-``torch.matmul``) and the least time the card could take (bytes over
-3.35 TB/s or f32 flops over 67 TFLOP/s, whichever is larger).
+* the CNN/bert path — ``plan_search`` -> ``Session(...,
+  ExecConfig(backend="cuda")).run(x)`` on MobileNet v1 (224x224),
+  ResNet-18 (224x224) and bert-base (seq 128, d 768, 12 layers) — each
+  output checked against the unpartitioned reference and each
+  ``ExecStats`` against the generic ``backend="torch"`` run;
+* the decode path — ``plan_decode`` -> ``greedy_decode(DecodeSession(...,
+  ExecConfig(backend="cuda")))`` at OLMo-1B's widths and depth (16 layers,
+  d 2048, 16 heads, d_ff 8192, vocab 50304) over 4 nodes, a 480-token
+  prompt and 32 new tokens — tokens checked against the card's
+  ``reference_decode`` and the ``backend="torch"`` session;
+* the flash attention entry point ``ops.flash_attention`` at OLMo-1B
+  prefill, llama3-8b GQA and zamba2-1.2b sliding-window shapes.
+
+All four kernels' launch counters are zeroed just before each path's run
+and read just after: they must equal the launches the plan (or the case
+list) calls for, computed independently of the counters.
+
+Times are taken on the card: the warm ``Session.run`` wall time per model,
+the warm per-token decode step, and each kernel's device time over the
+calls one main-path run makes, replayed as a CUDA graph so host launch
+overhead is left out, beside the same calls through the plain version,
+through one PyTorch library call (``F.conv2d`` after ``F.pad`` where the
+pads are asymmetric; ``torch.matmul``; gather by table then
+``F.scaled_dot_product_attention``; ``F.scaled_dot_product_attention``)
+and the least time the card could take (bytes over 3.35 TB/s or flops
+over the peak of the input type, whichever is larger).
 
 Output: progress lines, the card's name and power limit from nvidia-smi, a
 ``{"kernels": [...]}`` line, and as the last line
@@ -38,10 +51,26 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 TOL = 1e-4                      # scale-normalised; f32 sums in other orders
 PEAK_F32_FLOPS = 67e12          # H100 SXM, CUDA cores, f32 (data sheet)
+PEAK_BF16_FLOPS = 989e12        # H100 SXM, tensor cores, bf16 dense
 PEAK_BYTES = 3.35e12            # H100 SXM HBM3 (data sheet)
 NODES = 4
 MAIN_MODELS = (("mobilenet", {}), ("resnet18", {}), ("bert", {}))
 TIMED_REPS = 20
+DECODE_REPS = 3                 # replays of the ~33k recorded decode calls
+#: OLMo-1B's widths and depth (registry olmo-1b) in the decode block
+OLMO = dict(n_layers=16, d_model=2048, n_heads=16, d_ff=8192, vocab=50304)
+PROMPT_LEN, N_NEW, PAGE_SIZE, CAPACITY = 480, 32, 16, 512
+#: ops.flash_attention at full width: name, B, H, KV, S, hd, causal,
+#: window, dtype
+FLASH_CASES = (
+    ("olmo-1b prefill", 1, 16, 16, 2048, 128, True, None, "float32"),
+    ("llama3-8b gqa", 1, 32, 8, 2048, 128, True, None, "float32"),
+    ("llama3-8b gqa bf16", 1, 32, 8, 2048, 128, True, None, "bfloat16"),
+    ("zamba2-1.2b window", 1, 32, 32, 8192, 64, True, 4096, "float32"),
+    ("unaligned non-causal", 1, 16, 16, 2000, 128, False, None, "float32"),
+)
+BF16_TOL = 2e-2                 # the reference's bf16 attention tolerance
+DECODE_TOL = 1e-5               # the reference's decode-kernel tolerance
 
 
 class SmokeFailure(RuntimeError):
@@ -65,6 +94,32 @@ def rel_err(a, b) -> float:
 
 def abs_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max()) if b.numel() else 0.0
+
+
+def kernel_wrappers() -> dict:
+    """Every kernel's wrapper (each keeps its ``launches`` counter)."""
+    from repro_torch.kernels.conv2d import conv2d_shard
+    from repro_torch.kernels.flash_attention import (flash_attention_bh,
+                                                     flash_decode_paged)
+    from repro_torch.kernels.ops import matmul_tiled
+    return {"conv2d_shard": conv2d_shard, "matmul_tiled": matmul_tiled,
+            "flash_decode_paged": flash_decode_paged,
+            "flash_attention_bh": flash_attention_bh}
+
+
+def zero_counts() -> None:
+    for f in kernel_wrappers().values():
+        f.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: f.launches for name, f in kernel_wrappers().items()}
+
+
+def check_counts(path, counts, want) -> None:
+    """``counts`` equal ``want`` for the kernels it names, 0 for the rest."""
+    full = {name: want.get(name, 0) for name in counts}
+    check(counts == full, f"{path}: kernel launches {counts} != {full}")
 
 
 # ---------------------------------------------------------------------------
@@ -285,13 +340,13 @@ def phase_main_path(dev, name, kw, seed, totals, errs, card):
     sess_k = Session(g, ws, plan, NODES, ExecConfig(backend="cuda"))
     sess_t = Session(g, ws, plan, NODES, ExecConfig(backend="torch"))
 
-    conv2d_shard.launches = 0
-    matmul_tiled.launches = 0
+    zero_counts()
     out_k, st_k = sess_k.run(x)
     torch.cuda.synchronize()
-    got = (conv2d_shard.launches, matmul_tiled.launches)
-    check(got == want, f"{name}: kernel launches {got} != the plan's "
-                       f"kernel records {want}")
+    counts = read_counts()
+    check_counts(name, counts, {"conv2d_shard": want[0],
+                                "matmul_tiled": want[1]})
+    got = (counts["conv2d_shard"], counts["matmul_tiled"])
     totals["conv2d_shard"] += got[0]
     totals["matmul_tiled"] += got[1]
 
@@ -399,6 +454,343 @@ def phase_main_path(dev, name, kw, seed, totals, errs, card):
     return row
 
 
+# ---------------------------------------------------------------------------
+# Decode and attention
+# ---------------------------------------------------------------------------
+
+def paged_pools(gen, dev, lh, hd, ps, n_pages, kv_len, window):
+    """Random pools behind a scrambled table: the kernel's copy holds NaN
+    in every page it must not read (past ceil(kv_len/ps), before the
+    window's page), the plain version's copy zeros there."""
+    import torch
+    from repro_torch.kernels.ref import live_pages
+    kp = torch.randn((lh, n_pages, ps, hd), generator=gen, device=dev)
+    vp = torch.randn((lh, n_pages, ps, hd), generator=gen, device=dev)
+    table = torch.randperm(n_pages, generator=gen, device=dev).int()
+    lo, hi = live_pages(kv_len, ps, window)
+    dead = table[torch.cat([torch.arange(lo), torch.arange(hi, n_pages)])
+                 .to(dev)].long()
+    kz, vz = kp.clone(), vp.clone()
+    kz[:, dead] = 0.0
+    vz[:, dead] = 0.0
+    kp[:, dead] = float("nan")
+    vp[:, dead] = float("nan")
+    return kp, vp, kz, vz, table
+
+
+def phase_decode_grid(dev, errs):
+    """flash_decode_paged against its plain version: 4 and 16 heads, hd 64
+    and 128, page sizes 1 and 16 over 256 physical pages, kv_len up to the
+    capacity (4096 keys at ps 16), no window and windows whose first key
+    lands mid-page, scrambled table, NaN in every page it must not read."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_decode_paged
+    from repro_torch.kernels.ref import flash_decode_paged_ref
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    n_pages, n = 256, 0
+    for lh in (4, 16):
+        for hd in (64, 128):
+            for ps in (1, 16):
+                cap = n_pages * ps
+                for kv_len in sorted({1, 15, 16, 17, cap * 25 // 32, cap}):
+                    q = torch.randn((lh, hd), generator=gen, device=dev)
+                    for window in (None, 7, 100, 1000):
+                        kp, vp, kz, vz, table = paged_pools(
+                            gen, dev, lh, hd, ps, n_pages, kv_len, window)
+                        out = flash_decode_paged(q, kp, vp, table, kv_len,
+                                                 window=window)
+                        ref = flash_decode_paged_ref(q, kz, vz, table,
+                                                     kv_len, window=window)
+                        torch.cuda.synchronize()
+                        check(bool(torch.isfinite(out).all()),
+                              f"flash_decode_paged lh{lh} hd{hd} ps{ps} "
+                              f"kv{kv_len} w{window}: read a dead page")
+                        e = rel_err(out, ref)
+                        check(e < DECODE_TOL,
+                              f"flash_decode_paged lh{lh} hd{hd} ps{ps} "
+                              f"kv{kv_len} w{window}: error {e}")
+                        errs["flash_decode_paged"] = max(
+                            errs["flash_decode_paged"], abs_err(out, ref))
+                        n += 1
+    print(f"phase 5: flash_decode_paged == plain on {n} cases (heads 4/16 "
+          f"x hd 64/128 x ps 1/16 x 6 lengths x 4 windows, NaN in unread "
+          f"pages); max abs err {errs['flash_decode_paged']:.3g}",
+          flush=True)
+
+
+def decode_launches(spec, plan, nodes, n_steps) -> int:
+    """flash_decode_paged launches of ``n_steps`` decode steps of ``plan``,
+    from the plan alone: per step and layer, one per node that owns heads
+    (OutC ATTN) or one (replicated)."""
+    from repro_torch.core.partition import Scheme, split_sizes
+    per_step = 0
+    for i in range(spec.n_layers):
+        if plan.steps[2 * i][0] == Scheme.OUTC:
+            per_step += sum(1 for h in split_sizes(spec.n_heads, nodes) if h)
+        else:
+            per_step += 1
+    return per_step * n_steps
+
+
+def library_decode(q, kp, vp, table, kv_len, scale):
+    """One library call for the paged decode: gather the live pages by
+    table, cut to the live keys, then F.scaled_dot_product_attention."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.ref import live_pages
+    lh, _, ps, hd = kp.shape
+    lo, hi = live_pages(kv_len, ps)
+    phys = table[lo:hi].long()
+    k = kp[:, phys].reshape(lh, -1, hd)[:, :kv_len - lo * ps]
+    v = vp[:, phys].reshape(lh, -1, hd)[:, :kv_len - lo * ps]
+    return F.scaled_dot_product_attention(q[:, None], k, v, scale=scale)[:, 0]
+
+
+def decode_work(q, kp, kv_len, window):
+    """(bytes, flops) one paged decode call must move and do: the live K
+    and V rows, q, out and the live table entries."""
+    from repro_torch.kernels.ref import live_pages
+    lh, _, ps, hd = kp.shape
+    lo, hi = live_pages(kv_len, ps, window)
+    first = 0 if window is None else max(0, kv_len - window)
+    rows = kv_len - first
+    return (4.0 * (2 * lh * rows * hd + 2 * lh * hd + (hi - lo)),
+            4.0 * lh * rows * hd)
+
+
+def phase_decode_path(dev, errs, card):
+    """plan_decode -> greedy_decode(DecodeSession(backend="cuda")) at
+    OLMo-1B's widths and depth; returns the decode kernel's timing row."""
+    import numpy as np
+    import torch
+    from repro_torch import (DecodeSession, ExecConfig, TransformerSpec,
+                             greedy_decode, init_transformer, plan_decode,
+                             reference_decode)
+    from repro_torch import Testbed as TorchTestbed
+    from repro_torch.kernels.flash_attention import flash_decode_paged
+    from repro_torch.kernels.ref import flash_decode_paged_ref
+    from repro_torch.runtime import decode as decode_mod
+
+    spec = TransformerSpec(**OLMO)
+    tb = TorchTestbed(nodes=NODES, bandwidth_gbps=5.0, link_latency_us=1.0)
+    t0 = time.perf_counter()
+    res = plan_decode(spec, 2048, NODES, tb=tb)
+    plan_s = time.perf_counter() - t0
+    plan = res.plan
+    n_steps = PROMPT_LEN + N_NEW
+    want = decode_launches(spec, plan, NODES, n_steps)
+    t0 = time.perf_counter()
+    w = init_transformer(spec, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = w["emb"].numel() + sum(a.numel() for blk in w["blocks"]
+                                      for a in blk.values())
+    prompt = [int(t) for t in np.random.default_rng(1).integers(
+        0, spec.vocab, PROMPT_LEN)]
+    kw = dict(page_size=PAGE_SIZE, capacity=CAPACITY)
+
+    def session(backend):
+        return DecodeSession(spec, w, plan, NODES,
+                             ExecConfig(backend=backend), **kw)
+
+    sess_k = session("cuda")
+    zero_counts()
+    t0 = time.perf_counter()
+    toks_k, lg_k = greedy_decode(sess_k, prompt, N_NEW)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = read_counts()
+    check_counts("decode", counts, {"flash_decode_paged": want})
+
+    toks_t, lg_t = greedy_decode(session("torch"), prompt, N_NEW)
+    toks_r, lg_r = reference_decode(spec, w, prompt, N_NEW)
+    torch.cuda.synchronize()
+    check(tuple(lg_k.shape) == (N_NEW, spec.vocab),
+          f"decode: logits shape {tuple(lg_k.shape)}")
+    check(bool(torch.isfinite(lg_k).all()), "decode: non-finite logits")
+    top2 = lg_k.topk(2, dim=-1).values
+    margin = float((top2[:, 0] - top2[:, 1]).min())
+    e_r, e_t = rel_err(lg_k, lg_r), rel_err(lg_k, lg_t)
+    print(f"phase 6: decode olmo-1b widths ({spec.n_layers} layers, d "
+          f"{spec.d_model}, {spec.n_heads} heads, d_ff {spec.d_ff}, vocab "
+          f"{spec.vocab}; {n_params / 1e9:.3f} B params, init "
+          f"{init_s:.1f} s): plan {sorted({s.name for s, _ in plan.steps})}"
+          f" at {NODES} nodes (searched in {plan_s:.3f} s), heads per node "
+          f"{sess_k.head_split[0]}; prompt {PROMPT_LEN} + {N_NEW} new "
+          f"tokens in {run_s:.2f} s; launches flash_decode_paged="
+          f"{counts['flash_decode_paged']} == plan {want}; logits vs "
+          f"reference_decode {e_r:.3g}, vs torch backend {e_t:.3g} (scale-"
+          f"normalised); smallest top-two logit margin {margin:.4g}",
+          flush=True)
+    check(toks_k == toks_r, f"decode: tokens {toks_k} != reference_decode "
+                            f"{toks_r} (smallest margin {margin})")
+    check(toks_k == toks_t, f"decode: tokens {toks_k} != torch backend "
+                            f"{toks_t}")
+    check(e_r < TOL, f"decode: logits vs reference_decode {e_r}")
+    check(e_t < TOL, f"decode: logits vs torch backend {e_t}")
+
+    # warm per-token step: a fresh session past the same prompt
+    sess = session("cuda")
+    emb = w["emb"]
+    h = sess.prefill(prompt)
+    tok = int(torch.argmax(h @ emb.T))
+    steps = []
+    for _ in range(N_NEW):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h = sess.step(tok)
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0) * 1e3)
+        tok = int(torch.argmax(h @ emb.T))
+    steps.sort()
+    step_ms = steps[len(steps) // 2]
+
+    # record the kernel calls of one run, then time them three ways
+    calls = []
+
+    def rec(q, kp, vp, table, kv_len, **kwargs):
+        out = flash_decode_paged(q, kp, vp, table, kv_len, **kwargs)
+        calls.append((q, kp, vp, table, kv_len, kwargs, out))
+        return out
+
+    decode_mod.flash_decode_paged = rec
+    try:
+        greedy_decode(session("cuda"), prompt, N_NEW)
+    finally:
+        decode_mod.flash_decode_paged = flash_decode_paged
+    check(len(calls) == want, f"decode: recorded {len(calls)} calls")
+    diff = torch.zeros((), device=dev)
+    scale = torch.ones((), device=dev)
+    nbytes = flops = 0.0
+    for q, kp, vp, table, kv_len, kwargs, out in calls:
+        plain = flash_decode_paged_ref(q, kp, vp, table, kv_len, **kwargs)
+        diff = torch.maximum(diff, (out - plain).abs().max())
+        scale = torch.maximum(scale, plain.abs().max())
+        b, f = decode_work(q, kp, kv_len, kwargs.get("window"))
+        nbytes += b
+        flops += f
+    e = float(diff) / float(scale)
+    check(e < DECODE_TOL, f"decode: recorded calls vs plain {e}")
+    errs["flash_decode_paged"] = max(errs["flash_decode_paged"],
+                                     float(diff))
+    sc = 1.0 / spec.head_dim ** 0.5
+    row = dict(
+        calls=len(calls), bytes=nbytes, flops=flops, step_ms=step_ms,
+        run_s=run_s, margin=margin, launches=counts["flash_decode_paged"],
+        ms=graph_ms(lambda: [flash_decode_paged(q, a, b, t, n, **k)
+                             for q, a, b, t, n, k, _ in calls],
+                    reps=DECODE_REPS),
+        plain_ms=graph_ms(lambda: [flash_decode_paged_ref(q, a, b, t, n, **k)
+                                   for q, a, b, t, n, k, _ in calls],
+                          reps=DECODE_REPS),
+        library_ms=graph_ms(lambda: [library_decode(q, a, b, t, n, sc)
+                                     for q, a, b, t, n, _, _ in calls],
+                            reps=DECODE_REPS))
+    bm, by = bound_ms(nbytes, flops)
+    print(f"phase 7: decode warm step {step_ms:.3f} ms per token (median of "
+          f"{N_NEW}, synchronised; range {steps[0]:.3f}-{steps[-1]:.3f}); "
+          f"flash_decode_paged: {len(calls)} calls of one run, "
+          f"{row['ms']:.3f} ms (plain {row['plain_ms']:.3f}, library "
+          f"{row['library_ms']:.3f}, bound {bm:.4f} by {by}; "
+          f"{nbytes / 1e9:.3f} GB live K/V) [{card}]", flush=True)
+    return row
+
+
+def attention_pairs(S, causal, window) -> int:
+    """(query, key) pairs the masks keep in one [S, S] head."""
+    import numpy as np
+    qi = np.arange(S, dtype=np.int64)
+    hi = qi + 1 if causal else np.full(S, S, np.int64)
+    lo = np.maximum(0, qi - window + 1) if window is not None else 0
+    return int((hi - lo).sum())
+
+
+def plain_attention(q, k, v, causal, window):
+    """The plain version one head at a time (the [S, S] scores of one head
+    at a time fit in memory), query head h reading kv head h // (H / KV)."""
+    import torch
+    from repro_torch.kernels.ref import flash_attention_ref
+    rep = q.shape[1] // k.shape[1]
+    outs = []
+    for h in range(q.shape[1]):
+        g = h // rep
+        outs.append(flash_attention_ref(q[:, h:h + 1], k[:, g:g + 1],
+                                        v[:, g:g + 1], causal=causal,
+                                        window=window))
+    return torch.cat(outs, dim=1)
+
+
+def phase_flash(dev, errs, card):
+    """ops.flash_attention at full width; returns one timing row per
+    case."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    inputs = []
+    for case in FLASH_CASES:
+        _, B, H, KV, S, hd, causal, window, dt = case
+        dtype = getattr(torch, dt)
+        q = torch.randn((B, H, S, hd), generator=gen, device=dev).to(dtype)
+        k = torch.randn((B, KV, S, hd), generator=gen, device=dev).to(dtype)
+        v = torch.randn((B, KV, S, hd), generator=gen, device=dev).to(dtype)
+        inputs.append((case, q, k, v))
+    zero_counts()
+    outs = [ops.flash_attention(q, k, v, causal=c[6], window=c[7])
+            for c, q, k, v in inputs]
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check_counts("flash attention", counts,
+                 {"flash_attention_bh": len(FLASH_CASES)})
+    rows = []
+    for (case, q, k, v), out in zip(inputs, outs):
+        name, B, H, KV, S, hd, causal, window, dt = case
+        f32 = dt == "float32"
+        plain = plain_attention(q, k, v, causal, window)
+        torch.cuda.synchronize()
+        check(out.dtype == q.dtype and out.shape == q.shape,
+              f"{name}: output {out.dtype} {tuple(out.shape)}")
+        e = rel_err(out, plain)
+        check(e < (TOL if f32 else BF16_TOL), f"{name}: error {e}")
+        errs["flash_attention_bh"] = max(errs["flash_attention_bh"],
+                                         abs_err(out, plain))
+        nbytes = float(q.element_size() * (2 * q.numel() + 2 * k.numel()))
+        flops = 4.0 * hd * attention_pairs(S, causal, window) * B * H
+        peak = PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS
+        t_b, t_o = nbytes / PEAK_BYTES * 1e3, flops / peak * 1e3
+        rep = H // KV
+        ke, ve = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
+        mask = None
+        if window is not None:
+            qi = torch.arange(S, device=dev)[:, None]
+            ki = torch.arange(S, device=dev)[None, :]
+            mask = ki > qi - window
+            if causal:
+                mask &= ki <= qi
+        sc = 1.0 / hd ** 0.5
+        row = dict(
+            name=name, bytes=nbytes, flops=flops,
+            bound_ms=max(t_b, t_o), bound_by="bytes" if t_b >= t_o
+            else "operations",
+            ms=graph_ms(lambda: ops.flash_attention(q, k, v, causal=causal,
+                                                    window=window), reps=5),
+            plain_ms=graph_ms(lambda: plain_attention(q, k, v, causal,
+                                                      window), reps=3),
+            library_ms=graph_ms(lambda: F.scaled_dot_product_attention(
+                q, ke, ve, attn_mask=mask,
+                is_causal=causal and mask is None, scale=sc), reps=5))
+        rows.append(row)
+        print(f"phase 8: {name} (B{B} H{H} KV{KV} S{S} hd{hd} "
+              f"{'causal' if causal else 'non-causal'} window {window} "
+              f"{dt}): err {e:.3g}; flash_attention_bh {row['ms']:.3f} ms "
+              f"(plain {row['plain_ms']:.3f}, sdpa {row['library_ms']:.3f},"
+              f" bound {row['bound_ms']:.4f} by {row['bound_by']}; "
+              f"{flops / 1e9:.1f} GFLOP) [{card}]", flush=True)
+        del ke, ve, mask, plain
+    return rows
+
+
 def run(dev) -> dict:
     import torch
     from repro_torch.kernels import build
@@ -429,12 +821,17 @@ def run(dev) -> dict:
                 if "registers" in line or "spill" in line:
                     print(f"  {name}: {line.strip()}", flush=True)
 
-    errs = {"conv2d_shard": 0.0, "matmul_tiled": 0.0}
+    errs = {name: 0.0 for name in kernel_wrappers()}
     phase_kernel_grid(dev, errs)
 
     totals = {"conv2d_shard": 0, "matmul_tiled": 0}
     rows = [phase_main_path(dev, name, kw, seed, totals, errs, card)
             for seed, (name, kw) in enumerate(MAIN_MODELS)]
+    phase_decode_grid(dev, errs)
+    dec = phase_decode_path(dev, errs, card)
+    totals["flash_decode_paged"] = dec["launches"]
+    flash = phase_flash(dev, errs, card)
+    totals["flash_attention_bh"] = len(flash)
     for kname, t in totals.items():
         check(t > 0, f"{kname} was never launched on the main path")
 
@@ -443,13 +840,27 @@ def run(dev) -> dict:
                          "src/repro/kernels/conv2d.py:99"),
         "matmul_tiled": ("src/repro_torch/kernels/csrc/matmul_tiled.cu",
                          "src/repro/kernels/ops.py:64"),
+        "flash_decode_paged": (
+            "src/repro_torch/kernels/csrc/flash_decode_paged.cu",
+            "src/repro/kernels/flash_attention.py:127"),
+        "flash_attention_bh": (
+            "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:169"),
     }
     kernels = []
     for kname, (source, replaces) in meta.items():
-        rs = [r[kname] for r in rows if kname in r]
-        nbytes = sum(r["bytes"] for r in rs)
-        flops = sum(r["flops"] for r in rs)
-        bm, by = bound_ms(nbytes, flops)
+        if kname == "flash_attention_bh":
+            # per case: f32 and bf16 cases have different peak rates
+            bm = sum(r["bound_ms"] for r in flash)
+            by_ops = sum(r["bound_ms"] for r in flash
+                         if r["bound_by"] == "operations")
+            by = "operations" if by_ops >= bm / 2 else "bytes"
+            rs = flash
+        else:
+            rs = [dec] if kname == "flash_decode_paged" else \
+                [r[kname] for r in rows if kname in r]
+            bm, by = bound_ms(sum(r["bytes"] for r in rs),
+                              sum(r["flops"] for r in rs))
         kernels.append({
             "name": kname, "route": "cuda", "source": source,
             "replaces": replaces, "launches": totals[kname],
@@ -459,9 +870,13 @@ def run(dev) -> dict:
             "bound_ms": bm, "bound_by": by,
             "library_ms": sum(r["library_ms"] for r in rs),
         })
-    print("kernel times are per main-path pass (mobilenet-224 + "
-          "resnet18-224 + bert-base, one Session.run each, CUDA-graph "
-          f"replay) on {card}", flush=True)
+    print("kernel times are per main-path pass on "
+          f"{card}: conv2d_shard and matmul_tiled over mobilenet-224 + "
+          "resnet18-224 + bert-base (one Session.run each), "
+          "flash_decode_paged over one olmo-1b-width greedy_decode "
+          f"({PROMPT_LEN} + {N_NEW} tokens), flash_attention_bh over the "
+          f"{len(FLASH_CASES)} ops.flash_attention cases; CUDA-graph "
+          "replay", flush=True)
     return {"kernels": kernels}
 
 

@@ -15,6 +15,17 @@ package.  The curated surface — plan, then run:
     out, stats = Session(graph, weights, res.plan, 4,
                          ExecConfig(backend="cuda")).run(x)
 
+Autoregressive decode of a head-sharded plan over the paged KV cache:
+
+    from repro_torch import (DecodeSession, TransformerSpec, greedy_decode,
+                             init_transformer, plan_decode)
+
+    spec = TransformerSpec(n_layers=2, d_model=256, n_heads=8, d_ff=1024)
+    weights = init_transformer(spec, seed=0)
+    plan = plan_decode(spec, kv_len=2048, nodes=4).plan
+    tokens, logits = greedy_decode(DecodeSession(spec, weights, plan, 4),
+                                   prompt=[3, 17], n_new=8)
+
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for ``device="cpu"``.  Deeper layers stay importable from the subpackages
 ``repro_torch.core``, ``repro_torch.kernels``, ``repro_torch.runtime``
@@ -22,12 +33,20 @@ and ``repro_torch.configs``.
 """
 from repro_torch.core import (AnalyticEstimator, Mode, Plan, Scheme,
                               Testbed, fixed_plan, plan_search)
-from repro_torch.runtime import (ExecConfig, ExecStats, Session,
-                                 init_weights, run_reference,
+from repro_torch.runtime import (DecodeSession, ExecConfig, ExecStats,
+                                 PagedKVCache, Session, TransformerSpec,
+                                 decode_graph, greedy_decode,
+                                 init_transformer, init_weights, plan_decode,
+                                 prefill_graph, reference_decode,
+                                 run_reference,
+                                 transformer_weights_from_numpy,
                                  weights_from_numpy)
 
 __all__ = [
     "plan_search", "AnalyticEstimator", "Testbed", "Session", "ExecConfig",
     "ExecStats", "init_weights", "weights_from_numpy", "run_reference",
-    "fixed_plan", "Plan", "Scheme", "Mode",
+    "fixed_plan", "Plan", "Scheme", "Mode", "DecodeSession",
+    "TransformerSpec", "PagedKVCache", "decode_graph", "prefill_graph",
+    "init_transformer", "transformer_weights_from_numpy",
+    "reference_decode", "greedy_decode", "plan_decode",
 ]

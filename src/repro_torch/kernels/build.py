@@ -32,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 
 #: C entry points of each source: name -> argtypes (pointers and the
 #: stream as c_void_p, so 64-bit addresses are never truncated)
@@ -42,6 +43,13 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     },
     "matmul_tiled": {
         "matmul_tiled_f32": [_P, _P, _P] + [_I] * 3 + [_L] * 3 + [_P],
+    },
+    "flash_decode_paged": {
+        "flash_decode_paged_f32": [_P] * 5 + [_I] * 6 + [_F, _P],
+    },
+    "flash_attention": {
+        "flash_attention_f32": [_P] * 4 + [_I] * 7 + [_F, _P],
+        "flash_attention_bf16": [_P] * 4 + [_I] * 7 + [_F, _P],
     },
 }
 

@@ -46,19 +46,20 @@ def shard_out_shape(in_h: int, in_w: int, k: int, stride: int,
     return out_h, out_w
 
 
-def on_cpu(*tensors: torch.Tensor) -> bool:
+def on_cpu(*tensors: torch.Tensor, dtypes=(torch.float32,)) -> bool:
     """True when every operand lies on the CPU (plain-version dispatch);
-    False when they all lie on one CUDA device; raises ``TypeError`` for
-    any other placement."""
+    False when they all lie on one CUDA device with one dtype among
+    ``dtypes``; raises ``TypeError`` for any other placement or dtype."""
     devs = {t.device for t in tensors}
     if all(d.type == "cpu" for d in devs):
         return True
     if len(devs) != 1 or next(iter(devs)).type != "cuda":
         raise TypeError(f"kernel operands must all lie on the CPU or all on "
                         f"one CUDA device, got {sorted(map(str, devs))}")
-    for t in tensors:
-        if t.dtype != torch.float32:
-            raise TypeError(f"CUDA kernels take float32, got {t.dtype}")
+    kinds = {t.dtype for t in tensors}
+    if len(kinds) != 1 or not kinds <= set(dtypes):
+        raise TypeError(f"this CUDA kernel takes one dtype among {dtypes}, "
+                        f"got {sorted(map(str, kinds))}")
     return False
 
 

@@ -1,0 +1,171 @@
+"""Attention kernels for the H100: paged decode and flash attention.
+
+:func:`flash_decode_paged` is the port of the Pallas TPU kernel
+``repro/kernels/flash_attention.py::flash_decode_paged``: single-query
+attention over a paged KV cache, the attention of every decode step.
+:func:`flash_attention_bh` is the port of ``flash_attention_bh``: causal
+and/or sliding-window attention over ``[BH, S, hd]``; the model-layout
+wrapper with GQA heads is :func:`repro_torch.kernels.ops.flash_attention`.
+Both keep the reference's signatures less the TPU tiling (``block_q``,
+``block_k``, ``interpret``): each kernel picks its own tiles.
+
+Dispatch is by device, as for the shard kernels
+(:mod:`repro_torch.kernels.conv2d`).  CPU tensors run the plain versions
+(:func:`~repro_torch.kernels.ref.flash_decode_paged_ref`,
+:func:`~repro_torch.kernels.ref.flash_attention_ref`).  CUDA tensors launch
+the hand-written kernels in ``csrc/flash_decode_paged.cu`` and
+``csrc/flash_attention.cu`` or raise: a wrong device or dtype is a
+``TypeError``; a non-contiguous operand, an unsupported head dim and a
+failed build or launch are a ``RuntimeError``.  ``flash_decode_paged``
+takes float32; ``flash_attention_bh`` float32 or bfloat16 (f32
+accumulation, output in the input dtype).  ``flash_decode_paged.launches``
+and ``flash_attention_bh.launches`` count kernel launches.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from . import build
+from .conv2d import on_cpu
+from .ref import (NEG_INF, flash_attention_ref, flash_decode_paged_ref,
+                  live_pages)
+
+__all__ = ["NEG_INF", "flash_decode_paged", "flash_attention_bh"]
+
+#: the largest head dim the kernels take (registers and shared memory)
+MAX_HEAD_DIM = 256
+
+
+def _need_contiguous(name: str, *tensors: torch.Tensor) -> None:
+    for t in tensors:
+        if not t.is_contiguous():
+            raise RuntimeError(f"{name} needs contiguous operands, got "
+                               f"shape {tuple(t.shape)} strides "
+                               f"{t.stride()}")
+
+
+def _check_window(window: Optional[int]) -> None:
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+
+
+def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
+                       v_pages: torch.Tensor, page_table, kv_len: int, *,
+                       window: Optional[int] = None,
+                       scale: Optional[float] = None) -> torch.Tensor:
+    """Decode-step (``q_len == 1``) attention over a paged KV cache.
+
+    ``q``: [BH, hd]; ``k_pages``/``v_pages``: [BH, n_phys_pages,
+    page_size, hd] physical page pool; ``page_table``: [n_logical_pages]
+    int32 mapping logical page ``i`` (keys ``i*ps .. (i+1)*ps - 1``) to its
+    physical slot — on the card an int32 CUDA tensor on the pools' device
+    (the cache keeps one), on the CPU any int sequence; ``kv_len``: number
+    of live keys.  Pages outside the live range (past ``ceil(kv_len/ps)``,
+    or before the page holding the window's first key) are never read.
+    """
+    bh, _, ps, hd = k_pages.shape
+    if tuple(q.shape) != (bh, hd) or v_pages.shape != k_pages.shape:
+        raise ValueError(f"decode shapes q {tuple(q.shape)}, pools "
+                         f"{tuple(k_pages.shape)}/{tuple(v_pages.shape)}")
+    _check_window(window)
+    kv_len = int(kv_len)
+    _, hi = live_pages(kv_len, ps, window)
+    if kv_len < 0 or hi > len(page_table):
+        raise ValueError(f"kv_len {kv_len} outside the {len(page_table)} "
+                         f"pages of {ps} keys in the table")
+    scale = 1.0 / math.sqrt(hd) if scale is None else float(scale)
+    if on_cpu(q, k_pages, v_pages):
+        return flash_decode_paged_ref(q, k_pages, v_pages, page_table,
+                                      kv_len, window=window, scale=scale)
+    if not (isinstance(page_table, torch.Tensor)
+            and page_table.device == q.device
+            and page_table.dtype == torch.int32):
+        raise TypeError("flash_decode_paged on the card takes the page "
+                        "table as an int32 tensor on the pools' device")
+    _need_contiguous("flash_decode_paged", q, k_pages, v_pages, page_table)
+    if hd > MAX_HEAD_DIM:
+        raise RuntimeError(f"flash_decode_paged takes hd <= {MAX_HEAD_DIM}, "
+                           f"got {hd}")
+    out = torch.empty((bh, hd), dtype=torch.float32, device=q.device)
+    if bh == 0:
+        return out
+    lib = build.load("flash_decode_paged")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = lib.flash_decode_paged_f32(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        page_table.data_ptr(), out.data_ptr(), bh, k_pages.shape[1], ps, hd,
+        kv_len, -1 if window is None else int(window), scale, stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_decode_paged launch failed: cudaError "
+                           f"{rc}")
+    flash_decode_paged.launches += 1
+    return out
+
+
+flash_decode_paged.launches = 0
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool, window: Optional[int],
+              scale: Optional[float]) -> torch.Tensor:
+    """The flash attention kernel on the model layout: ``q`` [B, H, S, hd],
+    ``k``/``v`` [B, KV, S, hd] with ``H % KV == 0`` (GQA by index, no
+    repeated copy).  The one place :data:`flash_attention_bh.launches`
+    counts; :func:`flash_attention_bh` and ``ops.flash_attention`` call
+    it."""
+    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
+        raise ValueError(f"attention shapes q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    B, H, S, hd = q.shape
+    KV = k.shape[1]
+    if (k.shape[0], k.shape[2], k.shape[3]) != (B, S, hd) or KV < 1 \
+            or H % KV:
+        raise ValueError(f"k/v {tuple(k.shape)} do not fit q "
+                         f"{tuple(q.shape)} (need H % KV == 0)")
+    _check_window(window)
+    scale = 1.0 / math.sqrt(hd) if scale is None else float(scale)
+    dtypes = (torch.float32, torch.bfloat16)
+    if on_cpu(q, k, v, dtypes=dtypes):
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   scale=scale)
+    _need_contiguous("flash_attention_bh", q, k, v)
+    if hd > MAX_HEAD_DIM:
+        raise RuntimeError(f"flash_attention_bh takes hd <= {MAX_HEAD_DIM}, "
+                           f"got {hd}")
+    if B * H > 65535:
+        raise RuntimeError(f"flash_attention_bh takes B*H <= 65535, got "
+                           f"{B * H}")
+    out = torch.empty_like(q)
+    if q.numel() == 0:
+        return out
+    lib = build.load("flash_attention")
+    fn = (lib.flash_attention_f32 if q.dtype == torch.float32
+          else lib.flash_attention_bf16)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H,
+            KV, S, hd, int(causal), -1 if window is None else int(window),
+            scale, stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_bh launch failed: cudaError "
+                           f"{rc}")
+    flash_attention_bh.launches += 1
+    return out
+
+
+def flash_attention_bh(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                       causal: bool = True, window: Optional[int] = None,
+                       scale: Optional[float] = None) -> torch.Tensor:
+    """q/k/v: [BH, S, hd], any S (keys at or past S are masked inside the
+    kernel; nothing is padded)."""
+    if q.dim() != 3 or q.shape != k.shape or q.shape != v.shape:
+        raise ValueError(f"flash_attention_bh takes equal [BH, S, hd] "
+                         f"shapes, got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    return attention(q[None], k[None], v[None], causal=causal,
+                     window=window, scale=scale)[0]
+
+
+flash_attention_bh.launches = 0

@@ -1,4 +1,5 @@
-"""FC matmul kernel for the H100 and the conv convenience wrappers.
+"""FC matmul kernel for the H100, the model-layout flash attention and
+the conv convenience wrappers.
 
 :func:`matmul_tiled` is the port of the Pallas TPU kernel
 ``repro/kernels/ops.py::matmul_tiled``: ``[M, Cin] @ [Cin, Cout]`` with f32
@@ -11,17 +12,38 @@ read through its leading dimension, so the plan's column slice
 ``w[:, c0:c1]`` is not copied.  ``matmul_tiled.launches`` counts kernel
 launches.
 
+``flash_attention`` is the reference's public attention wrapper on the
+model layout ``[B, H, S, hd]`` with ``[B, KV, S, hd]`` keys and values
+(GQA): it runs the kernel of
+:func:`repro_torch.kernels.flash_attention.flash_attention_bh`, which
+indexes the kv head of each query head and masks keys at or past S, so
+neither the head repeat nor the sequence padding of the reference's
+wrapper happens here.
+
 ``matmul`` / ``conv2d`` / ``dwconv2d`` route through the kernels for any
 supported geometry and fall back to the plain versions on
 :class:`UnsupportedGeometry` only.
 """
 from __future__ import annotations
 
+import math
+from typing import Optional
+
 import torch
 
 from . import build
 from .conv2d import UnsupportedGeometry, conv2d_shard, on_cpu
+from .flash_attention import attention
 from .ref import conv2d_ref, dwconv2d_ref, matmul_ref
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """q: [B, H, S, hd]; k/v: [B, KV, S, hd] with H % KV == 0; float32 or
+    bfloat16 on the card.  Scale 1/sqrt(hd), as the reference's."""
+    return attention(q, k, v, causal=causal, window=window,
+                     scale=1.0 / math.sqrt(q.shape[-1]))
 
 
 def matmul_tiled(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

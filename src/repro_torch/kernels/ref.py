@@ -1,20 +1,30 @@
-"""Plain PyTorch versions of the shard kernels (the allclose ground truth).
+"""Plain PyTorch versions of the kernels (the allclose ground truth).
 
 Each repeats its kernel's arithmetic with plain tensor operations in f32:
 the conv shard is a sum over the K*K taps of ``[Ho*Wo, Cin] @ [Cin, Cout]``
 products (a broadcast multiply for depthwise), as the TPU kernel computes
-it, and the FC shard is one f32 matrix product.  The wrappers in
-:mod:`repro_torch.kernels.conv2d` and :mod:`repro_torch.kernels.ops` run
-these for tensors that lie on the CPU; on the card they are the versions
-the kernels are held against.  Layouts are the engine's: activations
-``[H, W, C]``, conv weights HWIO, depthwise weights ``[K, K, 1, C]``.
+it, the FC shard is one f32 matrix product, and the two attention kernels
+are a masked softmax over the whole score row (paged decode: over the live
+pages gathered by table).  The wrappers in
+:mod:`repro_torch.kernels.conv2d`, :mod:`repro_torch.kernels.ops` and
+:mod:`repro_torch.kernels.flash_attention` run these for tensors that lie
+on the CPU; on the card they are the versions the kernels are held
+against.  Layouts are the engine's: activations ``[H, W, C]``, conv
+weights HWIO, depthwise weights ``[K, K, 1, C]``; attention ``[..., S,
+hd]`` and paged pools ``[BH, P, page_size, hd]``.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import math
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+#: the finite mask value of the reference's attention kernels: a block
+#: that is masked in full gives a correction exp(NEG_INF - m) of 0, never
+#: a NaN
+NEG_INF = -1e30
 
 
 def conv2d_shard_ref(x: torch.Tensor, w: torch.Tensor, *,
@@ -61,3 +71,64 @@ def dwconv2d_ref(x: torch.Tensor, w: torch.Tensor, *, padding: int = 0,
 def matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x: [M, Cin] @ w: [Cin, Cout] in f32 accumulation."""
     return (x.float() @ w.float()).to(x.dtype)
+
+
+def live_pages(kv_len: int, page_size: int,
+               window: Optional[int] = None) -> Tuple[int, int]:
+    """Logical pages ``lo .. hi - 1`` that a paged decode over ``kv_len``
+    keys reads: ``hi = ceil(kv_len / page_size)``, and a window's lower
+    bound ``kv_len - window`` floored to the start of its page."""
+    hi = -(-kv_len // page_size)
+    lo = 0 if window is None else max(0, (kv_len - window) // page_size)
+    return lo, hi
+
+
+def flash_decode_paged_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, page_table, kv_len: int,
+                           *, window: Optional[int] = None,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """Single-query attention over a paged KV cache: ``q`` [BH, hd],
+    pools [BH, P, ps, hd], ``page_table`` [n_logical] (tensor or array).
+    Gathers the live logical pages by table, masks the positions at or past
+    ``kv_len`` and outside the window with :data:`NEG_INF`, then softmax.
+    Pages outside ``lo .. hi - 1`` are never read."""
+    bh, _, ps, hd = k_pages.shape
+    scale = 1.0 / math.sqrt(hd) if scale is None else scale
+    lo, hi = live_pages(kv_len, ps, window)
+    if hi <= lo:
+        return torch.zeros_like(q)
+    table = torch.as_tensor(page_table, device=k_pages.device)
+    phys = table[lo:hi].long()
+    k = k_pages[:, phys].reshape(bh, -1, hd).float()
+    v = v_pages[:, phys].reshape(bh, -1, hd).float()
+    s = torch.einsum("hd,htd->ht", q.float(), k) * scale
+    pos = lo * ps + torch.arange(k.shape[1], device=q.device)
+    valid = pos < kv_len
+    if window is not None:
+        valid &= pos > kv_len - 1 - window
+    p = torch.softmax(torch.where(valid, s, NEG_INF), dim=-1)
+    return torch.einsum("ht,htd->hd", p, v).to(q.dtype)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: Optional[int] = None,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """Naive masked softmax attention in f32: ``q`` [..., H, S, hd], ``k``
+    and ``v`` [..., KV, S, hd] with ``H % KV == 0`` (query head ``h`` reads
+    kv head ``h // (H / KV)``).  Causal and sliding-window masks as the
+    kernel's; the output is in the input dtype."""
+    S, hd = q.shape[-2:]
+    scale = 1.0 / math.sqrt(hd) if scale is None else scale
+    rep = q.shape[-3] // k.shape[-3]
+    kf = k.float().repeat_interleave(rep, dim=-3)
+    vf = v.float().repeat_interleave(rep, dim=-3)
+    s = q.float() @ kf.transpose(-1, -2) * scale
+    qi = torch.arange(S, device=q.device)[:, None]
+    ki = torch.arange(S, device=q.device)[None, :]
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= ki <= qi
+    if window is not None:
+        mask &= ki > qi - window
+    p = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
+    return (p @ vf).to(q.dtype)

@@ -44,7 +44,8 @@ class ExecConfig:
         if self.executor == "mesh":
             raise NotImplementedError(
                 'executor="mesh" is not ported yet: see ROADMAP.md, queue '
-                'A, "Mesh executor" (torch.distributed)')
+                'A 3, "Mesh executor" (torch.distributed), and A 4, decode '
+                'on the mesh executor')
         if self.executor != "local":
             raise ValueError(f"executor {self.executor!r} not in "
                              f"('local',)")

@@ -45,7 +45,9 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
     assert out["bad"] == []
     expected = {"repro_torch.core.dpp", "repro_torch.kernels.build",
                 "repro_torch.kernels.conv2d", "repro_torch.kernels.ops",
+                "repro_torch.kernels.flash_attention",
                 "repro_torch.runtime.engine", "repro_torch.runtime.session",
+                "repro_torch.runtime.decode", "repro_torch.runtime.kv_cache",
                 "repro_torch.configs.edge_models"}
     assert expected <= set(out["mods"])
 
