@@ -29,7 +29,9 @@ list) calls for, computed independently of the counters.
 Times are taken on the card: the warm ``Session.run`` wall time per model,
 the warm per-token decode step, and each kernel's device time over the
 calls one main-path run makes, replayed as a CUDA graph so host launch
-overhead is left out, beside the same calls through the plain version,
+overhead is left out (``conv2d_shard`` also split into its dense and
+depthwise calls, and the five call shapes of each CNN/bert kernel that
+take the most time), beside the same calls through the plain version,
 through one PyTorch library call (``F.conv2d`` after ``F.pad`` where the
 pads are asymmetric; ``torch.matmul``; gather by table then
 ``F.scaled_dot_product_attention``; ``F.scaled_dot_product_attention``)
@@ -70,6 +72,16 @@ FLASH_CASES = (
     ("unaligned non-causal", 1, 16, 16, 2000, 128, False, None, "float32"),
 )
 BF16_TOL = 2e-2                 # the reference's bf16 attention tolerance
+#: dense conv shards of the 4-node main path with few output pixels:
+#: rows, width, cin, cout, k, stride, padding of the layer
+SKINNY_CONVS = (
+    (4, 7, 512, 512, 3, 1, 1),      # resnet18 layer4, 14 output pixels
+    (2, 7, 512, 512, 3, 1, 1),      # resnet18 layer4, 7 output pixels
+    (6, 14, 256, 256, 3, 1, 1),     # resnet18 layer3
+    (5, 14, 256, 512, 3, 2, 1),     # resnet18 layer4 transition
+    (2, 7, 1024, 1024, 1, 1, 0),    # mobilenet pw13
+)
+TOP_SHAPES = 5                  # recorded call shapes printed per kernel
 DECODE_TOL = 1e-5               # the reference's decode-kernel tolerance
 
 
@@ -246,12 +258,13 @@ def phase_kernel_grid(dev, errs):
     """Each kernel against its plain version on the card at the shapes of
     the edge models: every conv geometry at its first full-width layer x
     every shard pad signature (strided-view and contiguous inputs, and a
-    channel-view weight), and the bert-base and classifier-head FC
-    shapes (whole and column-sliced weights)."""
+    channel-view weight), the skinny shard shapes of ``SKINNY_CONVS``, and
+    the bert-base (whole sequence and 4-node shards) and classifier-head
+    FC shapes (whole and column-sliced weights)."""
     import torch
     from repro_torch.configs.edge_models import EDGE_MODELS
     from repro_torch.core.graph import ConvT, shard_halo_pads
-    from repro_torch.kernels.conv2d import conv2d_shard
+    from repro_torch.kernels.conv2d import conv2d_shard, shard_out_shape
     from repro_torch.kernels.ops import matmul_tiled
     from repro_torch.kernels.ref import conv2d_shard_ref, matmul_ref
 
@@ -285,12 +298,35 @@ def phase_kernel_grid(dev, errs):
                 errs["conv2d_shard"] = max(errs["conv2d_shard"],
                                            abs_err(out, ref))
                 n += 1
+    n_first = n
+    for rows, width, cin, cout, k, s, p in SKINNY_CONVS:
+        w = (torch.randn((k, k, cin, cout), generator=gen, device=dev)
+             / (k * k * cin) ** 0.5)
+        big = torch.randn((rows + 2, width + 2, cin), generator=gen,
+                          device=dev)
+        view = big[1:1 + rows, 1:1 + width]
+        for pads in shard_halo_pads(p):
+            if min(shard_out_shape(rows, width, k, s, pads)) <= 0:
+                continue
+            for x in (view, view.contiguous()):
+                out = conv2d_shard(x, w, pads=pads, stride=s)
+                ref = conv2d_shard_ref(x, w, pads=pads, stride=s)
+                torch.cuda.synchronize()
+                e = rel_err(out, ref)
+                check(e < TOL, f"conv2d_shard [{rows},{width},{cin}] k{k} "
+                               f"s{s} -> {cout} pads={pads}: "
+                               f"scale-normalised error {e}")
+                errs["conv2d_shard"] = max(errs["conv2d_shard"],
+                                           abs_err(out, ref))
+                n += 1
     print(f"phase 2: conv2d_shard == plain on {n} full-width cases "
-          f"({len(first)} geometries x pad signatures x 2 layouts); "
-          f"max abs err {errs['conv2d_shard']:.3g}", flush=True)
+          f"({n_first} over {len(first)} geometries x pad signatures x 2 "
+          f"layouts, {n - n_first} over {len(SKINNY_CONVS)} skinny shard "
+          f"shapes); max abs err {errs['conv2d_shard']:.3g}", flush=True)
     shapes = [(128, 768, 2304), (128, 2304, 768), (128, 768, 3072),
-              (128, 3072, 768), (1, 1024, 1000), (1, 512, 1000),
-              (1, 2048, 1000), (1, 200, 100)]
+              (128, 3072, 768), (32, 768, 2304), (32, 2304, 768),
+              (32, 768, 3072), (32, 3072, 768), (1, 1024, 1000),
+              (1, 512, 1000), (1, 2048, 1000), (1, 200, 100)]
     n = 0
     for m, cin, cout in shapes:
         x = torch.randn((m, cin), generator=gen, device=dev)
@@ -439,6 +475,24 @@ def phase_main_path(dev, name, kw, seed, totals, errs, card):
                                        for a, b, _ in mm_calls]),
             library_ms=graph_ms(lambda: [torch.matmul(a, b)
                                          for a, b, _ in mm_calls]))
+    if conv_calls:
+        split = {}
+        for label, dw in (("dense", False), ("depthwise", True)):
+            cs = [c for c in conv_calls if c[2].get("depthwise", False) == dw]
+            if cs:
+                split[label] = dict(
+                    calls=len(cs),
+                    ms=graph_ms(lambda: [conv2d_shard(a, b, **c)
+                                         for a, b, c, _ in cs]),
+                    library_ms=graph_ms(lambda: [
+                        library_conv(a, b, c["pads"], c["stride"], dw)
+                        for a, b, c, _ in cs]))
+        row["conv2d_shard"]["split"] = split
+        print(f"phase 4: {name}: conv2d_shard by kind: " + "; ".join(
+            f"{k} {v['calls']} calls {v['ms']:.4f} ms (library "
+            f"{v['library_ms']:.4f})" for k, v in split.items())
+            + f" [{card}]", flush=True)
+    top_shapes(name, conv_calls, mm_calls, card)
     parts = [f"phase 4: {name}: warm Session.run {row['run_ms']:.3f} ms "
              f"(median of 3, synchronised)"]
     for kname in ("conv2d_shard", "matmul_tiled"):
@@ -452,6 +506,58 @@ def phase_main_path(dev, name, kw, seed, totals, errs, card):
                 f"{r['flops'] / 1e9:.3f} GFLOP, {r['bytes'] / 1e6:.2f} MB)")
     print("; ".join(parts) + f" [{card}]", flush=True)
     return row
+
+
+def top_shapes(name, conv_calls, mm_calls, card):
+    """Print the TOP_SHAPES recorded call shapes of each kernel that take
+    the most kernel time in one run (all calls of a shape replayed as one
+    CUDA graph), each with its tile plan and the library call's time."""
+    import torch
+    from repro_torch.kernels import gemm
+    from repro_torch.kernels.conv2d import conv2d_shard
+    from repro_torch.kernels.ops import matmul_tiled
+
+    def plan(m, n, k):
+        p = gemm.plan_gemm(m, n, k)
+        return f"bm{p.cfg.bm} x {p.splits} splits, {p.blocks} blocks"
+
+    groups = {"conv2d_shard": {}, "matmul_tiled": {}}
+    for xs, w, kw, out in conv_calls:
+        dw = kw.get("depthwise", False)
+        key = (tuple(xs.shape), tuple(w.shape), kw["stride"], kw["pads"], dw)
+        groups["conv2d_shard"].setdefault(key, []).append((xs, w, kw, out))
+    for xs, w, out in mm_calls:
+        groups["matmul_tiled"].setdefault(
+            (tuple(xs.shape), tuple(w.shape)), []).append((xs, w, out))
+    for kname, by_shape in groups.items():
+        timed = []
+        for key, cs in by_shape.items():
+            if kname == "conv2d_shard":
+                ms = graph_ms(lambda: [conv2d_shard(a, b, **c)
+                                       for a, b, c, _ in cs], reps=5)
+                lib = graph_ms(lambda: [
+                    library_conv(a, b, c["pads"], c["stride"],
+                                 c.get("depthwise", False))
+                    for a, b, c, _ in cs], reps=5)
+                (hl, wl, cin), (k, _, _, cout), s, pads, dw = key
+                ho, wo, co = cs[0][3].shape
+                desc = (f"{'dw' if dw else 'dense'} [{hl},{wl},{cin}] "
+                        f"k{k} s{s} pads {pads} -> [{ho},{wo},{co}]")
+                if not dw:
+                    desc += f" ({plan(ho * wo, co, k * k * cin)})"
+            else:
+                ms = graph_ms(lambda: [matmul_tiled(a, b)
+                                       for a, b, _ in cs], reps=5)
+                lib = graph_ms(lambda: [torch.matmul(a, b)
+                                        for a, b, _ in cs], reps=5)
+                (m, k), (_, n) = key
+                desc = f"[{m},{k}] @ [{k},{n}] ({plan(m, n, k)})"
+            timed.append((ms, lib, len(cs), desc))
+        timed.sort(reverse=True)
+        for ms, lib, cnt, desc in timed[:TOP_SHAPES]:
+            print(f"phase 4: {name}: top {kname} shape: {desc}: {cnt} "
+                  f"calls {ms:.4f} ms ({ms / cnt * 1e3:.1f} us a call; "
+                  f"library {lib:.4f}) [{card}]", flush=True)
 
 
 # ---------------------------------------------------------------------------

@@ -3,8 +3,9 @@
 Each source compiles with ``nvcc`` into a shared library with a plain C
 interface, loaded with ``ctypes``: no PyTorch headers, so a build takes
 seconds.  Libraries land in ``build/repro_torch/`` at the repository root
-(ignored by git), named by a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one is reused.  All missing libraries of
+(ignored by git), named by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header rebuilds and
+an unchanged one is reused.  All missing libraries of
 one :func:`build_all` call compile in parallel, one ``nvcc`` per source.
 
 Nothing here runs at import: the first CUDA launch of a wrapper calls
@@ -38,11 +39,13 @@ _F = ctypes.c_float
 #: stream as c_void_p, so 64-bit addresses are never truncated)
 SIGNATURES: Dict[str, Dict[str, List]] = {
     "conv2d_shard": {
-        "conv2d_shard_dense_f32": [_P, _P, _P] + [_I] * 10 + [_L] * 6 + [_P],
+        "conv2d_shard_dense_f32": [_P] * 4 + [_I] * 10 + [_L] * 6
+        + [_I] * 5 + [_P],
         "conv2d_shard_dw_f32": [_P, _P, _P] + [_I] * 9 + [_L] * 5 + [_P],
     },
     "matmul_tiled": {
-        "matmul_tiled_f32": [_P, _P, _P] + [_I] * 3 + [_L] * 3 + [_P],
+        "matmul_tiled_f32": [_P] * 4 + [_I] * 3 + [_L] * 3 + [_I] * 5
+        + [_P],
     },
     "flash_decode_paged": {
         "flash_decode_paged_f32": [_P] * 5 + [_I] * 6 + [_F, _P],
@@ -68,10 +71,14 @@ def nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
-    """Where the library of ``csrc/<name>.cu`` lives for this source."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    """Where the library of ``csrc/<name>.cu`` lives for this source, the
+    shared headers ``csrc/*.cuh`` and the flags: editing any of them
+    rebuilds."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:

@@ -16,8 +16,12 @@ in ``csrc/conv2d_shard.cu`` or raise: a wrong device, dtype or stride is a
 per-record geometry fallback cannot swallow them.  The input is read in
 place through its row/column strides and the weight through its four
 strides: the engine's halo slice ``x[r0:r1, c0:c1, :]`` and an OutC shard's
-``w[..., c0:c1]`` are never copied.  ``conv2d_shard.launches`` counts
-kernel launches.
+``w[..., c0:c1]`` are never copied.  Dense shards run the implicit-GEMM
+tile loop of ``csrc/gemm_f32.cuh``, whose tile, K split and load widths
+:mod:`repro_torch.kernels.gemm` picks per call (a split call also runs
+the kernel's reduction pass); depthwise shards run their own kernel.
+``conv2d_shard.launches`` counts the calls that ran the kernel, one per
+call.
 """
 from __future__ import annotations
 
@@ -25,7 +29,7 @@ from typing import Tuple
 
 import torch
 
-from . import build
+from . import build, gemm
 from .ref import conv2d_shard_ref
 
 Pads = Tuple[int, int, int, int]   # (top, bottom, left, right)
@@ -110,10 +114,12 @@ def conv2d_shard(x: torch.Tensor, w: torch.Tensor, *,
             x.data_ptr(), w.data_ptr(), out.data_ptr(), Hl, Wl, cin, K,
             stride, pt, pl_, out_h, out_w, sxh, sxw, swh, sww, swo, stream)
     else:
+        ws, ws_ptr, tail = gemm.launch_args(x, w, out_h * out_w, cout,
+                                            K * K * cin, cin)
         rc = lib.conv2d_shard_dense_f32(
-            x.data_ptr(), w.data_ptr(), out.data_ptr(), Hl, Wl, cin, cout, K,
-            stride, pt, pl_, out_h, out_w, sxh, sxw, swh, sww, swi, swo,
-            stream)
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), ws_ptr, Hl, Wl, cin,
+            cout, K, stride, pt, pl_, out_h, out_w, sxh, sxw, swh, sww, swi,
+            swo, *tail, stream)
     if rc != 0:
         raise RuntimeError(f"conv2d_shard launch failed: cudaError {rc}")
     conv2d_shard.launches += 1

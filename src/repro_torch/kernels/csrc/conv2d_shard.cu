@@ -12,86 +12,44 @@
 // OutC shard's weight view w[..., c0:c1] are read without a copy.
 //
 // What bounds it on the H100: the dense layers of the edge models do
-// 2*Cin*K*K flops per output element against one read of the input window,
-// so at full width most of them sit above the f32 ridge (67 TFLOP/s over
-// 3.35 TB/s, ~20 flop/byte) and the bound is the CUDA-core FMA rate; the
-// narrow early pointwise layers sit below it and are bound by bytes.
-// This first kernel does not reach it: it keeps no tiles in shared memory,
-// and each weight load feeds PIX FMAs (one register tile of PIX output
-// pixels per thread).  Neighbouring threads take neighbouring output
-// channels, so weight loads w[kh, kw, ci, co] coalesce and input loads are
-// warp-wide broadcasts served from L1.  Shared-memory tiling, wgmma/TF32
-// options and TMA are later work.  Depthwise layers do 2*K*K flops per
-// output element and are bound by bytes; their kernel gives each thread
-// one (ho, wo, c) output with c fastest, so every tap is a coalesced load.
+// 2*Cin*K*K flops per output element.  On the main path (4 nodes, INH
+// row shards) they are small: ResNet-18's late 3x3 512->512 shards have
+// 7-14 output pixels against K*K*Cin = 4608, its 3x3 64->64 shards 784
+// pixels, the Cin = 3 stems K*K*Cin = 27 and 147.  Alone, each call is
+// bound by the bytes it moves; over a pass, by how many launches fit in
+// the time.
+//
+// The design: an implicit GEMM, the shared tile loop in gemm_f32.cuh.
+// M = the shard's output pixels, K = (kh, kw, ci) flattened, N = the Cout
+// slice.  32 x 64 block tiles (8 x 64 for shards of at most 8 pixels;
+// chosen per call by repro_torch/kernels/gemm.py), with 32-deep slabs of
+// the implicit im2col tile and the weight staged through a 3-stage
+// cp.async ring in shared memory, 4x4 register tiles, and four groups of
+// 128 threads splitting each slab's depth (two for shards of 9-32
+// pixels).  The graph-boundary pads are zero-fill when the A tile is filled (a
+// cp.async with source size 0), the counterpart of the TPU kernel's
+// zero-filled VMEM scratch: no padded copy exists in device memory.  The
+// slab runs over the flattened (kh, kw, ci) index, so the Cin = 3 stems
+// waste no lanes.  Where M tiles x N tiles would leave the card
+// under-filled, the K loop is split into chunks whose partial tiles a
+// second pass sums in a fixed order (deterministic, no atomics).  The
+// load width is chosen per call from alignment: 16-byte copies along the
+// channels where Cin % 4 == 0 and the view is aligned, 4-byte otherwise.
+//
+// Depthwise layers do 2*K*K flops per output element and are bound by
+// bytes; their kernel gives each thread one (ho, wo, c) output with c
+// fastest, so every tap is a coalesced load (neighbouring taps hit L1).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (see repro_torch/kernels/build.py).  Plain C
 // interface; each entry point launches on the given stream and returns
 // cudaGetLastError() right after the launch.
 
-#include <cuda_runtime.h>
+#include "gemm_f32.cuh"
 
 namespace {
 
-constexpr int CO_THREADS = 64;  // output channels per block (threadIdx.x)
-constexpr int PIX_GROUPS = 4;   // pixel groups per block (threadIdx.y)
-constexpr int PIX = 4;          // output pixels per thread (register tile)
 constexpr int DW_THREADS = 256;
-
-__global__ void conv_dense_kernel(
-    const float* __restrict__ x, const float* __restrict__ w,
-    float* __restrict__ out, int Hl, int Wl, int Cin, int Cout, int K,
-    int S, int pt, int pl, int Ho, int Wo, long long sxh, long long sxw,
-    long long swh, long long sww, long long swi, long long swo) {
-  const int co = blockIdx.y * CO_THREADS + threadIdx.x;
-  const long long npix = (long long)Ho * Wo;
-  const long long p0 =
-      ((long long)blockIdx.x * PIX_GROUPS + threadIdx.y) * PIX;
-  if (co >= Cout || p0 >= npix) return;  // no barrier below: safe
-
-  int hb[PIX], wb[PIX];
-  bool pv[PIX];
-#pragma unroll
-  for (int j = 0; j < PIX; ++j) {
-    const long long p = p0 + j;
-    pv[j] = p < npix;
-    const int ho = pv[j] ? (int)(p / Wo) : 0;
-    const int wo = pv[j] ? (int)(p % Wo) : 0;
-    hb[j] = ho * S - pt;
-    wb[j] = wo * S - pl;
-  }
-  float acc[PIX];
-#pragma unroll
-  for (int j = 0; j < PIX; ++j) acc[j] = 0.f;
-
-  for (int kh = 0; kh < K; ++kh) {
-    for (int kw = 0; kw < K; ++kw) {
-      const float* xp[PIX];
-      bool ok[PIX];
-#pragma unroll
-      for (int j = 0; j < PIX; ++j) {
-        const int hi = hb[j] + kh;
-        const int wi = wb[j] + kw;
-        // graph-boundary zero padding as a masked load
-        ok[j] = pv[j] && hi >= 0 && hi < Hl && wi >= 0 && wi < Wl;
-        xp[j] = ok[j] ? x + hi * sxh + wi * sxw : x;
-      }
-      const float* wp = w + kh * swh + kw * sww + co * swo;
-      for (int ci = 0; ci < Cin; ++ci) {
-        const float wv = wp[ci * swi];
-#pragma unroll
-        for (int j = 0; j < PIX; ++j) {
-          if (ok[j]) acc[j] = fmaf(xp[j][ci], wv, acc[j]);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < PIX; ++j) {
-    if (pv[j]) out[(p0 + j) * Cout + co] = acc[j];
-  }
-}
 
 __global__ void conv_dw_kernel(
     const float* __restrict__ x, const float* __restrict__ w,
@@ -124,19 +82,38 @@ __global__ void conv_dw_kernel(
 }  // namespace
 
 extern "C" int conv2d_shard_dense_f32(
-    const float* x, const float* w, float* out, int Hl, int Wl, int Cin,
-    int Cout, int K, int S, int pt, int pl, int Ho, int Wo, long long sxh,
-    long long sxw, long long swh, long long sww, long long swi,
-    long long swo, void* stream) {
-  const long long npix = (long long)Ho * Wo;
-  const long long per_block = (long long)PIX_GROUPS * PIX;
-  dim3 block(CO_THREADS, PIX_GROUPS);
-  dim3 grid((unsigned)((npix + per_block - 1) / per_block),
-            (unsigned)((Cout + CO_THREADS - 1) / CO_THREADS));
-  conv_dense_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      x, w, out, Hl, Wl, Cin, Cout, K, S, pt, pl, Ho, Wo, sxh, sxw, swh, sww,
-      swi, swo);
-  return (int)cudaGetLastError();
+    const float* x, const float* w, float* out, float* ws, int Hl, int Wl,
+    int Cin, int Cout, int K, int S, int pt, int pl, int Ho, int Wo,
+    long long sxh, long long sxw, long long swh, long long sww,
+    long long swi, long long swo, int cfg, int splits, int kchunk, int avec,
+    int bvec, void* stream) {
+  gemm_f32::Problem p;
+  p.x = x;
+  p.w = w;
+  p.out = out;
+  p.ws = ws;
+  p.M = Ho * Wo;
+  p.N = Cout;
+  p.Kdim = K * K * Cin;
+  p.Hl = Hl;
+  p.Wl = Wl;
+  p.Cin = Cin;
+  p.K = K;
+  p.S = S;
+  p.pt = pt;
+  p.pl = pl;
+  p.Wo = Wo;
+  p.sxh = sxh;
+  p.sxw = sxw;
+  p.swh = swh;
+  p.sww = sww;
+  p.swi = swi;
+  p.swo = swo;
+  p.ldo = Cout;
+  p.kchunk = kchunk;
+  p.splits = splits;
+  const int rc = gemm_f32::launch(p, cfg, avec, bvec, (cudaStream_t)stream);
+  return rc ? rc : (int)cudaGetLastError();
 }
 
 extern "C" int conv2d_shard_dw_f32(

@@ -7,94 +7,63 @@
 // and columns are addressed through leading dimensions (unit column
 // stride), so the plan's OutC column slice w[:, c0:c1] is read in place.
 //
-// What bounds it on the H100: the FC shapes run from the classifier heads
-// (M = 1: one read of a [K, N] weight, bound by bytes at 3.35 TB/s) to
-// bert-base ([128, 768] @ [768, 2304] and [128, 3072] @ [3072, 768],
-// ~32 flop/byte, above the f32 ridge of ~20, so bound by the 67 TFLOP/s
-// CUDA-core FMA rate).  The design: 64 x 64 output tiles per block, k
-// slabs of 16 staged through shared memory so each global element is read
-// once per tile, and a 4 x 4 register tile per thread so each shared load
-// feeds four FMAs.  Ragged edges are masked on load (zeros) and on store.
-// For M = 1 most of each tile is idle; a split-K or GEMV path, and
-// wgmma/TMA pipelining for the large shapes, are later work.
+// What bounds it on the H100: the FC shards of the main path are skinny.
+// bert-base's INH plan gives [32, K] @ [K, N] at 4 nodes (K, N in 768,
+// 2304, 3072): 2*32*K*N flops on 4*K*N weight bytes, 16 flop/byte, below
+// the f32 ridge of 67 TFLOP/s over 3.35 TB/s (~20), so the work is
+// streaming the weight.  The classifier heads ([1, K] @ [K, 250] column
+// views) are GEMVs, bound by bytes too.
+//
+// The design: a weight-streaming skinny GEMM, the 1x1 case of the shared
+// implicit-GEMM tile loop in gemm_f32.cuh over an [M, 1, K] map.  Each
+// block owns up to 32 rows x 64 columns and one K chunk; the grid is N
+// tiles x split-K chunks, sized by the caller (repro_torch/kernels/gemm.py)
+// to about three waves over the 132 SMs, so a [32, 768] @ [768, 2304]
+// shard runs 36 x 8 blocks.  x and w slabs stream through a 3-stage
+// cp.async ring (16-byte copies where the pointer and leading dimension
+// allow, 4-byte otherwise: an odd node's head view starts 1000 bytes past
+// a 16-byte boundary).  Each thread keeps a 4x4 register tile (1x4 for
+// M <= 8), and two or four groups of 128 threads split every slab's depth,
+// so a block has 8 or 16 warps on one tile.  Split-K partial tiles go to
+// an f32 workspace and a second pass sums them in a fixed order:
+// deterministic, no atomics.
 //
 // Build: see repro_torch/kernels/build.py.  Plain C interface; the entry
 // point launches on the given stream and returns cudaGetLastError().
 
-#include <cuda_runtime.h>
-
-namespace {
-
-constexpr int BM = 64;
-constexpr int BN = 64;
-constexpr int BK = 16;
-constexpr int TM = 4;
-constexpr int TN = 4;
-constexpr int THREADS = (BM / TM) * (BN / TN);  // 256
-
-__global__ void __launch_bounds__(THREADS) matmul_kernel(
-    const float* __restrict__ x, const float* __restrict__ w,
-    float* __restrict__ out, int M, int N, int K, long long ldx,
-    long long ldw, long long ldo) {
-  __shared__ float xs[BK][BM + 4];  // x tile stored k-major
-  __shared__ float ws[BK][BN];
-  const int tid = threadIdx.x;
-  const int tx = tid % (BN / TN);
-  const int ty = tid / (BN / TN);
-  const int row0 = blockIdx.y * BM;
-  const int col0 = blockIdx.x * BN;
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int i = tid; i < BM * BK; i += THREADS) {
-      const int m = i / BK, k = i % BK;
-      const int gm = row0 + m, gk = k0 + k;
-      xs[k][m] = (gm < M && gk < K) ? x[gm * ldx + gk] : 0.f;
-    }
-    for (int i = tid; i < BK * BN; i += THREADS) {
-      const int k = i / BN, n = i % BN;
-      const int gk = k0 + k, gn = col0 + n;
-      ws[k][n] = (gk < K && gn < N) ? w[gk * ldw + gn] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      float a[TM], b[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = xs[k][ty * TM + i];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = ws[k][tx * TN + j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int gm = row0 + ty * TM + i;
-    if (gm >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int gn = col0 + tx * TN + j;
-      if (gn < N) out[gm * ldo + gn] = acc[i][j];
-    }
-  }
-}
-
-}  // namespace
+#include "gemm_f32.cuh"
 
 extern "C" int matmul_tiled_f32(const float* x, const float* w, float* out,
-                                int M, int N, int K, long long ldx,
-                                long long ldw, long long ldo, void* stream) {
-  dim3 grid((unsigned)((N + BN - 1) / BN), (unsigned)((M + BM - 1) / BM));
-  matmul_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      x, w, out, M, N, K, ldx, ldw, ldo);
-  return (int)cudaGetLastError();
+                                float* ws, int M, int N, int K,
+                                long long ldx, long long ldw, long long ldo,
+                                int cfg, int splits, int kchunk, int avec,
+                                int bvec, void* stream) {
+  gemm_f32::Problem p;
+  p.x = x;
+  p.w = w;
+  p.out = out;
+  p.ws = ws;
+  p.M = M;
+  p.N = N;
+  p.Kdim = K;
+  // the [M, 1, K] map of a 1x1 conv: row m is output pixel (m, 0)
+  p.Hl = M;
+  p.Wl = 1;
+  p.Cin = K;
+  p.K = 1;
+  p.S = 1;
+  p.pt = 0;
+  p.pl = 0;
+  p.Wo = 1;
+  p.sxh = ldx;
+  p.sxw = 0;
+  p.swh = 0;
+  p.sww = 0;
+  p.swi = ldw;
+  p.swo = 1;
+  p.ldo = ldo;
+  p.kchunk = kchunk;
+  p.splits = splits;
+  const int rc = gemm_f32::launch(p, cfg, avec, bvec, (cudaStream_t)stream);
+  return rc ? rc : (int)cudaGetLastError();
 }

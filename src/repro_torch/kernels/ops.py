@@ -3,14 +3,17 @@ the conv convenience wrappers.
 
 :func:`matmul_tiled` is the port of the Pallas TPU kernel
 ``repro/kernels/ops.py::matmul_tiled``: ``[M, Cin] @ [Cin, Cout]`` with f32
-accumulation, computed by the hand-written shared-memory-tiled kernel in
-``csrc/matmul_tiled.cu`` (no library GEMM).  It raises
+accumulation, computed by the hand-written weight-streaming kernel in
+``csrc/matmul_tiled.cu`` (the 1x1 case of the implicit-GEMM tile loop in
+``csrc/gemm_f32.cuh``; no library GEMM).  :mod:`repro_torch.kernels.gemm`
+picks its tile, K split and load widths per call; a split call also runs
+the kernel's reduction pass, and still counts one launch.  It raises
 :class:`UnsupportedGeometry` on a zero-size dimension; CPU tensors run the
 plain version, CUDA tensors launch the kernel or raise (see
 :mod:`repro_torch.kernels.conv2d` for the dispatch rules).  The weight is
 read through its leading dimension, so the plan's column slice
-``w[:, c0:c1]`` is not copied.  ``matmul_tiled.launches`` counts kernel
-launches.
+``w[:, c0:c1]`` is not copied.  ``matmul_tiled.launches`` counts the
+calls that ran the kernel.
 
 ``flash_attention`` is the reference's public attention wrapper on the
 model layout ``[B, H, S, hd]`` with ``[B, KV, S, hd]`` keys and values
@@ -31,7 +34,7 @@ from typing import Optional
 
 import torch
 
-from . import build
+from . import build, gemm
 from .conv2d import UnsupportedGeometry, conv2d_shard, on_cpu
 from .flash_attention import attention
 from .ref import conv2d_ref, dwconv2d_ref, matmul_ref
@@ -63,11 +66,12 @@ def matmul_tiled(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"matmul_tiled needs unit column strides, got "
                            f"{x.stride()} and {w.stride()}")
     out = torch.empty((M, cout), dtype=torch.float32, device=x.device)
+    ws, ws_ptr, tail = gemm.launch_args(x, w, M, cout, cin, cin)
     lib = build.load("matmul_tiled")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = lib.matmul_tiled_f32(x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                              M, cout, cin, x.stride(0), w.stride(0), cout,
-                              stream)
+                              ws_ptr, M, cout, cin, x.stride(0), w.stride(0),
+                              cout, *tail, stream)
     if rc != 0:
         raise RuntimeError(f"matmul_tiled launch failed: cudaError {rc}")
     matmul_tiled.launches += 1

@@ -23,8 +23,8 @@ from repro_torch import (AnalyticEstimator, DecodeSession, ExecConfig,
 from repro_torch import Testbed as TorchTestbed
 from repro_torch.configs.edge_models import EDGE_MODELS
 from repro_torch.core.graph import ConvT, conv_geometries, shard_halo_pads
-from repro_torch.kernels import ops
-from repro_torch.kernels.conv2d import conv2d_shard
+from repro_torch.kernels import gemm, ops
+from repro_torch.kernels.conv2d import conv2d_shard, shard_out_shape
 from repro_torch.kernels.flash_attention import (flash_attention_bh,
                                                  flash_decode_paged)
 from repro_torch.kernels.ops import matmul_tiled
@@ -131,6 +131,189 @@ def test_wrappers_raise_on_operands_the_kernels_do_not_take(cuda):
     with pytest.raises(RuntimeError, match="unit column strides"):
         matmul_tiled(torch.randn(4, 6, device=cuda).t(),
                      torch.randn(4, 3, device=cuda))
+
+
+# ---------------------------------------------------------------------------
+# the implicit-GEMM tile loop at the main path's shapes, every route
+# ---------------------------------------------------------------------------
+
+def _forced(cfg, splits):
+    """A plan_gemm stand-in that takes tile config ``cfg`` and (at most)
+    ``splits`` K chunks, to drive one route of the tile loop."""
+    return lambda m, n, k: gemm.split_plan(cfg, m, n, k, splits)
+
+
+def _route(plan, x, cin, w):
+    return (plan.cfg.index, plan.splits > 1, gemm.x_vec(x, cin),
+            gemm.w_vec(w))
+
+
+@pytest.mark.parametrize("m,cin,cout", [(32, 768, 2304), (32, 2304, 768),
+                                        (32, 768, 3072), (32, 3072, 768)])
+def test_matmul_kernel_on_bert_shard_shapes(cuda, m, cin, cout):
+    """bert-base's INH shards at 4 nodes: 32 of 128 rows; split K."""
+    gen = torch.Generator(device=cuda).manual_seed(cin + cout)
+    x = torch.randn((m, cin), generator=gen, device=cuda)
+    w = torch.randn((cin, cout), generator=gen, device=cuda) / cin ** 0.5
+    plan = gemm.plan_gemm(m, cout, cin)
+    assert plan.splits > 1 and plan.blocks >= gemm.SMS
+    n0 = matmul_tiled.launches
+    out = matmul_tiled(x, w)
+    assert matmul_tiled.launches == n0 + 1
+    assert _rel_err(out, matmul_ref(x, w)) < 1e-4
+
+
+@pytest.mark.parametrize("cin", [512, 1024])
+def test_matmul_kernel_on_head_column_views(cuda, cin):
+    """The classifier heads at 4 nodes: [1, cin] @ w[:, c0:c0+250] with
+    ldw 1000; odd nodes' views start 1000 bytes past a 16-byte boundary
+    and take the 4-byte weight route."""
+    gen = torch.Generator(device=cuda).manual_seed(cin)
+    x = torch.randn((1, cin), generator=gen, device=cuda)
+    w = torch.randn((cin, 1000), generator=gen, device=cuda) / cin ** 0.5
+    routes = set()
+    for node in range(4):
+        wv = w[:, 250 * node:250 * (node + 1)]
+        assert wv.stride() == (1000, 1)
+        routes.add(gemm.w_vec(wv))
+        out = matmul_tiled(x, wv)
+        assert _rel_err(out, matmul_ref(x, wv)) < 1e-4, node
+    assert routes == {True, False}
+
+
+@pytest.mark.parametrize("cfg", gemm.CONFIGS, ids=lambda c: f"bm{c.bm}")
+def test_kernels_with_k_off_the_slab(cuda, monkeypatch, cfg):
+    """K not a multiple of any slab depth, with and without a split: the
+    last slab's ragged end is zero-filled, not read."""
+    gen = torch.Generator(device=cuda).manual_seed(cfg.index)
+    for splits in (1, 3):
+        monkeypatch.setattr(gemm, "plan_gemm", _forced(cfg, splits))
+        for m, k, n in ((cfg.bm - 3, 37, 70), (cfg.bm + 5, 101, 130)):
+            x = torch.randn((m, k), generator=gen, device=cuda)
+            w = torch.randn((k, n), generator=gen, device=cuda)
+            assert _rel_err(matmul_tiled(x, w), matmul_ref(x, w)) < 1e-4
+        x = torch.randn((6, 7, 19), generator=gen, device=cuda)   # K = 171
+        w = torch.randn((3, 3, 19, 33), generator=gen, device=cuda)
+        out = conv2d_shard(x, w, pads=(1, 0, 1, 1), stride=1)
+        ref = conv2d_shard_ref(x, w, pads=(1, 0, 1, 1), stride=1)
+        assert _rel_err(out, ref) < 1e-4
+
+
+@pytest.mark.parametrize("rows", [4, 2])
+def test_conv_kernel_on_resnet_late_skinny_shards(cuda, rows):
+    """ResNet-18's 3x3 512->512 shards at 4 nodes ([4, 7, 512] and
+    [2, 7, 512] slices, 7-14 output pixels, K = 4608) on every pad
+    signature a shard of a padding-1 conv can occupy."""
+    gen = torch.Generator(device=cuda).manual_seed(rows)
+    w = torch.randn((3, 3, 512, 512), generator=gen, device=cuda) / 48.0
+    big = torch.randn((rows + 2, 9, 512), generator=gen, device=cuda)
+    x = big[1:1 + rows, 1:8]
+    for pads in shard_halo_pads(1):
+        if shard_out_shape(rows, 7, 3, 1, pads)[0] <= 0:
+            continue
+        out = conv2d_shard(x, w, pads=pads, stride=1)
+        ref = conv2d_shard_ref(x, w, pads=pads, stride=1)
+        torch.cuda.synchronize()
+        assert _rel_err(out, ref) < 1e-4, pads
+
+
+@pytest.mark.parametrize("k,rows", [(3, 59), (7, 63)])
+def test_conv_kernel_on_cin3_stems_on_strided_views(cuda, k, rows):
+    """The Cin = 3 stems (MobileNet 3x3/2, ResNet-18 7x7/2) on halo views
+    of the 224-wide input: 12-byte pixels, 4-byte activation route, K =
+    27 and 147 over the flattened (kh, kw, ci) index."""
+    gen = torch.Generator(device=cuda).manual_seed(k)
+    cout = 32 if k == 3 else 64
+    w = torch.randn((k, k, 3, cout), generator=gen, device=cuda) / k
+    img = torch.randn((224, 230, 3), generator=gen, device=cuda)
+    p = k // 2
+    for r0, pads in ((0, (p, 0, p, p - 1)), (50, (0, 0, p, p - 1)),
+                     (224 - rows, (0, p - 1, p, p - 1))):
+        x = img[r0:r0 + rows, 3:227]
+        assert not gemm.x_vec(x, 3)
+        out = conv2d_shard(x, w, pads=pads, stride=2)
+        ref = conv2d_shard_ref(x, w, pads=pads, stride=2)
+        torch.cuda.synchronize()
+        assert _rel_err(out, ref) < 1e-4, (r0, pads)
+
+
+def test_pointwise_conv_kernel_with_pads_and_stride(cuda):
+    """A 1x1 conv takes the tile loop's one-tap path; a pad row or column
+    there is zero, as in the general path."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.randn((7, 9, 20), generator=gen, device=cuda)[:, 1:8, :16]
+    w = torch.randn((1, 1, 16, 24), generator=gen, device=cuda)
+    for pads, s in (((1, 0, 2, 1), 1), ((0, 1, 1, 0), 2), ((2, 2, 2, 2), 3)):
+        out = conv2d_shard(x, w, pads=pads, stride=s)
+        ref = conv2d_shard_ref(x, w, pads=pads, stride=s)
+        torch.cuda.synchronize()
+        assert _rel_err(out, ref) < 1e-4, (pads, s)
+
+
+def test_every_route_of_the_tile_loop(cuda, monkeypatch):
+    """Each tile config x split or not x 16- or 4-byte activation copies x
+    16- or 4-byte weight copies, on matmul and on a strided conv shard."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    seen = set()
+    for cfg in gemm.CONFIGS:
+        for splits in (1, 4):
+            monkeypatch.setattr(gemm, "plan_gemm", _forced(cfg, splits))
+            m, k, n = cfg.bm + 3, 96, 72
+            xb = torch.randn((m, k + 4), generator=gen, device=cuda)
+            wb = torch.randn((k, n + 4), generator=gen, device=cuda)
+            for x in (xb[:, :k], xb[:, 1:1 + k]):
+                for w in (wb[:, 4:4 + n], wb[:, 1:1 + n]):
+                    seen.add(_route(gemm.plan_gemm(m, n, k), x, k, w))
+                    assert _rel_err(matmul_tiled(x, w),
+                                    matmul_ref(x, w)) < 1e-4
+            cb = torch.randn((9, 10, 36), generator=gen, device=cuda)
+            wc = torch.randn((3, 3, 32, 40), generator=gen, device=cuda)
+            for x in (cb[1:8, 1:9, 4:36], cb[1:8, 1:9, 3:35]):
+                for w in (wc[..., 4:36], wc[..., 1:33]):
+                    out = conv2d_shard(x, w, pads=(0, 1, 1, 0), stride=1)
+                    ref = conv2d_shard_ref(x, w, pads=(0, 1, 1, 0),
+                                           stride=1)
+                    assert _rel_err(out, ref) < 1e-4
+    assert seen == {(c.index, sp, xv, wv) for c in gemm.CONFIGS
+                    for sp in (False, True) for xv in (False, True)
+                    for wv in (False, True)}
+
+
+def test_kernels_repeat_bit_for_bit(cuda):
+    """The same call twice gives the same bits: split-K sums its partial
+    tiles in a fixed order, with no atomics."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    x = torch.randn((32, 3072), generator=gen, device=cuda)
+    w = torch.randn((3072, 768), generator=gen, device=cuda)
+    assert gemm.plan_gemm(32, 768, 3072).splits > 1
+    assert torch.equal(matmul_tiled(x, w), matmul_tiled(x, w))
+    xc = torch.randn((4, 7, 512), generator=gen, device=cuda)
+    wc = torch.randn((3, 3, 512, 512), generator=gen, device=cuda)
+    assert gemm.plan_gemm(14, 512, 4608).splits > 1
+    a = conv2d_shard(xc, wc, pads=(1, 0, 1, 1))
+    assert torch.equal(a, conv2d_shard(xc, wc, pads=(1, 0, 1, 1)))
+    wd = torch.randn((3, 3, 1, 512), generator=gen, device=cuda)
+    d = conv2d_shard(xc, wd, pads=(1, 0, 1, 1), depthwise=True)
+    assert torch.equal(d, conv2d_shard(xc, wd, pads=(1, 0, 1, 1),
+                                       depthwise=True))
+
+
+def test_tile_loop_refuses_a_misaligned_vector_route(cuda, monkeypatch):
+    """A 16-byte route on an operand that is not 16-byte aligned is
+    refused by the launcher (cudaErrorInvalidValue) and raises; the
+    counter does not move."""
+    x = torch.randn(8, 65, device=cuda)[:, 1:]
+    w = torch.randn(64, 64, device=cuda)
+    monkeypatch.setattr(gemm, "x_vec", lambda *_: True)
+    n0 = matmul_tiled.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        matmul_tiled(x, w)
+    assert matmul_tiled.launches == n0
+    monkeypatch.setattr(gemm, "x_vec", lambda *_: False)
+    monkeypatch.setattr(gemm, "w_vec", lambda *_: True)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        conv2d_shard(torch.randn(5, 5, 8, device=cuda),
+                     torch.randn(3, 3, 8, 12, device=cuda)[..., 1:9])
 
 
 @pytest.mark.parametrize("nodes", [2, 4])
