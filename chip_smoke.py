@@ -36,7 +36,10 @@ through one PyTorch library call (``F.conv2d`` after ``F.pad`` where the
 pads are asymmetric; ``torch.matmul``; gather by table then
 ``F.scaled_dot_product_attention``; ``F.scaled_dot_product_attention``)
 and the least time the card could take (bytes over 3.35 TB/s or flops
-over the peak of the input type, whichever is larger).
+over the peak of the input type, whichever is larger; f32 attention at
+the 3xTF32 rate of its tensor-core route, 495 / 3 TFLOP/s).  Phase 8 also
+names the SDPA backend that served each case, the kernel's blocks per
+wave of the card, and checks that two calls give the same bits.
 
 Output: progress lines, the card's name and power limit from nvidia-smi, a
 ``{"kernels": [...]}`` line, and as the last line
@@ -54,6 +57,9 @@ ROOT = Path(__file__).resolve().parent
 TOL = 1e-4                      # scale-normalised; f32 sums in other orders
 PEAK_F32_FLOPS = 67e12          # H100 SXM, CUDA cores, f32 (data sheet)
 PEAK_BF16_FLOPS = 989e12        # H100 SXM, tensor cores, bf16 dense
+#: f32 attention runs 3xTF32 (three TF32 products per product) on the
+#: tensor cores: 495 TFLOP/s TF32 dense over 3
+PEAK_3XTF32_FLOPS = 495e12 / 3
 PEAK_BYTES = 3.35e12            # H100 SXM HBM3 (data sheet)
 NODES = 4
 MAIN_MODELS = (("mobilenet", {}), ("resnet18", {}), ("bert", {}))
@@ -826,6 +832,55 @@ def plain_attention(q, k, v, causal, window):
     return torch.cat(outs, dim=1)
 
 
+def sdpa_backend(call) -> str:
+    """The backend that ``F.scaled_dot_product_attention`` dispatches
+    ``call`` to: the first backend in PyTorch's priority order that is
+    enabled and takes the call when ``sdpa_kernel`` allows it alone."""
+    import warnings
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    enabled = {
+        SDPBackend.FLASH_ATTENTION: torch.backends.cuda.flash_sdp_enabled(),
+        SDPBackend.EFFICIENT_ATTENTION:
+            torch.backends.cuda.mem_efficient_sdp_enabled(),
+        SDPBackend.CUDNN_ATTENTION: torch.backends.cuda.cudnn_sdp_enabled(),
+        SDPBackend.MATH: torch.backends.cuda.math_sdp_enabled(),
+    }
+    for b in torch._C._get_sdp_priority_order():
+        backend = SDPBackend(b)
+        if not enabled.get(backend, False):
+            continue
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            try:
+                with sdpa_kernel([backend]):
+                    call()
+                torch.cuda.synchronize()
+            except RuntimeError:
+                continue
+        return backend.name.lower()
+    return "none"
+
+
+def flash_launch_shape(q, causal) -> dict:
+    """The launch shape of the kernel instance that takes ``q`` [B, H, S,
+    hd]: blocks, blocks an SM holds, and blocks over one wave of the
+    card."""
+    import ctypes
+    import torch
+    from repro_torch.kernels import build
+    B, H, S, hd = q.shape
+    info = (ctypes.c_int * 4)()
+    rc = build.load("flash_attention").flash_attention_occupancy(
+        int(q.dtype == torch.bfloat16), B, H, S, hd, int(causal), info)
+    check(rc == 0, f"flash_attention_occupancy failed: cudaError {rc}")
+    bq, bk, smem, per_sm = info
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    blocks = -(-S // bq) * B * H
+    return dict(blocks=blocks, per_sm=per_sm, keys_a_stage=bk,
+                smem_bytes=smem, waves=blocks / (per_sm * sms), sms=sms)
+
+
 def phase_flash(dev, errs, card):
     """ops.flash_attention at full width; returns one timing row per
     case."""
@@ -857,13 +912,17 @@ def phase_flash(dev, errs, card):
         torch.cuda.synchronize()
         check(out.dtype == q.dtype and out.shape == q.shape,
               f"{name}: output {out.dtype} {tuple(out.shape)}")
+        again = ops.flash_attention(q, k, v, causal=causal, window=window)
+        check(torch.equal(out, again),
+              f"{name}: two calls on the same inputs differ")
+        del again
         e = rel_err(out, plain)
         check(e < (TOL if f32 else BF16_TOL), f"{name}: error {e}")
         errs["flash_attention_bh"] = max(errs["flash_attention_bh"],
                                          abs_err(out, plain))
         nbytes = float(q.element_size() * (2 * q.numel() + 2 * k.numel()))
         flops = 4.0 * hd * attention_pairs(S, causal, window) * B * H
-        peak = PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS
+        peak = PEAK_3XTF32_FLOPS if f32 else PEAK_BF16_FLOPS
         t_b, t_o = nbytes / PEAK_BYTES * 1e3, flops / peak * 1e3
         rep = H // KV
         ke, ve = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
@@ -875,6 +934,11 @@ def phase_flash(dev, errs, card):
             if causal:
                 mask &= ki <= qi
         sc = 1.0 / hd ** 0.5
+
+        def library():
+            return F.scaled_dot_product_attention(
+                q, ke, ve, attn_mask=mask,
+                is_causal=causal and mask is None, scale=sc)
         row = dict(
             name=name, bytes=nbytes, flops=flops,
             bound_ms=max(t_b, t_o), bound_by="bytes" if t_b >= t_o
@@ -883,17 +947,27 @@ def phase_flash(dev, errs, card):
                                                     window=window), reps=5),
             plain_ms=graph_ms(lambda: plain_attention(q, k, v, causal,
                                                       window), reps=3),
-            library_ms=graph_ms(lambda: F.scaled_dot_product_attention(
-                q, ke, ve, attn_mask=mask,
-                is_causal=causal and mask is None, scale=sc), reps=5))
+            library_ms=graph_ms(library, reps=5),
+            sdpa_backend=sdpa_backend(library),
+            **flash_launch_shape(q, causal))
         rows.append(row)
         print(f"phase 8: {name} (B{B} H{H} KV{KV} S{S} hd{hd} "
               f"{'causal' if causal else 'non-causal'} window {window} "
-              f"{dt}): err {e:.3g}; flash_attention_bh {row['ms']:.3f} ms "
-              f"(plain {row['plain_ms']:.3f}, sdpa {row['library_ms']:.3f},"
-              f" bound {row['bound_ms']:.4f} by {row['bound_by']}; "
-              f"{flops / 1e9:.1f} GFLOP) [{card}]", flush=True)
+              f"{dt}): err {e:.3g}, two calls bit-equal; flash_attention_bh "
+              f"{row['ms']:.3f} ms, {flops / row['ms'] / 1e9:.1f} TFLOP/s "
+              f"(plain {row['plain_ms']:.3f}, sdpa {row['library_ms']:.3f} "
+              f"by its {row['sdpa_backend']} backend, bound "
+              f"{row['bound_ms']:.4f} by {row['bound_by']} at "
+              f"{peak / 1e12:.0f} TFLOP/s; {flops / 1e9:.1f} GFLOP; "
+              f"{row['blocks']} blocks, {row['per_sm']} an SM, "
+              f"{row['keys_a_stage']} keys a stage, {row['smem_bytes']} B "
+              f"shared, {row['waves']:.2f} waves of {row['sms']} SMs) "
+              f"[{card}]", flush=True)
         del ke, ve, mask, plain
+    print(f"phase 8: {len(rows)} cases: flash_attention_bh "
+          f"{sum(r['ms'] for r in rows):.3f} ms, sdpa "
+          f"{sum(r['library_ms'] for r in rows):.3f} ms, bound "
+          f"{sum(r['bound_ms'] for r in rows):.4f} ms [{card}]", flush=True)
     return rows
 
 

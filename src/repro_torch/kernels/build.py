@@ -53,6 +53,7 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     "flash_attention": {
         "flash_attention_f32": [_P] * 4 + [_I] * 7 + [_F, _P],
         "flash_attention_bf16": [_P] * 4 + [_I] * 7 + [_F, _P],
+        "flash_attention_occupancy": [_I] * 6 + [_P],
     },
 }
 

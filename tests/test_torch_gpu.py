@@ -397,6 +397,31 @@ FLASH_CASES = [
     (1, 2, 1, 700, 256, True, None, torch.float32, 1e-4),
     (1, 8, 2, 384, 128, True, None, torch.bfloat16, 2e-2),
     (1, 4, 4, 100, 64, False, None, torch.bfloat16, 2e-2),
+    # head dims off the mma depth (8 for 3xTF32, 16 for bf16), both dtypes
+    *[(1, 4, 2, 130, hd, True, None, dt, tol) for hd in (16, 40, 80, 96, 256)
+      for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2))],
+    # odd head dims: 4-byte f32 copies, plain 2-byte bf16 loads, and a
+    # 4-byte bf16 route (hd 36: 72-byte rows)
+    (1, 2, 2, 77, 33, True, None, torch.float32, 1e-4),
+    (1, 2, 2, 77, 33, False, None, torch.bfloat16, 2e-2),
+    (1, 2, 2, 77, 36, True, None, torch.bfloat16, 2e-2),
+    (1, 2, 1, 50, 1, True, None, torch.float32, 1e-4),
+    (1, 2, 1, 50, 3, False, None, torch.bfloat16, 2e-2),
+    # S around the 64-row q tile and the 32- and 64-key stages
+    *[(1, 2, 2, S, hd, causal, None, dt, tol)
+      for S in (1, 31, 33, 63, 64, 65, 127, 129) for causal in (True, False)
+      for hd, dt, tol in ((128, torch.float32, 1e-4),
+                          (64, torch.bfloat16, 2e-2))],
+    # a one-key window: each row sees only itself
+    (1, 4, 4, 200, 64, True, 1, torch.float32, 1e-4),
+    (1, 4, 4, 200, 128, False, 1, torch.bfloat16, 2e-2),
+    # GQA with H / KV = 8
+    (1, 16, 2, 300, 128, True, None, torch.float32, 1e-4),
+    (1, 16, 2, 300, 128, True, 64, torch.bfloat16, 2e-2),
+    # f32 at hd 65-128, causal, on a grid of two waves or more of 128-row
+    # blocks: two m-tiles a warp (the small causal grids above take one)
+    (1, 128, 16, 640, 96, True, None, torch.float32, 1e-4),
+    (2, 64, 8, 640, 128, True, None, torch.float32, 1e-4),
 ]
 
 
@@ -421,6 +446,99 @@ def test_flash_attention_kernel_matches_plain(cuda, B, H, KV, S, hd, causal,
         bh = flash_attention_bh(q[0], k[0], v[0], causal=causal,
                                 window=window)
         assert _rel_err(bh.float(), out[0].float()) < tol
+
+
+def test_flash_attention_f32_holds_1e4_on_peaked_scores(cuda):
+    """q and k scaled by 8 make the softmax sharply peaked: a score error
+    of TF32's size (about three digits) moves the output past 1e-4 of its
+    scale, so the case tells the 3xTF32 route from a TF32 shortcut.  The
+    second half checks that a TF32 product indeed misses here."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    B, H, S, hd = 1, 8, 512, 128
+    q = 8 * torch.randn((B, H, S, hd), generator=gen, device=cuda)
+    k = 8 * torch.randn((B, H, S, hd), generator=gen, device=cuda)
+    v = torch.randn((B, H, S, hd), generator=gen, device=cuda)
+    for causal in (True, False):
+        out = ops.flash_attention(q, k, v, causal=causal)
+        ref = flash_attention_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert _rel_err(out, ref) < 1e-4, causal
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = flash_attention_ref(q, k, v, causal=True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert _rel_err(tf32, flash_attention_ref(q, k, v, causal=True)) > 1e-4
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("scale", [-0.3, 0.0, 1e-3, 2.0])
+def test_flash_attention_bh_takes_any_scale(cuda, dtype, tol, scale):
+    """The kernel folds |scale| log2(e) into one multiply-add and negates
+    the q tile for a negative scale; a zero scale weighs the unmasked keys
+    evenly and the masked ones not at all."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = (torch.randn((6, 130, 64), generator=gen,
+                           device=cuda).to(dtype) for _ in range(3))
+    for causal, window in ((True, None), (False, 40), (True, 7)):
+        out = flash_attention_bh(q, k, v, causal=causal, window=window,
+                                 scale=scale)
+        ref = flash_attention_ref(q[None], k[None], v[None], causal=causal,
+                                  window=window, scale=scale)[0]
+        torch.cuda.synchronize()
+        assert _rel_err(out.float(), ref.float()) < tol, (causal, window)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_repeats_bit_for_bit_and_under_graph_replay(
+        cuda, dtype):
+    """Two calls on the same inputs give the same bits (no atomics, a
+    fixed order of sums), and so does a replay of a captured CUDA graph."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q = torch.randn((1, 8, 333, 128), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((1, 2, 333, 128), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((1, 2, 333, 128), generator=gen, device=cuda).to(dtype)
+    first = ops.flash_attention(q, k, v, causal=True, window=100)
+    assert torch.equal(first, ops.flash_attention(q, k, v, causal=True,
+                                                  window=100))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.flash_attention(q, k, v, causal=True, window=100)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = ops.flash_attention(q, k, v, causal=True, window=100)
+    captured.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, first)
+
+
+@pytest.mark.parametrize("dtype,offset", [(torch.float32, 1),
+                                          (torch.float32, 2),
+                                          (torch.bfloat16, 1),
+                                          (torch.bfloat16, 2)])
+def test_flash_attention_on_bases_off_16_bytes(cuda, dtype, offset):
+    """Operands that start `offset` elements into their storage: the 16-byte
+    copies give way to 4-byte copies (f32, bf16 at 4-byte bases) or plain
+    loads (bf16 at 2-byte bases)."""
+    gen = torch.Generator(device=cuda).manual_seed(offset)
+    shape = (1, 4, 150, 64)
+    n = 4 * 150 * 64
+
+    def view():
+        base = torch.randn(n + offset, generator=gen, device=cuda).to(dtype)
+        return base[offset:].view(shape)
+    q, k, v = view(), view(), view()
+    assert q.data_ptr() % 16 != 0
+    out = ops.flash_attention(q, k, v, causal=True)
+    ref = flash_attention_ref(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert _rel_err(out.float(), ref.float()) < tol
 
 
 def test_attention_wrappers_raise_on_operands_the_kernels_do_not_take(cuda):
