@@ -39,7 +39,11 @@ and the least time the card could take (bytes over 3.35 TB/s or flops
 over the peak of the input type, whichever is larger; f32 attention at
 the 3xTF32 rate of its tensor-core route, 495 / 3 TFLOP/s).  Phase 8 also
 names the SDPA backend that served each case, the kernel's blocks per
-wave of the card, and checks that two calls give the same bits.
+wave of the card, and checks that two calls give the same bits.  Phase 5
+also times the paged decode kernel at long context (``LONG_DECODE``: 4
+and 16 heads, hd 128, kv_len 4096) against its bytes bound, the plain
+version and gather + SDPA, and phase 7 prints the decode kernel's
+split-KV launch shape (blocks, cluster size, waves) at the main path's.
 
 Output: progress lines, the card's name and power limit from nvidia-smi, a
 ``{"kernels": [...]}`` line, and as the last line
@@ -89,6 +93,12 @@ SKINNY_CONVS = (
 )
 TOP_SHAPES = 5                  # recorded call shapes printed per kernel
 DECODE_TOL = 1e-5               # the reference's decode-kernel tolerance
+#: long-context paged decode, where bytes set the pace: heads, hd, page
+#: size, kv_len (a full table of kv_len / page size pages)
+LONG_DECODE = ((4, 128, 16, 4096), (16, 128, 16, 4096))
+#: the pools a long-context case rotates through, so that one pass reads
+#: more than the card's 50 MB of L2 and each call finds its pages cold
+LONG_DECODE_BYTES = 160 * 2 ** 20
 
 
 class SmokeFailure(RuntimeError):
@@ -631,6 +641,95 @@ def phase_decode_grid(dev, errs):
           flush=True)
 
 
+def decode_launch_shape(kp, vp, n_logical) -> dict:
+    """The split-KV launch of a paged decode call on pools ``kp``/``vp``
+    behind a table of ``n_logical`` pages: splits (the cluster size),
+    warps a block, blocks, the clusters the card holds at once and the
+    waves the grid takes."""
+    import ctypes
+    import importlib
+    from repro_torch.kernels import build
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    bh, _, ps, hd = kp.shape
+    splits = fa.decode_splits(bh, n_logical)
+    warps = fa.decode_warps(n_logical, ps, splits)
+    info = (ctypes.c_int * 4)()
+    rc = build.load("flash_decode_paged").flash_decode_paged_occupancy(
+        bh, hd, int(fa.decode_vec(hd, kp, vp)), splits, warps, info)
+    check(rc == 0, f"flash_decode_paged_occupancy failed: cudaError {rc}")
+    threads, smem, clusters, rows = info
+    return dict(splits=splits, warps=warps, blocks=bh * splits,
+                clusters=clusters, waves=bh / clusters,
+                rows_a_round=rows, smem_bytes=smem)
+
+
+def shape_text(shape) -> str:
+    return (f"{shape['blocks']} blocks of {shape['warps']} warps in "
+            f"clusters of {shape['splits']} ({shape['clusters']} clusters "
+            f"resident, {shape['waves']:.2f} waves; {shape['rows_a_round']} "
+            f"keys a block a round)")
+
+
+def phase_decode_long(dev, errs, card):
+    """flash_decode_paged at long context (``LONG_DECODE``), where bytes set
+    the pace: each case rotates through enough pool copies that a pass
+    reads more than the L2 holds; times against the bytes bound, the plain
+    version and gather + SDPA; returns one row per case."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_decode_paged
+    from repro_torch.kernels.ref import flash_decode_paged_ref
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    rows = []
+    for lh, hd, ps, kv_len in LONG_DECODE:
+        n_pages = kv_len // ps
+        pair = 2 * lh * n_pages * ps * hd * 4
+        copies = max(2, -(-LONG_DECODE_BYTES // pair))
+        q = torch.randn((lh, hd), generator=gen, device=dev)
+        table = torch.randperm(n_pages, generator=gen, device=dev).int()
+        pools = [(torch.randn((lh, n_pages, ps, hd), generator=gen,
+                              device=dev),
+                  torch.randn((lh, n_pages, ps, hd), generator=gen,
+                              device=dev)) for _ in range(copies)]
+        kp, vp = pools[0]
+        out = flash_decode_paged(q, kp, vp, table, kv_len)
+        plain = flash_decode_paged_ref(q, kp, vp, table, kv_len)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out).all()),
+              f"long decode lh{lh}: non-finite output")
+        e = rel_err(out, plain)
+        check(e < DECODE_TOL, f"long decode lh{lh}: error {e}")
+        errs["flash_decode_paged"] = max(errs["flash_decode_paged"],
+                                         abs_err(out, plain))
+        nbytes, _ = decode_work(q, kp, kv_len, None)
+        bound = nbytes / PEAK_BYTES * 1e3
+        sc = 1.0 / hd ** 0.5
+        row = dict(
+            heads=lh, hd=hd, ps=ps, kv_len=kv_len, bytes=nbytes,
+            bound_ms=bound,
+            ms=graph_ms(lambda: [flash_decode_paged(q, a, b, table, kv_len)
+                                 for a, b in pools]) / copies,
+            plain_ms=graph_ms(lambda: [flash_decode_paged_ref(
+                q, a, b, table, kv_len) for a, b in pools], reps=5)
+            / copies,
+            library_ms=graph_ms(lambda: [library_decode(q, a, b, table,
+                                                        kv_len, sc)
+                                         for a, b in pools], reps=5)
+            / copies,
+            **decode_launch_shape(kp, vp, n_pages))
+        rows.append(row)
+        print(f"phase 5: long decode {lh} heads hd {hd} ps {ps} kv_len "
+              f"{kv_len} ({nbytes / 1e6:.2f} MB of live K/V, {copies} pool "
+              f"copies rotated): err {e:.3g}; flash_decode_paged "
+              f"{row['ms'] * 1e3:.2f} us, {bound / row['ms'] * 100:.1f}% of "
+              f"its bytes bound {bound * 1e3:.2f} us (plain "
+              f"{row['plain_ms'] * 1e3:.2f} us, gather + sdpa "
+              f"{row['library_ms'] * 1e3:.2f} us); {shape_text(row)} "
+              f"[{card}]", flush=True)
+        del pools, kp, vp
+    return rows
+
+
 def decode_launches(spec, plan, nodes, n_steps) -> int:
     """flash_decode_paged launches of ``n_steps`` decode steps of ``plan``,
     from the plan alone: per step and layer, one per node that owns heads
@@ -799,12 +898,19 @@ def phase_decode_path(dev, errs, card):
                                      for q, a, b, t, n, _, _ in calls],
                             reps=DECODE_REPS))
     bm, by = bound_ms(nbytes, flops)
+    _, kp0, vp0, table0 = calls[0][:4]
+    shape = decode_launch_shape(kp0, vp0, len(table0))
+    check(all(c[1].shape == kp0.shape and len(c[3]) == len(table0)
+              for c in calls), "decode: recorded calls of several shapes")
     print(f"phase 7: decode warm step {step_ms:.3f} ms per token (median of "
           f"{N_NEW}, synchronised; range {steps[0]:.3f}-{steps[-1]:.3f}); "
           f"flash_decode_paged: {len(calls)} calls of one run, "
           f"{row['ms']:.3f} ms (plain {row['plain_ms']:.3f}, library "
           f"{row['library_ms']:.3f}, bound {bm:.4f} by {by}; "
-          f"{nbytes / 1e9:.3f} GB live K/V) [{card}]", flush=True)
+          f"{nbytes / 1e9:.3f} GB live K/V); a call "
+          f"{row['ms'] / len(calls) * 1e3:.3f} us on pools "
+          f"{list(kp0.shape)} behind a {len(table0)}-page table: "
+          f"{shape_text(shape)} [{card}]", flush=True)
     return row
 
 
@@ -1008,6 +1114,7 @@ def run(dev) -> dict:
     rows = [phase_main_path(dev, name, kw, seed, totals, errs, card)
             for seed, (name, kw) in enumerate(MAIN_MODELS)]
     phase_decode_grid(dev, errs)
+    phase_decode_long(dev, errs, card)
     dec = phase_decode_path(dev, errs, card)
     totals["flash_decode_paged"] = dec["launches"]
     flash = phase_flash(dev, errs, card)

@@ -3,130 +3,409 @@
 // over the live keys of one head, in f32.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py::
-// flash_decode_paged (body _decode_kernel), the attention of a decode step.
-// The scores and the value sum are computed in this kernel's own body; no
-// library call.
+// flash_decode_paged (body _decode_kernel :77, pallas_call :161), the
+// attention of a decode step.  The scores and the value sum are computed in
+// this kernel's own body; no library call.
 //
 // Layouts: q [BH, hd]; k/v pools [BH, P, ps, hd], contiguous; the page
 // table [n_logical] int32 maps logical page j (keys j*ps .. j*ps + ps - 1)
 // to its physical slot, and is read from device memory.  kv_len and window
-// are plain int arguments (window < 0: none), so one launch serves every
-// position of a decode.
+// are plain int arguments (window < 0: none).
 //
-// What it reads: the kernel walks the logical pages lo .. hi - 1 only,
-// hi = ceil(kv_len / ps) and lo the window's lower bound kv_len - window
-// floored to its page (as the reference does), so a page past the live
-// range is never touched and the table may hold anything there.  Inside a
-// page, the positions at or past kv_len or before the window are masked:
-// they are skipped before any load, which gives the same sums as the
-// reference's NEG_INF scores (their exp is exactly 0).
+// What it reads: only the live keys first .. kv_len - 1, first = kv_len -
+// window (0 without a window), so only the logical pages lo .. hi - 1 of
+// the reference (hi = ceil(kv_len / ps), lo = first floored to its page):
+// a page past the live range is never touched and the table may hold
+// anything there.  Positions inside a live page that are at or past kv_len
+// or before the window are skipped before any load, which gives the same
+// sums as the reference's NEG_INF scores (their exp is exactly 0).
 //
 // What bounds it on the H100: bytes.  Every live key and value row is read
-// once, and each row feeds 2 * hd flops, far below the f32 ridge of ~20
-// flop/byte, so the least time is the live K/V bytes over 3.35 TB/s.  The
-// design: one block per head; its 16 warps stride over the live pages, one
-// warp reads one key row and the matching value row with coalesced lanes
-// (hd / 32 floats a lane), reduces the score with shuffles and keeps its own
-// running max, sum and accumulator (online softmax, initial max NEG_INF =
-// -1e30 as in the reference, so an empty warp's correction is 0, never a
-// NaN).  The warps merge their partial states in shared memory at the end.
-// A decode step with 4 heads a node launches 4 blocks on 132 SMs, and each
-// warp waits on one row at a time: a split-KV grid is later work.
+// once and feeds 4 * hd flops, far below the f32 ridge of ~20 flop/byte,
+// so the least time is the live K/V bytes over 3.35 TB/s.  A decode step
+// at OLMo-1B widths on 4 nodes gives a call 4 heads and up to 512 keys
+// (2 MB at most), so the time goes to latency unless many SMs each keep
+// many rows in flight.  The design:
+//  * Split-KV grid: the table's n_logical pages are cut into `splits`
+//    contiguous runs of ceil(n_logical / splits) pages, chosen on the host
+//    from the head count and the table's length, never from kv_len, so
+//    one launch shape serves every position of a decode.  The grid is
+//    splits x BH blocks; the splits of one head form one thread-block
+//    cluster (up to 16 blocks, non-portable above 8).  A block whose run
+//    holds no live key loads nothing and leaves an empty state (max
+//    NEG_INF, sum 0).
+//  * Rows in flight: a block of 8 warps (runs of at most 64 keys) or 32
+//    warps (longer runs, to keep more rows in flight on its SM); each warp
+//    takes U row groups a round.  A row is read by LPR lanes, 16 bytes a
+//    lane (float4) where hd % 4 == 0 and both pools are 16-byte aligned,
+//    else 4 bytes a lane.  The round's table entries are loaded first,
+//    then all 2 * U row loads are issued before any of their math; the U
+//    scores are reduced across the row's lanes together and feed one
+//    online-softmax update a round, in base 2 (q is scaled by
+//    scale * log2(e)), with the reference's initial max NEG_INF = -1e30,
+//    so an empty run's correction is 0, never a NaN.
+//  * The merge in the same launch: the warps' states merge in shared
+//    memory in warp order into the block's (m, l, acc[hd]), which every
+//    block writes into its own slot of the cluster's rank 0 (distributed
+//    shared memory; the cluster barrier's first phase, arrived at the
+//    kernel's start, guarantees rank 0 is running).  After cluster.sync()
+//    rank 0 merges the slots in split order, divides by max(l, 1e-30) and
+//    writes the row.  Every sum runs in a fixed order and no atomics are
+//    used, so two calls on the same inputs give the same bits, and one
+//    launch is all a call takes (it can be captured in a CUDA graph).
 //
 // Build: see repro_torch/kernels/build.py.  Plain C interface; the entry
 // point launches on the given stream and returns cudaGetLastError().
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int WARPS = 16;
-constexpr int THREADS = WARPS * 32;
+// largest cluster the launch takes (above 8 it is non-portable)
+constexpr int MAX_SPLITS = 16;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float NEG_INF = -1e30f;
 
-template <int VPL>  // values a lane holds: ceil(hd / 32)
-__global__ void __launch_bounds__(THREADS) decode_kernel(
+// Shared memory of one block of `warps` warps, in 4-byte words: each warp's
+// accumulator [warps][hd] and (m, l) [warps][2]; the cluster's blocks'
+// accumulators [MAX_SPLITS][hd] and (m, l) [MAX_SPLITS][2], written by
+// every block into rank 0's copy.
+__host__ __device__ constexpr int smem_words(int hd, int warps) {
+  return (warps + MAX_SPLITS) * (hd + 2);
+}
+
+template <int W>
+struct Vec {
+  float v[W];
+};
+
+template <int W>
+__device__ __forceinline__ Vec<W> load_global(const float* p) {
+  Vec<W> r;
+  if constexpr (W == 4) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+    r.v[0] = t.x;
+    r.v[1] = t.y;
+    r.v[2] = t.z;
+    r.v[3] = t.w;
+  } else {
+    r.v[0] = __ldg(p);
+  }
+  return r;
+}
+
+template <int W>
+__device__ __forceinline__ Vec<W> zero_row() {
+  Vec<W> r;
+#pragma unroll
+  for (int e = 0; e < W; ++e) r.v[e] = 0.f;
+  return r;
+}
+
+// Merge n <= 32 (m, l) states ml[2 i], ml[2 i + 1] and element d of their
+// accumulators accs[i * stride + d], in index order.  Called by every lane
+// of a warp (lane i holds state i while the weights are formed).
+__device__ __forceinline__ void merge_states(const float* ml,
+                                             const float* accs, int stride,
+                                             int n, int d, float* m_out,
+                                             float* l_out, float* o_out) {
+  const int lane = threadIdx.x % 32;
+  const float mi = lane < n ? ml[2 * lane] : NEG_INF;
+  float mx = mi;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, off));
+  const float wi = lane < n ? exp2f(mi - mx) : 0.f;
+  float l = lane < n ? ml[2 * lane + 1] * wi : 0.f;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    l += __shfl_xor_sync(FULL, l, off);
+  float o = 0.f;
+  for (int i = 0; i < n; ++i)
+    o = fmaf(accs[i * stride + d], __shfl_sync(FULL, wi, i), o);
+  *m_out = mx;
+  *l_out = l;
+  *o_out = o;
+}
+
+// One online-softmax update with the U row groups a lane has loaded; row
+// group u is live while u * RPI < lim.
+template <int W, int NC, int U, int LPR>
+__device__ __forceinline__ void update(const float (&qr)[NC][W],
+                                       const Vec<W> (&kr)[U][NC],
+                                       const Vec<W> (&vr)[U][NC], int lim,
+                                       float& m, float& l,
+                                       float (&acc)[NC][W]) {
+  constexpr int RPI = 32 / LPR;
+  float s[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    float t = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int e = 0; e < W; ++e) t = fmaf(qr[c][e], kr[u][c].v[e], t);
+    s[u] = t;
+  }
+#pragma unroll
+  for (int off = LPR / 2; off > 0; off >>= 1)
+#pragma unroll
+    for (int u = 0; u < U; ++u) s[u] += __shfl_xor_sync(FULL, s[u], off);
+  float mx = m;
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+    if (u * RPI < lim) mx = fmaxf(mx, s[u]);
+  const float corr = exp2f(m - mx);
+  l *= corr;
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int e = 0; e < W; ++e) acc[c][e] *= corr;
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const float p = u * RPI < lim ? exp2f(s[u] - mx) : 0.f;
+    l += p;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int e = 0; e < W; ++e)
+        acc[c][e] = fmaf(p, vr[u][c].v[e], acc[c][e]);
+  }
+  m = mx;
+}
+
+// NW warps a block; W floats a load, LPR lanes a row, NC loads a lane a
+// row, U row groups a lane a round.  A lane holds the elements
+// (sub + c * LPR) * W + e of its rows.
+template <int NW, int W, int LPR, int NC, int U>
+__global__ void __launch_bounds__(NW * 32, 1) decode_kernel(
     const float* __restrict__ q, const float* __restrict__ kp,
     const float* __restrict__ vp, const int* __restrict__ table,
-    float* __restrict__ out, int n_pages, int ps, int hd, int kv_len,
-    int window, float scale) {
+    float* __restrict__ out, int n_pages, int n_logical, int ps, int hd,
+    int kv_len, int window, float scale) {
+  constexpr int RPI = 32 / LPR;       // rows one load instruction covers
+  constexpr int RPW = U * RPI;        // rows of a warp a round
+  constexpr int RPB = NW * RPW;       // rows of the block a round
   extern __shared__ float smem[];
-  float* s_acc = smem;                // [WARPS][hd]
-  float* s_m = smem + WARPS * hd;     // [WARPS]
-  float* s_l = s_m + WARPS;           // [WARPS]
-  const int bh = blockIdx.x;
+  float* s_acc = smem;                        // [NW][hd]
+  float* s_ml = s_acc + NW * hd;              // [NW][2]
+  float* c_acc = s_ml + 2 * NW;               // [MAX_SPLITS][hd]
+  float* c_ml = c_acc + MAX_SPLITS * hd;      // [MAX_SPLITS][2]
+
+  // Every block of the cluster must have started before another writes
+  // into its shared memory: arrive now, wait just before those writes.
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  cg::cluster_group cluster = cg::this_cluster();
+  const int splits = gridDim.x;
+  const int split = (int)cluster.block_rank();
+  const int bh = blockIdx.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int grp = lane / LPR, sub = lane % LPR;
   const long long pool = (long long)bh * n_pages * ps * hd;
 
-  float qr[VPL], acc[VPL];
+  // scores in base 2: q * scale * log2(e), so every exponential is exp2
+  const float qscale = scale * 1.4426950408889634f;
+  float qr[NC][W], acc[NC][W];
 #pragma unroll
-  for (int i = 0; i < VPL; ++i) {
-    const int d = lane + 32 * i;
-    qr[i] = d < hd ? q[(long long)bh * hd + d] * scale : 0.f;
-    acc[i] = 0.f;
-  }
-  float m = NEG_INF, l = 0.f;
-  const int first = window < 0 ? 0 : max(0, kv_len - window);  // first live
-  const int lo = first / ps;
-  const int hi = (kv_len + ps - 1) / ps;
-  for (int j = lo + warp; j < hi; j += WARPS) {
-    const long long base = pool + (long long)table[j] * ps * hd;
-    const int r0 = max(0, first - j * ps);
-    const int r1 = min(ps, kv_len - j * ps);
-    for (int r = r0; r < r1; ++r) {
-      const float* krow = kp + base + (long long)r * hd;
-      const float* vrow = vp + base + (long long)r * hd;
-      float kr[VPL], vr[VPL];
+  for (int c = 0; c < NC; ++c) {
 #pragma unroll
-      for (int i = 0; i < VPL; ++i) {
-        const int d = lane + 32 * i;
-        kr[i] = d < hd ? krow[d] : 0.f;
-        vr[i] = d < hd ? vrow[d] : 0.f;
-      }
-      float s = 0.f;
-#pragma unroll
-      for (int i = 0; i < VPL; ++i) s = fmaf(qr[i], kr[i], s);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(FULL, s, off);
-      const float m_new = fmaxf(m, s);
-      const float corr = expf(m - m_new);
-      const float p = expf(s - m_new);
-      l = l * corr + p;
-#pragma unroll
-      for (int i = 0; i < VPL; ++i) acc[i] = fmaf(p, vr[i], acc[i] * corr);
-      m = m_new;
+    for (int e = 0; e < W; ++e) {
+      const int d = (sub + c * LPR) * W + e;
+      qr[c][e] = d < hd ? q[(long long)bh * hd + d] * qscale : 0.f;
+      acc[c][e] = 0.f;
     }
   }
+  float m = NEG_INF, l = 0.f;
+
+  // this block's live keys k0 .. k1 - 1; a warp takes RPW of them a round
+  const int first = window < 0 ? 0 : max(0, kv_len - window);
+  const int pps = (n_logical + splits - 1) / splits;
+  const int k0 = max(first, split * pps * ps);
+  const int k1 = min(kv_len, min(n_logical, (split + 1) * pps) * ps);
+  for (int base = k0 + warp * RPW; base < k1; base += RPB) {
+    const int lim = k1 - base - grp;
+    // row base + u * RPI + grp is in-page row r of logical page lp
+    int lp = (base + grp) / ps;
+    int r = base + grp - lp * ps;
+    int phys[U], rin[U];
 #pragma unroll
-  for (int i = 0; i < VPL; ++i) {
-    const int d = lane + 32 * i;
-    if (d < hd) s_acc[warp * hd + d] = acc[i];
+    for (int u = 0; u < U; ++u) {
+      rin[u] = r;
+      phys[u] = u * RPI < lim ? __ldg(table + lp) : 0;
+      for (r += RPI; r >= ps; r -= ps) ++lp;
+    }
+    Vec<W> kr[U][NC], vr[U][NC];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const bool live = u * RPI < lim;
+      const long long at = pool + ((long long)phys[u] * ps + rin[u]) * hd;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const int e0 = (sub + c * LPR) * W;
+        if (live && e0 < hd) {
+          kr[u][c] = load_global<W>(kp + at + e0);
+          vr[u][c] = load_global<W>(vp + at + e0);
+        } else {
+          kr[u][c] = zero_row<W>();
+          vr[u][c] = zero_row<W>();
+        }
+      }
+    }
+    update<W, NC, U, LPR>(qr, kr, vr, lim, m, l, acc);
+  }
+
+  // the RPI row groups of a warp (LPR < 32), in a fixed xor tree
+#pragma unroll
+  for (int off = LPR; off < 32; off <<= 1) {
+    const float mo = __shfl_xor_sync(FULL, m, off);
+    const float lo = __shfl_xor_sync(FULL, l, off);
+    const float mx = fmaxf(m, mo);
+    const float a = exp2f(m - mx), b = exp2f(mo - mx);
+    l = l * a + lo * b;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int e = 0; e < W; ++e) {
+        const float ao = __shfl_xor_sync(FULL, acc[c][e], off);
+        acc[c][e] = acc[c][e] * a + ao * b;
+      }
+    m = mx;
+  }
+  if (grp == 0) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int e = 0; e < W; ++e) {
+        const int d = (sub + c * LPR) * W + e;
+        if (d < hd) s_acc[warp * hd + d] = acc[c][e];
+      }
   }
   if (lane == 0) {
-    s_m[warp] = m;
-    s_l[warp] = l;
+    s_ml[2 * warp] = m;
+    s_ml[2 * warp + 1] = l;
   }
   __syncthreads();
-  float mx = NEG_INF;
-  for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, s_m[w]);
-  float sum = 0.f;
-  for (int w = 0; w < WARPS; ++w) sum += s_l[w] * expf(s_m[w] - mx);
-  for (int d = threadIdx.x; d < hd; d += THREADS) {
-    float o = 0.f;
-    for (int w = 0; w < WARPS; ++w) o += s_acc[w * hd + d] * expf(s_m[w] - mx);
-    out[(long long)bh * hd + d] = o / fmaxf(sum, 1e-30f);
+
+  // the block's state, merged over its warps in warp order, goes into
+  // slot `split` of rank 0's shared memory (distributed shared memory)
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  float* r_acc = cluster.map_shared_rank(c_acc, 0);
+  float* r_ml = cluster.map_shared_rank(c_ml, 0);
+  for (int d0 = warp * 32; d0 < hd; d0 += NW * 32) {
+    const int d = d0 + lane;
+    float mb, lb, o;
+    merge_states(s_ml, s_acc, hd, NW, min(d, hd - 1), &mb, &lb, &o);
+    if (d < hd) r_acc[split * hd + d] = o;
+    if (d == 0) {
+      r_ml[2 * split] = mb;
+      r_ml[2 * split + 1] = lb;
+    }
+  }
+  cluster.sync();
+
+  // rank 0: the cluster's blocks in rank order
+  if (split == 0) {
+    for (int d0 = warp * 32; d0 < hd; d0 += NW * 32) {
+      const int d = d0 + lane;
+      float mc, lc, o;
+      merge_states(c_ml, c_acc, hd, splits, min(d, hd - 1), &mc, &lc, &o);
+      if (d < hd) out[(long long)bh * hd + d] = o / fmaxf(lc, 1e-30f);
+    }
   }
 }
 
-template <int VPL>
-void launch(const float* q, const float* kp, const float* vp,
-            const int* table, float* out, int bh, int n_pages, int ps,
-            int hd, int kv_len, int window, float scale,
-            cudaStream_t stream) {
-  const size_t smem = (size_t)(WARPS * hd + 2 * WARPS) * sizeof(float);
-  decode_kernel<VPL><<<bh, THREADS, smem, stream>>>(
-      q, kp, vp, table, out, n_pages, ps, hd, kv_len, window, scale);
+// splits x bh blocks of `warps` warps, the splits of one head one cluster
+cudaLaunchConfig_t launch_config(int bh, int splits, int warps,
+                                 int smem_bytes, cudaStream_t stream,
+                                 cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(splits, bh, 1);
+  cfg.blockDim = dim3(warps * 32, 1, 1);
+  cfg.dynamicSmemBytes = (size_t)smem_bytes;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+using Kernel = void (*)(const float*, const float*, const float*, const int*,
+                        float*, int, int, int, int, int, int, float);
+
+// An instance, its shared bytes at a head dim and the rows one of its
+// blocks reads a round.
+struct Instance {
+  Kernel kernel;
+  int smem_bytes;
+  int rows_a_round;
+};
+
+template <int NW, int W, int LPR, int NC, int U>
+cudaError_t prepare(int hd, Instance* inst) {
+  inst->kernel = decode_kernel<NW, W, LPR, NC, U>;
+  inst->smem_bytes = smem_words(hd, NW) * 4;
+  inst->rows_a_round = NW * U * (32 / LPR);
+  // once per instance: room for the shared bytes of its largest head dim
+  // (above the default 48 KB at hd 256 with 32 warps), and clusters above
+  // the portable 8
+  static bool ready = false;
+  if (!ready) {
+    cudaError_t e = cudaFuncSetAttribute(
+        inst->kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem_words(LPR * NC * W, NW) * 4);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(
+          inst->kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return e;
+    ready = true;
+  }
+  return cudaSuccess;
+}
+
+// The instance of a block width, head dim and load width.  16-byte loads
+// (vec) take LPR = hd / 4 lanes a row rounded up to 8, 16 or 32, and two
+// loads a lane above hd 128; 4-byte loads take 32 lanes a row and
+// ceil(hd / 32) loads a lane.  U, the row groups a lane loads a round, is
+// 4 in an 8-warp block and 2 in a 32-warp block (held to 64 registers a
+// thread), halved where a lane holds two 16-byte pieces of a row (hd 256)
+// and doubled where it holds at most two floats (4-byte loads, hd <= 64).
+template <int NW>
+cudaError_t pick_width(int hd, int vec, Instance* inst) {
+  constexpr int U = NW == 8 ? 4 : 2;
+  if (vec) {
+    if (hd <= 32) return prepare<NW, 4, 8, 1, U>(hd, inst);
+    if (hd <= 64) return prepare<NW, 4, 16, 1, U>(hd, inst);
+    if (hd <= 128) return prepare<NW, 4, 32, 1, U>(hd, inst);
+    return prepare<NW, 4, 32, 2, U / 2>(hd, inst);
+  }
+  if (hd <= 32) return prepare<NW, 1, 32, 1, 2 * U>(hd, inst);
+  if (hd <= 64) return prepare<NW, 1, 32, 2, 2 * U>(hd, inst);
+  if (hd <= 128) return prepare<NW, 1, 32, 4, U>(hd, inst);
+  return prepare<NW, 1, 32, 8, U / 2>(hd, inst);
+}
+
+cudaError_t pick(int hd, int vec, int warps, Instance* inst) {
+  return warps == 8 ? pick_width<8>(hd, vec, inst)
+                    : pick_width<32>(hd, vec, inst);
+}
+
+cudaError_t check_call(int bh, int hd, int vec, int splits, int warps,
+                       const void* kp, const void* vp) {
+  if (hd < 1 || hd > 256 || bh < 1 || bh > 65535 || splits < 1 ||
+      splits > MAX_SPLITS || (warps != 8 && warps != 32))
+    return cudaErrorInvalidValue;
+  if (vec && (hd % 4 != 0 || (uintptr_t)kp % 16 != 0 ||
+              (uintptr_t)vp % 16 != 0))
+    return cudaErrorInvalidValue;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -134,23 +413,43 @@ void launch(const float* q, const float* kp, const float* vp,
 extern "C" int flash_decode_paged_f32(const float* q, const float* kp,
                                       const float* vp, const int* table,
                                       float* out, int bh, int n_pages,
-                                      int ps, int hd, int kv_len, int window,
-                                      float scale, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (hd <= 32) {
-    launch<1>(q, kp, vp, table, out, bh, n_pages, ps, hd, kv_len, window,
-              scale, s);
-  } else if (hd <= 64) {
-    launch<2>(q, kp, vp, table, out, bh, n_pages, ps, hd, kv_len, window,
-              scale, s);
-  } else if (hd <= 128) {
-    launch<4>(q, kp, vp, table, out, bh, n_pages, ps, hd, kv_len, window,
-              scale, s);
-  } else if (hd <= 256) {
-    launch<8>(q, kp, vp, table, out, bh, n_pages, ps, hd, kv_len, window,
-              scale, s);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+                                      int n_logical, int ps, int hd,
+                                      int kv_len, int window, int splits,
+                                      int warps, int vec, float scale,
+                                      void* stream) {
+  cudaError_t e = check_call(bh, hd, vec, splits, warps, kp, vp);
+  if (e != cudaSuccess) return (int)e;
+  Instance inst;
+  e = pick(hd, vec, warps, &inst);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = launch_config(
+      bh, splits, warps, inst.smem_bytes, (cudaStream_t)stream, attr);
+  e = cudaLaunchKernelEx(&cfg, inst.kernel, q, kp, vp, table, out, n_pages,
+                         n_logical, ps, hd, kv_len, window, scale);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// The launch shape of a call: info = {threads a block, dynamic shared
+// bytes, clusters the card holds at once, rows a block reads a round}.
+extern "C" int flash_decode_paged_occupancy(int bh, int hd, int vec,
+                                            int splits, int warps,
+                                            int* info) {
+  cudaError_t e = check_call(bh, hd, vec, splits, warps, nullptr, nullptr);
+  if (e != cudaSuccess) return (int)e;
+  Instance inst;
+  e = pick(hd, vec, warps, &inst);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      launch_config(bh, splits, warps, inst.smem_bytes, nullptr, attr);
+  int clusters = 0;
+  e = cudaOccupancyMaxActiveClusters(&clusters, inst.kernel, &cfg);
+  if (e != cudaSuccess) return (int)e;
+  info[0] = warps * 32;
+  info[1] = inst.smem_bytes;
+  info[2] = clusters;
+  info[3] = inst.rows_a_round;
   return (int)cudaGetLastError();
 }

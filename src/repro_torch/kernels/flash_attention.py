@@ -20,6 +20,13 @@ failed build or launch are a ``RuntimeError``.  ``flash_decode_paged``
 takes float32; ``flash_attention_bh`` float32 or bfloat16 (f32
 accumulation, output in the input dtype).  ``flash_decode_paged.launches``
 and ``flash_attention_bh.launches`` count kernel launches.
+
+The paged decode kernel's launch shape is chosen here, on the host, so the
+CPU tests reach it: :func:`decode_splits` cuts each head's page table into
+split-KV runs (one block each, a head's blocks one cluster),
+:func:`decode_warps` sizes the blocks and :func:`decode_vec` chooses the
+load width; split ``s`` reads the live keys of logical pages
+``s * P .. (s + 1) * P - 1``, ``P = ceil(n_logical / splits)``.
 """
 from __future__ import annotations
 
@@ -30,6 +37,7 @@ import torch
 
 from . import build
 from .conv2d import on_cpu
+from .gemm import SMS
 from .ref import (NEG_INF, flash_attention_ref, flash_decode_paged_ref,
                   live_pages)
 
@@ -37,6 +45,13 @@ __all__ = ["NEG_INF", "flash_decode_paged", "flash_attention_bh"]
 
 #: the largest head dim the kernels take (registers and shared memory)
 MAX_HEAD_DIM = 256
+#: the most splits of a head: one split a block, the splits of a head one
+#: thread-block cluster, and 16 blocks is the largest cluster an H100
+#: schedules (non-portable above 8)
+MAX_SPLITS = 16
+#: splits of at most this many keys take a block of 8 warps; longer ones
+#: a block of 32 warps, which keeps more rows in flight on its SM
+NARROW_KEYS = 64
 
 
 def _need_contiguous(name: str, *tensors: torch.Tensor) -> None:
@@ -50,6 +65,35 @@ def _need_contiguous(name: str, *tensors: torch.Tensor) -> None:
 def _check_window(window: Optional[int]) -> None:
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
+
+
+def decode_splits(bh: int, n_logical: int) -> int:
+    """Splits of each head's page table in one ``flash_decode_paged``
+    launch: as many as keep the ``bh x splits`` blocks within half the
+    card's SMs (so every head's cluster is resident at once), at most
+    :data:`MAX_SPLITS` and one a page, then as few as cut the table into
+    runs of the same whole number of pages.  It depends on the head count and the table's length (the
+    cache's capacity in pages), never on ``kv_len``: one launch shape
+    serves every position of a decode."""
+    if bh < 1 or n_logical < 1:
+        return 1
+    want = max(1, min(MAX_SPLITS, n_logical, SMS // 2 // bh))
+    pages = -(-n_logical // want)
+    return -(-n_logical // pages)
+
+
+def decode_warps(n_logical: int, page_size: int, splits: int) -> int:
+    """Warps of each block: 8 where a split holds at most
+    :data:`NARROW_KEYS` keys, else 32."""
+    keys = -(-n_logical // splits) * page_size
+    return 8 if keys <= NARROW_KEYS else 32
+
+
+def decode_vec(hd: int, *pools: torch.Tensor) -> bool:
+    """Whether the kernel reads K/V rows 16 bytes a lane: ``hd % 4 == 0``
+    and every pool 16-byte aligned (else 4 bytes a lane).  The CUDA entry
+    point re-checks it and refuses a launch that breaks it."""
+    return hd % 4 == 0 and all(p.data_ptr() % 16 == 0 for p in pools)
 
 
 def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
@@ -94,10 +138,14 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
         return out
     lib = build.load("flash_decode_paged")
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    n_logical = len(page_table)
+    splits = decode_splits(bh, n_logical)
     rc = lib.flash_decode_paged_f32(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        page_table.data_ptr(), out.data_ptr(), bh, k_pages.shape[1], ps, hd,
-        kv_len, -1 if window is None else int(window), scale, stream)
+        page_table.data_ptr(), out.data_ptr(), bh, k_pages.shape[1],
+        n_logical, ps, hd, kv_len, -1 if window is None else int(window),
+        splits, decode_warps(n_logical, ps, splits),
+        int(decode_vec(hd, k_pages, v_pages)), scale, stream)
     if rc != 0:
         raise RuntimeError(f"flash_decode_paged launch failed: cudaError "
                            f"{rc}")

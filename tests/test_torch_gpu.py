@@ -12,6 +12,8 @@ tensors; the tolerance is the reference's scale-normalised 1e-4, because
 the kernel and the plain version sum in f32 in different orders (TF32 is
 switched off for the plain versions).
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -23,7 +25,7 @@ from repro_torch import (AnalyticEstimator, DecodeSession, ExecConfig,
 from repro_torch import Testbed as TorchTestbed
 from repro_torch.configs.edge_models import EDGE_MODELS
 from repro_torch.core.graph import ConvT, conv_geometries, shard_halo_pads
-from repro_torch.kernels import gemm, ops
+from repro_torch.kernels import build, gemm, ops
 from repro_torch.kernels.conv2d import conv2d_shard, shard_out_shape
 from repro_torch.kernels.flash_attention import (flash_attention_bh,
                                                  flash_decode_paged)
@@ -31,6 +33,8 @@ from repro_torch.kernels.ops import matmul_tiled
 from repro_torch.kernels.ref import (conv2d_shard_ref, flash_attention_ref,
                                      flash_decode_paged_ref, live_pages,
                                      matmul_ref)
+
+fa_mod = importlib.import_module("repro_torch.kernels.flash_attention")
 
 pytestmark = pytest.mark.gpu
 
@@ -386,6 +390,113 @@ def test_decode_kernel_matches_plain(cuda, ps, kv_len):
             torch.cuda.synchronize()
             assert bool(torch.isfinite(out).all()), (lh, window)
             assert _rel_err(out, ref) < 1e-5, (lh, hd, window)
+
+
+def _split_edge_cases(lh, n_pages, ps):
+    """(kv_len, window) at the split-KV grid's edges: kv_len 1, every
+    split's first key and its neighbours, the capacity; no window, and a
+    window that leaves only the last live split."""
+    splits = fa_mod.decode_splits(lh, n_pages)
+    keys = -(-n_pages // splits) * ps
+    cap = n_pages * ps
+    lens = {1, cap}
+    for s in range(1, splits + 1):
+        lens |= {s * keys - 1, s * keys, s * keys + 1}
+    cases = []
+    for kv_len in sorted(k for k in lens if 1 <= k <= cap):
+        cases.append((kv_len, None))
+        last = (kv_len - 1) // keys * keys        # first key of its split
+        cases.append((kv_len, kv_len - last))
+    return cases
+
+
+@pytest.mark.parametrize("hd", [32, 64, 80, 128, 256])
+@pytest.mark.parametrize("ps,n_pages", [(16, 32), (16, 256), (1, 100),
+                                        (1, 2000)])
+def test_decode_kernel_on_split_edges(cuda, hd, ps, n_pages):
+    """The split-KV grid at its edges, for both block widths (runs of at
+    most 64 keys take 8 warps, longer ones 32) and every 16-byte instance;
+    NaN in every page it must not read; one launch a call."""
+    lh = 4
+    gen = torch.Generator(device=cuda).manual_seed(hd * 1000 + n_pages + ps)
+    q = torch.randn((lh, hd), generator=gen, device=cuda)
+    for kv_len, window in _split_edge_cases(lh, n_pages, ps):
+        kp, vp, kz, vz, table = _paged_pools(gen, cuda, lh, hd, ps, n_pages,
+                                             kv_len, window)
+        n0 = flash_decode_paged.launches
+        out = flash_decode_paged(q, kp, vp, table, kv_len, window=window)
+        assert flash_decode_paged.launches == n0 + 1
+        ref = flash_decode_paged_ref(q, kz, vz, table, kv_len, window=window)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(out).all()), (kv_len, window)
+        assert _rel_err(out, ref) < 1e-5, (kv_len, window)
+
+
+@pytest.mark.parametrize("hd,offset", [(33, 0), (128, 1), (256, 2)])
+def test_decode_kernel_on_the_4_byte_route(cuda, hd, offset):
+    """An odd head dim, and pools that start off 16 bytes: the kernel reads
+    4 bytes a lane."""
+    lh, ps, n_pages = 3, 16, 40
+    gen = torch.Generator(device=cuda).manual_seed(hd + offset)
+    q = torch.randn((lh, hd), generator=gen, device=cuda)
+    n = lh * n_pages * ps * hd
+
+    def pool():
+        base = torch.randn(n + offset, generator=gen, device=cuda)
+        return base[offset:].view(lh, n_pages, ps, hd)
+    kp, vp = pool(), pool()
+    assert not fa_mod.decode_vec(hd, kp, vp)
+    table = torch.randperm(n_pages, generator=gen, device=cuda).int()
+    for kv_len, window in ((1, None), (333, None), (640, 50), (200, 17)):
+        out = flash_decode_paged(q, kp, vp, table, kv_len, window=window)
+        ref = flash_decode_paged_ref(q, kp, vp, table, kv_len, window=window)
+        torch.cuda.synchronize()
+        assert _rel_err(out, ref) < 1e-5, (kv_len, window)
+
+
+def test_decode_kernel_repeats_bit_for_bit_and_under_graph_replay(cuda):
+    """The merge runs in a fixed order with no atomics: two calls give the
+    same bits, and so does a replay of a captured CUDA graph (one launch a
+    call, no host state)."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    lh, hd, ps, n_pages, kv_len = 4, 128, 16, 32, 300
+    q = torch.randn((lh, hd), generator=gen, device=cuda)
+    kp, vp, _, _, table = _paged_pools(gen, cuda, lh, hd, ps, n_pages,
+                                       kv_len, None)
+    first = flash_decode_paged(q, kp, vp, table, kv_len)
+    assert torch.equal(first, flash_decode_paged(q, kp, vp, table, kv_len))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        flash_decode_paged(q, kp, vp, table, kv_len)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    n0 = flash_decode_paged.launches
+    with torch.cuda.graph(graph):
+        captured = flash_decode_paged(q, kp, vp, table, kv_len)
+    assert flash_decode_paged.launches == n0 + 1
+    captured.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, first)
+
+
+def test_decode_launch_shape_fits_one_wave(cuda):
+    """At the main path's shape (4 heads, 32 pages of 16 keys, hd 128):
+    at least 32 blocks, every head's cluster resident at once (the
+    kernel's occupancy entry), and one round of a block covers its split."""
+    import ctypes
+    lh, n_pages, ps, hd = 4, 32, 16, 128
+    splits = fa_mod.decode_splits(lh, n_pages)
+    warps = fa_mod.decode_warps(n_pages, ps, splits)
+    info = (ctypes.c_int * 4)()
+    rc = build.load("flash_decode_paged").flash_decode_paged_occupancy(
+        lh, hd, 1, splits, warps, info)
+    assert rc == 0
+    threads, smem, clusters, rows = info
+    assert lh * splits >= 32 and threads == warps * 32
+    assert clusters >= lh
+    assert rows >= -(-n_pages // splits) * ps
 
 
 FLASH_CASES = [
