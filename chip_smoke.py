@@ -11,23 +11,29 @@ fixed seeds:
 
 * the CNN/bert path — ``plan_search`` -> ``Session(...,
   ExecConfig(backend="cuda")).run(x)`` on MobileNet v1 (224x224),
-  ResNet-18 (224x224) and bert-base (seq 128, d 768, 12 layers) — each
-  output checked against the unpartitioned reference and each
-  ``ExecStats`` against the generic ``backend="torch"`` run;
+  ResNet-18 (224x224) and bert-base (seq 128, d 768, 12 layers), run
+  three times through the segment programs (``jit_segments``: eager,
+  captured as CUDA graphs, replayed), each run's output bit-equal to the
+  eager records' (``jit_segments=False``), each output checked against
+  the unpartitioned reference and each ``ExecStats`` against the eager
+  and the generic ``backend="torch"`` runs;
 * the decode path — ``plan_decode`` -> ``greedy_decode(DecodeSession(...,
   ExecConfig(backend="cuda")))`` at OLMo-1B's widths and depth (16 layers,
   d 2048, 16 heads, d_ff 8192, vocab 50304) over 4 nodes, a 480-token
-  prompt and 32 new tokens — tokens checked against the card's
-  ``reference_decode`` and the ``backend="torch"`` session;
+  prompt and 32 new tokens, the step one captured CUDA graph replayed per
+  token — tokens checked against the card's ``reference_decode``, the
+  ``backend="torch"`` session and the eager step body;
 * the flash attention entry point ``ops.flash_attention`` at OLMo-1B
   prefill, llama3-8b GQA and zamba2-1.2b sliding-window shapes.
 
 All four kernels' launch counters are zeroed just before each path's run
 and read just after: they must equal the launches the plan (or the case
-list) calls for, computed independently of the counters.
+list) calls for, computed independently of the counters, on the eager,
+the capturing and the replaying runs alike.
 
-Times are taken on the card: the warm ``Session.run`` wall time per model,
-the warm per-token decode step, and each kernel's device time over the
+Times are taken on the card: the warm ``Session.run`` wall time per model
+and the warm per-token decode step, each eager and through the replayed
+graphs (medians with their ranges), and each kernel's device time over the
 calls one main-path run makes, replayed as a CUDA graph so host launch
 overhead is left out (``conv2d_shard`` also split into its dense and
 depthwise calls, and the five call shapes of each CNN/bert kernel that
@@ -44,6 +50,9 @@ also times the paged decode kernel at long context (``LONG_DECODE``: 4
 and 16 heads, hd 128, kv_len 4096) against its bytes bound, the plain
 version and gather + SDPA, and phase 7 prints the decode kernel's
 split-KV launch shape (blocks, cluster size, waves) at the main path's.
+The decode calls are timed as the captured step makes them, with
+``kv_len`` read from device memory; phase 5 holds that path bit-equal to
+the by-value one.
 
 Output: progress lines, the card's name and power limit from nvidia-smi, a
 ``{"kernels": [...]}`` line, and as the last line
@@ -68,6 +77,7 @@ PEAK_BYTES = 3.35e12            # H100 SXM HBM3 (data sheet)
 NODES = 4
 MAIN_MODELS = (("mobilenet", {}), ("resnet18", {}), ("bert", {}))
 TIMED_REPS = 20
+SESSION_REPS = 7                # warm Session.run timings per path
 DECODE_REPS = 3                 # replays of the ~33k recorded decode calls
 #: OLMo-1B's widths and depth (registry olmo-1b) in the decode block
 OLMO = dict(n_layers=16, d_model=2048, n_heads=16, d_ff=8192, vocab=50304)
@@ -229,6 +239,38 @@ def graph_ms(fn, reps=TIMED_REPS) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_profile(run, reps):
+    """What the card ran over ``reps`` calls of ``run``, from
+    ``torch.profiler`` (CUPTI, kernels inside replayed graphs included):
+    (kernels a call, device ms a call, {kernel name: ms a call}).  No
+    kernel seen gives (0, None, {}), printed as not measured."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    by_name, n = {}, 0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.key] = e.self_device_time_total / 1e3 / reps
+            n += e.count
+    if not n:
+        return 0, None, {}
+    return n / reps, sum(by_name.values()), by_name
+
+
+def profile_text(kernels, dev_ms, wall_ms) -> str:
+    """A device profile beside the wall time it belongs to."""
+    if dev_ms is None:
+        return "device time not measured (the profiler saw no kernel)"
+    return (f"{kernels:.0f} kernels, {dev_ms:.3f} ms of device time a "
+            f"call, the device idle {max(0.0, 1 - dev_ms / wall_ms) * 100:.1f}"
+            f"% of the {wall_ms:.3f} ms median wall")
+
+
 def library_conv(x, w, pads, stride, depthwise):
     """One PyTorch library call for the conv shard (cuDNN): F.conv2d with
     its own padding when the pads are symmetric, after F.pad otherwise."""
@@ -362,9 +404,30 @@ def phase_kernel_grid(dev, errs):
           f"{errs['matmul_tiled']:.3g}", flush=True)
 
 
+def wall_ms(run, reps):
+    """Host-clock ms of ``reps`` synchronised calls of ``run``."""
+    import torch
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return walls
+
+
+def spread(walls):
+    """(median, min, max) of a list of times."""
+    w = sorted(walls)
+    return w[len(w) // 2], w[0], w[-1]
+
+
 def phase_main_path(dev, name, kw, seed, totals, errs, card):
     """plan_search -> Session(backend="cuda").run on one model at full
-    width; returns the per-kernel timing row of this model."""
+    width, through the captured segment programs (``jit_segments``, the
+    default: eager, then captured, then replayed) and through the eager
+    records; returns the per-kernel timing row of this model."""
     import torch
     from repro_torch import (AnalyticEstimator, ExecConfig, Session,
                              Testbed, init_weights, plan_search,
@@ -389,15 +452,31 @@ def phase_main_path(dev, name, kw, seed, totals, errs, card):
     want = kernel_records(g, plan, NODES)
     n_nt = sum(1 for _, m in plan.steps if int(m) == 1)
     schemes = sorted({s.name for s, _ in plan.steps})
+    want_counts = {"conv2d_shard": want[0], "matmul_tiled": want[1]}
     sess_k = Session(g, ws, plan, NODES, ExecConfig(backend="cuda"))
+    sess_e = Session(g, ws, plan, NODES,
+                     ExecConfig(backend="cuda", jit_segments=False))
     sess_t = Session(g, ws, plan, NODES, ExecConfig(backend="torch"))
 
+    engine.clear_segment_cache()
     zero_counts()
-    out_k, st_k = sess_k.run(x)
+    out_e, st_e = sess_e.run(x)
     torch.cuda.synchronize()
-    counts = read_counts()
-    check_counts(name, counts, {"conv2d_shard": want[0],
-                                "matmul_tiled": want[1]})
+    check_counts(f"{name} (eager records)", read_counts(), want_counts)
+    # the main path: the segment programs' first run (eager), second
+    # (captured) and third (replayed), each counted on its own
+    for run in ("eager", "capture", "replay"):
+        zero_counts()
+        out_k, st_k = sess_k.run(x)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        check_counts(f"{name} ({run} run)", counts, want_counts)
+        check(torch.equal(out_k, out_e),
+              f"{name}: {run} run of the segment programs differs from "
+              f"jit_segments=False by {abs_err(out_k, out_e)}")
+        check(st_k == st_e, f"{name}: {run} run ExecStats {st_k} != "
+                            f"{st_e}")
+    info = engine.segment_cache_info()
     got = (counts["conv2d_shard"], counts["matmul_tiled"])
     totals["conv2d_shard"] += got[0]
     totals["matmul_tiled"] += got[1]
@@ -416,19 +495,18 @@ def phase_main_path(dev, name, kw, seed, totals, errs, card):
     print(f"phase 3: {name}: plan {len(plan)} layers, schemes {schemes}, "
           f"{n_nt} NT-fused, cost {res.cost:.6g} s (searched in "
           f"{plan_s:.3f} s); launches conv2d_shard={got[0]} "
-          f"matmul_tiled={got[1]} == plan records; err vs reference "
+          f"matmul_tiled={got[1]} == plan records on the eager-records, "
+          f"eager, capture and replay runs; the three runs' outputs "
+          f"bit-equal to jit_segments=False, ExecStats equal; "
+          f"segment_cache_info {tuple(info)}; err vs reference "
           f"{e_ref:.3g} (torch backend {e_t:.3g}); {st_k}", flush=True)
 
-    # warm end-to-end wall time
-    sess_k.run(x)
-    torch.cuda.synchronize()
-    walls = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        sess_k.run(x)
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    walls.sort()
+    # warm end-to-end wall time, eager records and replayed programs in
+    # turns, after the capture
+    walls = {"eager": [], "graph": []}
+    for _ in range(SESSION_REPS):
+        walls["eager"] += wall_ms(lambda: sess_e.run(x), 1)
+        walls["graph"] += wall_ms(lambda: sess_k.run(x), 1)
 
     # record the kernel calls of one run, then time them three ways
     calls = {"conv2d_shard": [], "matmul_tiled": []}
@@ -443,14 +521,19 @@ def phase_main_path(dev, name, kw, seed, totals, errs, card):
         calls["matmul_tiled"].append((xs, w, out))
         return out
 
+    prof = {"eager": device_profile(lambda: sess_e.run(x), 3),
+            "graph": device_profile(lambda: sess_k.run(x), 3)}
+
     engine.conv2d_shard, engine.matmul_tiled = rec_conv, rec_mm
     try:
-        sess_k.run(x)
+        sess_e.run(x)   # a replayed program calls no wrapper
     finally:
         engine.conv2d_shard, engine.matmul_tiled = conv2d_shard, matmul_tiled
     torch.cuda.synchronize()
+    engine.clear_segment_cache()
 
-    row = {"model": name, "run_ms": walls[1]}
+    row = {"model": name, "eager_ms": spread(walls["eager"]),
+           "graph_ms": spread(walls["graph"])}
     conv_calls = calls["conv2d_shard"]
     mm_calls = calls["matmul_tiled"]
     for xs, w, kwargs, out in conv_calls:
@@ -509,8 +592,14 @@ def phase_main_path(dev, name, kw, seed, totals, errs, card):
             f"{v['library_ms']:.4f})" for k, v in split.items())
             + f" [{card}]", flush=True)
     top_shapes(name, conv_calls, mm_calls, card)
-    parts = [f"phase 4: {name}: warm Session.run {row['run_ms']:.3f} ms "
-             f"(median of 3, synchronised)"]
+    (em, elo, ehi), (gm, glo, ghi) = row["eager_ms"], row["graph_ms"]
+    parts = [f"phase 4: {name}: warm Session.run jit_segments=False "
+             f"{em:.3f} ms (range {elo:.3f}-{ehi:.3f}), jit_segments=True "
+             f"(replayed graphs) {gm:.3f} ms (range {glo:.3f}-{ghi:.3f}); "
+             f"medians of {SESSION_REPS} synchronised runs each, in turns; "
+             f"profiled: eager records "
+             f"{profile_text(*prof['eager'][:2], em)}; replayed graphs "
+             f"{profile_text(*prof['graph'][:2], gm)}"]
     for kname in ("conv2d_shard", "matmul_tiled"):
         r = row.get(kname)
         if r:
@@ -604,12 +693,15 @@ def phase_decode_grid(dev, errs):
     """flash_decode_paged against its plain version: 4 and 16 heads, hd 64
     and 128, page sizes 1 and 16 over 256 physical pages, kv_len up to the
     capacity (4096 keys at ps 16), no window and windows whose first key
-    lands mid-page, scrambled table, NaN in every page it must not read."""
+    lands mid-page, scrambled table, NaN in every page it must not read;
+    each case again with kv_len read from a device int32 (the decode
+    step's path), bit-equal to the by-value call."""
     import torch
     from repro_torch.kernels.flash_attention import flash_decode_paged
     from repro_torch.kernels.ref import flash_decode_paged_ref
 
     gen = torch.Generator(device=dev).manual_seed(12)
+    length = torch.zeros((1,), dtype=torch.int32, device=dev)
     n_pages, n = 256, 0
     for lh in (4, 16):
         for hd in (64, 128):
@@ -622,9 +714,16 @@ def phase_decode_grid(dev, errs):
                             gen, dev, lh, hd, ps, n_pages, kv_len, window)
                         out = flash_decode_paged(q, kp, vp, table, kv_len,
                                                  window=window)
+                        length.fill_(kv_len)
+                        by_ptr = flash_decode_paged(q, kp, vp, table,
+                                                    length, window=window)
                         ref = flash_decode_paged_ref(q, kz, vz, table,
                                                      kv_len, window=window)
                         torch.cuda.synchronize()
+                        check(torch.equal(out, by_ptr),
+                              f"flash_decode_paged lh{lh} hd{hd} ps{ps} "
+                              f"kv{kv_len} w{window}: device kv_len differs "
+                              f"by {abs_err(by_ptr, out)}")
                         check(bool(torch.isfinite(out).all()),
                               f"flash_decode_paged lh{lh} hd{hd} ps{ps} "
                               f"kv{kv_len} w{window}: read a dead page")
@@ -637,7 +736,8 @@ def phase_decode_grid(dev, errs):
                         n += 1
     print(f"phase 5: flash_decode_paged == plain on {n} cases (heads 4/16 "
           f"x hd 64/128 x ps 1/16 x 6 lengths x 4 windows, NaN in unread "
-          f"pages); max abs err {errs['flash_decode_paged']:.3g}",
+          f"pages); max abs err {errs['flash_decode_paged']:.3g}; kv_len "
+          f"from device memory bit-equal to by value in all {n}",
           flush=True)
 
 
@@ -771,7 +871,9 @@ def decode_work(q, kp, kv_len, window):
 
 def phase_decode_path(dev, errs, card):
     """plan_decode -> greedy_decode(DecodeSession(backend="cuda")) at
-    OLMo-1B's widths and depth; returns the decode kernel's timing row."""
+    OLMo-1B's widths and depth, the step a captured CUDA graph (eager on
+    the first step, captured on the second, replayed after), against the
+    eager step body; returns the decode kernel's timing row."""
     import numpy as np
     import torch
     from repro_torch import (DecodeSession, ExecConfig, TransformerSpec,
@@ -781,6 +883,7 @@ def phase_decode_path(dev, errs, card):
     from repro_torch.kernels.flash_attention import flash_decode_paged
     from repro_torch.kernels.ref import flash_decode_paged_ref
     from repro_torch.runtime import decode as decode_mod
+    from repro_torch.runtime.graphs import GraphProgram
 
     spec = TransformerSpec(**OLMO)
     tb = TorchTestbed(nodes=NODES, bandwidth_gbps=5.0, link_latency_us=1.0)
@@ -800,9 +903,14 @@ def phase_decode_path(dev, errs, card):
         0, spec.vocab, PROMPT_LEN)]
     kw = dict(page_size=PAGE_SIZE, capacity=CAPACITY)
 
-    def session(backend):
-        return DecodeSession(spec, w, plan, NODES,
+    def session(backend, graphed=True):
+        sess = DecodeSession(spec, w, plan, NODES,
                              ExecConfig(backend=backend), **kw)
+        check(isinstance(sess._step_fn, GraphProgram),
+              "decode: the step on the card is not a GraphProgram")
+        if not graphed:
+            sess._step_fn = sess._local_step   # the eager step body
+        return sess
 
     sess_k = session("cuda")
     zero_counts()
@@ -812,10 +920,20 @@ def phase_decode_path(dev, errs, card):
     run_s = time.perf_counter() - t0
     counts = read_counts()
     check_counts("decode", counts, {"flash_decode_paged": want})
+    check(sess_k._step_fn.graph is not None
+          and sess_k._step_fn.calls == n_steps,
+          "decode: the step was not captured and replayed")
 
+    sess_e = session("cuda", graphed=False)
+    t0 = time.perf_counter()
+    toks_e, lg_e = greedy_decode(sess_e, prompt, N_NEW)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
     toks_t, lg_t = greedy_decode(session("torch"), prompt, N_NEW)
     toks_r, lg_r = reference_decode(spec, w, prompt, N_NEW)
     torch.cuda.synchronize()
+    same_bits = torch.equal(lg_k, lg_e)
+    e_e = abs_err(lg_k, lg_e)
     check(tuple(lg_k.shape) == (N_NEW, spec.vocab),
           f"decode: logits shape {tuple(lg_k.shape)}")
     check(bool(torch.isfinite(lg_k).all()), "decode: non-finite logits")
@@ -828,52 +946,81 @@ def phase_decode_path(dev, errs, card):
           f"{init_s:.1f} s): plan {sorted({s.name for s, _ in plan.steps})}"
           f" at {NODES} nodes (searched in {plan_s:.3f} s), heads per node "
           f"{sess_k.head_split[0]}; prompt {PROMPT_LEN} + {N_NEW} new "
-          f"tokens in {run_s:.2f} s; launches flash_decode_paged="
+          f"tokens in {run_s:.2f} s through the captured step ({eager_s:.2f}"
+          f" s through the eager body); launches flash_decode_paged="
           f"{counts['flash_decode_paged']} == plan {want}; logits vs "
           f"reference_decode {e_r:.3g}, vs torch backend {e_t:.3g} (scale-"
-          f"normalised); smallest top-two logit margin {margin:.4g}",
-          flush=True)
+          f"normalised); captured vs eager body: tokens "
+          f"{'identical' if toks_k == toks_e else 'DIFFER'}, logits "
+          f"{'bit-equal' if same_bits else f'differ by {e_e:.3g}'}; "
+          f"smallest top-two logit margin {margin:.4g}", flush=True)
     check(toks_k == toks_r, f"decode: tokens {toks_k} != reference_decode "
                             f"{toks_r} (smallest margin {margin})")
     check(toks_k == toks_t, f"decode: tokens {toks_k} != torch backend "
                             f"{toks_t}")
+    check(toks_k == toks_e, f"decode: tokens {toks_k} != eager body "
+                            f"{toks_e}")
     check(e_r < TOL, f"decode: logits vs reference_decode {e_r}")
     check(e_t < TOL, f"decode: logits vs torch backend {e_t}")
+    check(rel_err(lg_k, lg_e) < TOL, f"decode: logits vs eager body {e_e}")
+    del sess_k, sess_e
 
-    # warm per-token step: a fresh session past the same prompt
-    sess = session("cuda")
+    # warm per-token step: fresh sessions past the same prompt, the eager
+    # body and the replayed graph
     emb = w["emb"]
-    h = sess.prefill(prompt)
-    tok = int(torch.argmax(h @ emb.T))
-    steps = []
-    for _ in range(N_NEW):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        h = sess.step(tok)
-        torch.cuda.synchronize()
-        steps.append((time.perf_counter() - t0) * 1e3)
+    step_ms = {}
+    for label, graphed in (("eager", False), ("graph", True)):
+        sess = session("cuda", graphed)
+        h = sess.prefill(prompt)
         tok = int(torch.argmax(h @ emb.T))
-    steps.sort()
-    step_ms = steps[len(steps) // 2]
+        steps = []
+        for _ in range(N_NEW):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            h = sess.step(tok)
+            torch.cuda.synchronize()
+            steps.append((time.perf_counter() - t0) * 1e3)
+            tok = int(torch.argmax(h @ emb.T))
+        step_ms[label] = spread(steps)
+        if graphed:
+            # the device's own time for a step: back-to-back replays of
+            # the captured step (each rewrites the last position's K/V)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(N_NEW):
+                sess._step_fn.graph.replay()
+            end.record()
+            torch.cuda.synchronize()
+            step_ms["device"] = start.elapsed_time(end) / N_NEW
+            step_prof = device_profile(sess._step_fn.graph.replay, 8)
+        del sess
 
-    # record the kernel calls of one run, then time them three ways
+    # record the kernel calls of one run of the eager body (a replayed
+    # graph calls no wrapper), each with a copy of its device kv_len
     calls = []
 
     def rec(q, kp, vp, table, kv_len, **kwargs):
         out = flash_decode_paged(q, kp, vp, table, kv_len, **kwargs)
-        calls.append((q, kp, vp, table, kv_len, kwargs, out))
+        calls.append((q, kp, vp, table, kv_len.clone(), kwargs, out))
         return out
 
     decode_mod.flash_decode_paged = rec
     try:
-        greedy_decode(session("cuda"), prompt, N_NEW)
+        greedy_decode(session("cuda", graphed=False), prompt, N_NEW)
     finally:
         decode_mod.flash_decode_paged = flash_decode_paged
     check(len(calls) == want, f"decode: recorded {len(calls)} calls")
+    lengths = torch.cat([c[4] for c in calls]).tolist()
+    check(lengths == [t + 1 for t in range(n_steps) for _ in
+                      range(want // n_steps)],
+          "decode: recorded kv_len is not the position + 1")
+    # (q, kp, vp, table, device kv_len, int kv_len, kwargs, out)
+    calls = [c[:5] + (n,) + c[5:] for c, n in zip(calls, lengths)]
     diff = torch.zeros((), device=dev)
     scale = torch.ones((), device=dev)
     nbytes = flops = 0.0
-    for q, kp, vp, table, kv_len, kwargs, out in calls:
+    for q, kp, vp, table, _, kv_len, kwargs, out in calls:
         plain = flash_decode_paged_ref(q, kp, vp, table, kv_len, **kwargs)
         diff = torch.maximum(diff, (out - plain).abs().max())
         scale = torch.maximum(scale, plain.abs().max())
@@ -888,23 +1035,46 @@ def phase_decode_path(dev, errs, card):
     row = dict(
         calls=len(calls), bytes=nbytes, flops=flops, step_ms=step_ms,
         run_s=run_s, margin=margin, launches=counts["flash_decode_paged"],
-        ms=graph_ms(lambda: [flash_decode_paged(q, a, b, t, n, **k)
-                             for q, a, b, t, n, k, _ in calls],
+        ms=graph_ms(lambda: [flash_decode_paged(q, a, b, t, d, **k)
+                             for q, a, b, t, d, _, k, _ in calls],
                     reps=DECODE_REPS),
         plain_ms=graph_ms(lambda: [flash_decode_paged_ref(q, a, b, t, n, **k)
-                                   for q, a, b, t, n, k, _ in calls],
+                                   for q, a, b, t, _, n, k, _ in calls],
                           reps=DECODE_REPS),
         library_ms=graph_ms(lambda: [library_decode(q, a, b, t, n, sc)
-                                     for q, a, b, t, n, _, _ in calls],
+                                     for q, a, b, t, _, n, _, _ in calls],
                             reps=DECODE_REPS))
     bm, by = bound_ms(nbytes, flops)
     _, kp0, vp0, table0 = calls[0][:4]
     shape = decode_launch_shape(kp0, vp0, len(table0))
     check(all(c[1].shape == kp0.shape and len(c[3]) == len(table0)
               for c in calls), "decode: recorded calls of several shapes")
-    print(f"phase 7: decode warm step {step_ms:.3f} ms per token (median of "
-          f"{N_NEW}, synchronised; range {steps[0]:.3f}-{steps[-1]:.3f}); "
-          f"flash_decode_paged: {len(calls)} calls of one run, "
+    (em, elo, ehi), (gm, glo, ghi) = step_ms["eager"], step_ms["graph"]
+    dm = step_ms["device"]
+    n_kernels, prof_ms, by_name = step_prof
+    groups = {"cuBLAS products": 0.0, "flash_decode_paged": 0.0,
+              "other": 0.0}
+    for kname, ms in by_name.items():
+        group = ("cuBLAS products" if "gemv" in kname or "gemm" in kname
+                 else "flash_decode_paged" if "decode_kernel" in kname
+                 else "other")
+        groups[group] += ms
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    print(f"phase 7: the replayed step's kernels (torch.profiler over 8 "
+          f"replays): {profile_text(n_kernels, prof_ms, gm)}; by group "
+          + ", ".join(f"{g} {ms:.3f} ms" for g, ms in groups.items())
+          + "; the costliest: " + "; ".join(
+              f"{kname[:60]} {ms:.3f} ms" for kname, ms in top)
+          + f" [{card}]", flush=True)
+    print(f"phase 7: decode warm step: eager body {em:.3f} ms per token "
+          f"(range {elo:.3f}-{ehi:.3f}), replayed graph {gm:.3f} ms (range "
+          f"{glo:.3f}-{ghi:.3f}); medians of {N_NEW} synchronised steps; "
+          f"the captured step's device time {dm:.3f} ms ({N_NEW} "
+          f"back-to-back replays between CUDA events), so the device is "
+          f"idle {max(0.0, 1 - dm / gm) * 100:.1f}% of a synchronised "
+          f"step; "
+          f"flash_decode_paged: {len(calls)} calls of one run with kv_len "
+          f"from device memory, "
           f"{row['ms']:.3f} ms (plain {row['plain_ms']:.3f}, library "
           f"{row['library_ms']:.3f}, bound {bm:.4f} by {by}; "
           f"{nbytes / 1e9:.3f} GB live K/V); a call "
@@ -1161,7 +1331,8 @@ def run(dev) -> dict:
           f"{card}: conv2d_shard and matmul_tiled over mobilenet-224 + "
           "resnet18-224 + bert-base (one Session.run each), "
           "flash_decode_paged over one olmo-1b-width greedy_decode "
-          f"({PROMPT_LEN} + {N_NEW} tokens), flash_attention_bh over the "
+          f"({PROMPT_LEN} + {N_NEW} tokens; kv_len from device memory), "
+          "flash_attention_bh over the "
           f"{len(FLASH_CASES)} ops.flash_attention cases; CUDA-graph "
           "replay", flush=True)
     return {"kernels": kernels}
@@ -1175,7 +1346,10 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     dev = torch.device("cuda")
+    t0 = time.perf_counter()
     result = run(dev)
+    print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f}"
+          f" s", flush=True)
     print(json.dumps(result))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

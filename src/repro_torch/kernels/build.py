@@ -48,7 +48,8 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         + [_P],
     },
     "flash_decode_paged": {
-        "flash_decode_paged_f32": [_P] * 5 + [_I] * 10 + [_F, _P],
+        "flash_decode_paged_f32": [_P] * 5 + [_I] * 6 + [_P] + [_I] * 4
+        + [_F, _P],
         "flash_decode_paged_occupancy": [_I] * 5 + [_P],
     },
     "flash_attention": {

@@ -9,16 +9,24 @@
 //
 // Layouts: q [BH, hd]; k/v pools [BH, P, ps, hd], contiguous; the page
 // table [n_logical] int32 maps logical page j (keys j*ps .. j*ps + ps - 1)
-// to its physical slot, and is read from device memory.  kv_len and window
-// are plain int arguments (window < 0: none).
+// to its physical slot, and is read from device memory.  window is a plain
+// int argument (window < 0: none).  kv_len is an int argument, or, when
+// kv_len_ptr is not null, the int32 that kv_len_ptr points to in device
+// memory, read by every block at its start: the counterpart of the
+// reference's traced scalar, so that one launch captured in a CUDA graph
+// serves every position of a decode.  Both paths run the same code after
+// that read and give the same bits.
 //
 // What it reads: only the live keys first .. kv_len - 1, first = kv_len -
 // window (0 without a window), so only the logical pages lo .. hi - 1 of
 // the reference (hi = ceil(kv_len / ps), lo = first floored to its page):
 // a page past the live range is never touched and the table may hold
-// anything there.  Positions inside a live page that are at or past kv_len
-// or before the window are skipped before any load, which gives the same
-// sums as the reference's NEG_INF scores (their exp is exactly 0).
+// anything there.  Every read is also clamped to the table (keys below
+// n_logical * ps), so a device kv_len past the table reads no page past
+// it, and a negative one reads nothing and writes zeros.  Positions inside
+// a live page that are at or past kv_len or before the window are skipped
+// before any load, which gives the same sums as the reference's NEG_INF
+// scores (their exp is exactly 0).
 //
 // What bounds it on the H100: bytes.  Every live key and value row is read
 // once and feeds 4 * hd flops, far below the f32 ridge of ~20 flop/byte,
@@ -187,7 +195,8 @@ __global__ void __launch_bounds__(NW * 32, 1) decode_kernel(
     const float* __restrict__ q, const float* __restrict__ kp,
     const float* __restrict__ vp, const int* __restrict__ table,
     float* __restrict__ out, int n_pages, int n_logical, int ps, int hd,
-    int kv_len, int window, float scale) {
+    int kv_len, const int* __restrict__ kv_len_ptr, int window,
+    float scale) {
   constexpr int RPI = 32 / LPR;       // rows one load instruction covers
   constexpr int RPW = U * RPI;        // rows of a warp a round
   constexpr int RPB = NW * RPW;       // rows of the block a round
@@ -223,6 +232,7 @@ __global__ void __launch_bounds__(NW * 32, 1) decode_kernel(
   float m = NEG_INF, l = 0.f;
 
   // this block's live keys k0 .. k1 - 1; a warp takes RPW of them a round
+  if (kv_len_ptr != nullptr) kv_len = __ldg(kv_len_ptr);
   const int first = window < 0 ? 0 : max(0, kv_len - window);
   const int pps = (n_logical + splits - 1) / splits;
   const int k0 = max(first, split * pps * ps);
@@ -338,7 +348,8 @@ cudaLaunchConfig_t launch_config(int bh, int splits, int warps,
 }
 
 using Kernel = void (*)(const float*, const float*, const float*, const int*,
-                        float*, int, int, int, int, int, int, float);
+                        float*, int, int, int, int, int, const int*, int,
+                        float);
 
 // An instance, its shared bytes at a head dim and the rows one of its
 // blocks reads a round.
@@ -414,9 +425,9 @@ extern "C" int flash_decode_paged_f32(const float* q, const float* kp,
                                       const float* vp, const int* table,
                                       float* out, int bh, int n_pages,
                                       int n_logical, int ps, int hd,
-                                      int kv_len, int window, int splits,
-                                      int warps, int vec, float scale,
-                                      void* stream) {
+                                      int kv_len, const int* kv_len_ptr,
+                                      int window, int splits, int warps,
+                                      int vec, float scale, void* stream) {
   cudaError_t e = check_call(bh, hd, vec, splits, warps, kp, vp);
   if (e != cudaSuccess) return (int)e;
   Instance inst;
@@ -426,7 +437,8 @@ extern "C" int flash_decode_paged_f32(const float* q, const float* kp,
   const cudaLaunchConfig_t cfg = launch_config(
       bh, splits, warps, inst.smem_bytes, (cudaStream_t)stream, attr);
   e = cudaLaunchKernelEx(&cfg, inst.kernel, q, kp, vp, table, out, n_pages,
-                         n_logical, ps, hd, kv_len, window, scale);
+                         n_logical, ps, hd, kv_len, kv_len_ptr, window,
+                         scale);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

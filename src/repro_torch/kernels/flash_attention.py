@@ -97,7 +97,7 @@ def decode_vec(hd: int, *pools: torch.Tensor) -> bool:
 
 
 def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
-                       v_pages: torch.Tensor, page_table, kv_len: int, *,
+                       v_pages: torch.Tensor, page_table, kv_len, *,
                        window: Optional[int] = None,
                        scale: Optional[float] = None) -> torch.Tensor:
     """Decode-step (``q_len == 1``) attention over a paged KV cache.
@@ -109,17 +109,34 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
     (the cache keeps one), on the CPU any int sequence; ``kv_len``: number
     of live keys.  Pages outside the live range (past ``ceil(kv_len/ps)``,
     or before the page holding the window's first key) are never read.
+
+    ``kv_len`` is an ``int``, checked against the table here, or a
+    one-element int32 tensor on the pools' device, which the kernel reads
+    from device memory (the reference's traced ``kv_len``): nothing here
+    reads its value, so the call needs no host sync and one captured
+    launch serves every position.  The kernel clamps its reads to the
+    table, so a device ``kv_len`` past the table reads no page past it;
+    the caller bounds it (``PagedKVCache.advance`` does).
     """
     bh, _, ps, hd = k_pages.shape
     if tuple(q.shape) != (bh, hd) or v_pages.shape != k_pages.shape:
         raise ValueError(f"decode shapes q {tuple(q.shape)}, pools "
                          f"{tuple(k_pages.shape)}/{tuple(v_pages.shape)}")
     _check_window(window)
-    kv_len = int(kv_len)
-    _, hi = live_pages(kv_len, ps, window)
-    if kv_len < 0 or hi > len(page_table):
-        raise ValueError(f"kv_len {kv_len} outside the {len(page_table)} "
-                         f"pages of {ps} keys in the table")
+    on_device = isinstance(kv_len, torch.Tensor)
+    if on_device:
+        if kv_len.dtype != torch.int32 or kv_len.numel() != 1 \
+                or kv_len.device != q.device:
+            raise TypeError(f"a tensor kv_len is one int32 on the pools' "
+                            f"device {q.device}, got {kv_len.dtype} of "
+                            f"{kv_len.numel()} on {kv_len.device}")
+    else:
+        kv_len = int(kv_len)
+        _, hi = live_pages(kv_len, ps, window)
+        if kv_len < 0 or hi > len(page_table):
+            raise ValueError(f"kv_len {kv_len} outside the "
+                             f"{len(page_table)} pages of {ps} keys in the "
+                             f"table")
     scale = 1.0 / math.sqrt(hd) if scale is None else float(scale)
     if on_cpu(q, k_pages, v_pages):
         return flash_decode_paged_ref(q, k_pages, v_pages, page_table,
@@ -143,7 +160,9 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
     rc = lib.flash_decode_paged_f32(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         page_table.data_ptr(), out.data_ptr(), bh, k_pages.shape[1],
-        n_logical, ps, hd, kv_len, -1 if window is None else int(window),
+        n_logical, ps, hd, 0 if on_device else kv_len,
+        kv_len.data_ptr() if on_device else None,
+        -1 if window is None else int(window),
         splits, decode_warps(n_logical, ps, splits),
         int(decode_vec(hd, k_pages, v_pages)), scale, stream)
     if rc != 0:

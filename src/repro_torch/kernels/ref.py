@@ -84,16 +84,26 @@ def live_pages(kv_len: int, page_size: int,
 
 
 def flash_decode_paged_ref(q: torch.Tensor, k_pages: torch.Tensor,
-                           v_pages: torch.Tensor, page_table, kv_len: int,
+                           v_pages: torch.Tensor, page_table, kv_len,
                            *, window: Optional[int] = None,
                            scale: Optional[float] = None) -> torch.Tensor:
     """Single-query attention over a paged KV cache: ``q`` [BH, hd],
     pools [BH, P, ps, hd], ``page_table`` [n_logical] (tensor or array).
     Gathers the live logical pages by table, masks the positions at or past
     ``kv_len`` and outside the window with :data:`NEG_INF`, then softmax.
-    Pages outside ``lo .. hi - 1`` are never read."""
+    Pages outside ``lo .. hi - 1`` are never read.
+
+    ``kv_len`` is an int or a one-element tensor.  A CUDA tensor is not
+    read on the host (no sync, so a decode step that holds this call can
+    be captured in a CUDA graph): every page of the table is gathered, and
+    the keys outside the live range get :data:`NEG_INF` scores and zero
+    values, so what lies in a dead page does not reach the output."""
     bh, _, ps, hd = k_pages.shape
     scale = 1.0 / math.sqrt(hd) if scale is None else scale
+    if isinstance(kv_len, torch.Tensor) and kv_len.is_cuda:
+        return _decode_masked(q, k_pages, v_pages, page_table,
+                              kv_len.reshape(()), window, scale)
+    kv_len = int(kv_len)
     lo, hi = live_pages(kv_len, ps, window)
     if hi <= lo:
         return torch.zeros_like(q)
@@ -107,6 +117,23 @@ def flash_decode_paged_ref(q: torch.Tensor, k_pages: torch.Tensor,
     if window is not None:
         valid &= pos > kv_len - 1 - window
     p = torch.softmax(torch.where(valid, s, NEG_INF), dim=-1)
+    return torch.einsum("ht,htd->hd", p, v).to(q.dtype)
+
+
+def _decode_masked(q, k_pages, v_pages, page_table, kv_len, window, scale):
+    """:func:`flash_decode_paged_ref` over the whole table, with the live
+    range taken from the device scalar ``kv_len``."""
+    bh, _, ps, hd = k_pages.shape
+    table = torch.as_tensor(page_table, device=k_pages.device).long()
+    k = k_pages[:, table].reshape(bh, -1, hd).float()
+    v = v_pages[:, table].reshape(bh, -1, hd).float()
+    pos = torch.arange(k.shape[1], device=q.device)
+    valid = pos < kv_len
+    if window is not None:
+        valid &= pos > kv_len - 1 - window
+    s = torch.einsum("hd,htd->ht", q.float(), k) * scale
+    p = torch.softmax(torch.where(valid, s, NEG_INF), dim=-1)
+    v = torch.where(valid[None, :, None], v, 0.0)
     return torch.einsum("ht,htd->hd", p, v).to(q.dtype)
 
 

@@ -28,8 +28,18 @@ attention through the hand-written kernel
 :func:`repro_torch.kernels.flash_decode_paged` (its plain version on CPU
 tensors); ``backend="torch"`` runs the plain gather-and-mask version.  The
 projections and the FFN are plain ``torch.matmul`` products, as the
-reference leaves them to XLA.  PyTorch runs eagerly, so a step is a plain
-loop over layers and nodes, with ``pos`` a Python int.
+reference leaves them to XLA.
+
+The step is one program, as the reference's jitted step is.  Its body
+(:meth:`DecodeSession._local_step`) takes the token and the position as
+device tensors: the embedding row is an ``index_select``, each node's K/V
+goes to the slot the cache computes on the device
+(:meth:`~repro_torch.runtime.kv_cache.PagedKVCache.write`), and the decode
+kernel reads ``kv_len`` from device memory, so nothing in it reads a
+device value on the host.  On the card ``_step_fn`` runs that body as a
+:class:`~repro_torch.runtime.graphs.GraphProgram` — eager on the first
+step, captured on the second, replayed on every later one; on the CPU it
+is the body itself.
 """
 from __future__ import annotations
 
@@ -44,6 +54,7 @@ from repro_torch.core.graph import ConvT, LayerSpec, ModelGraph, chain
 from repro_torch.core.partition import Scheme, split_sizes
 from repro_torch.kernels.flash_attention import flash_decode_paged
 from repro_torch.kernels.ref import flash_decode_paged_ref
+from repro_torch.runtime.graphs import GraphProgram
 from repro_torch.runtime.kv_cache import PagedKVCache
 from repro_torch.runtime.session import ExecConfig
 
@@ -264,6 +275,7 @@ class DecodeSession:
     step runs; the weights must already lie there (see
     :func:`init_transformer`, :func:`transformer_weights_from_numpy`).
     Without a card the session raises unless given ``device="cpu"``.
+    One step program serves every position (see the module docstring).
     """
 
     def __init__(self, spec: TransformerSpec, weights: Dict, plan,
@@ -300,14 +312,29 @@ class DecodeSession:
         self.cache = PagedKVCache(self.head_split, spec.head_dim,
                                   page_size, capacity, seed=cache_seed,
                                   device=self.device)
+        # the step's inputs, filled in place before each step
+        self._tok = torch.zeros((1,), dtype=torch.int64, device=self.device)
+        self._pos = torch.zeros((), dtype=torch.int64, device=self.device)
+        self._step_fn = self._local_step
+        if self.device.type == "cuda":
+            self._step_fn = GraphProgram(self._local_step, self._tok,
+                                         self._pos)
 
     def step(self, token: int) -> torch.Tensor:
         """Process one token at the cache's current position; returns the
-        final hidden state (feed ``h @ emb.T`` to sample the next)."""
-        x = self.weights["emb"][int(token)]
-        h = self._local_step(x, self.cache.length)
-        self.cache.advance(1)
-        return h
+        final hidden state (feed ``h @ emb.T`` to sample the next), a
+        tensor of its own that later steps leave as it is."""
+        token = int(token)
+        if not 0 <= token < self.spec.vocab:
+            raise ValueError(f"token {token} outside the vocabulary of "
+                             f"{self.spec.vocab}")
+        pos = self.cache.length
+        self.cache.advance(1)   # the capacity check bounds the device pos
+        self._tok.fill_(token)
+        self._pos.fill_(pos)
+        # a replay's output lies in the graph's memory: the next step's
+        # replay overwrites it
+        return self._step_fn(self._tok, self._pos).clone()
 
     def prefill(self, prompt: Sequence[int]) -> torch.Tensor:
         """Sequential decode steps over the prompt."""
@@ -316,13 +343,20 @@ class DecodeSession:
             h = self.step(tok)
         return h
 
-    def _local_step(self, x: torch.Tensor, pos: int) -> torch.Tensor:
+    def _local_step(self, tok: torch.Tensor,
+                    pos: torch.Tensor) -> torch.Tensor:
+        """The step body: token ``tok`` (``[1]`` int64) at position
+        ``pos`` (a 0-d integer tensor), both on the session's device;
+        returns the final hidden state.  It reads no device value on the
+        host, so the card can capture it."""
         spec, nodes, cache = self.spec, self.nodes, self.cache
         H, hd = spec.n_heads, spec.head_dim
         scale = 1.0 / math.sqrt(hd)
         backend = self.config.backend
         table = cache.device_table
-        kv_len = pos + 1
+        x = self.weights["emb"].index_select(0, tok.reshape(1))[0]
+        kv_len = (pos + 1).to(torch.int32).reshape(1)
+        slot = cache.slot_index(pos)
         for i, blk in enumerate(self.weights["blocks"]):
             a = _rmsnorm(x)
             if self.attn_sharded[i]:
@@ -336,7 +370,7 @@ class DecodeSession:
                     q = (a @ blk["wq"][:, cols]).reshape(hs[n], hd)
                     k = (a @ blk["wk"][:, cols]).reshape(hs[n], hd)
                     v = (a @ blk["wv"][:, cols]).reshape(hs[n], hd)
-                    cache.append(i, n, pos, k, v)
+                    cache.write(i, n, slot, k, v)
                     kp, vp = cache.pages(i, n)
                     outs.append(_paged_attn(q, kp, vp, table, kv_len,
                                             scale=scale, backend=backend))
@@ -349,7 +383,7 @@ class DecodeSession:
                 k = (a @ blk["wk"]).reshape(H, hd)
                 v = (a @ blk["wv"]).reshape(H, hd)
                 for n in range(nodes):
-                    cache.append(i, n, pos, k, v)
+                    cache.write(i, n, slot, k, v)
                 kp, vp = cache.pages(i, 0)
                 o = _paged_attn(q, kp, vp, table, kv_len, scale=scale,
                                 backend=backend).reshape(-1)

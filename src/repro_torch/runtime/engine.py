@@ -30,11 +30,29 @@ lowering of every record (the reference's ``"xla"``).  Layouts are the
 reference's at every public function: activations ``[H, W, C]`` without a
 batch dimension (FC: ``[seq, 1, C]``), conv weights HWIO, depthwise weights
 ``[K, K, 1, C]``; only the ATen path permutes to NCHW/OIHW internally.
-PyTorch runs eagerly, so a segment program is a plain loop over its
-records.
+
+Segment programs (``jit_segments=True``, the default, as the reference's):
+every segment cell runs through :func:`_compiled_segment`, a process-wide
+cache of programs keyed by the cell's records and backend plus what a CUDA
+graph bakes in — each weight's pointer, shape and stride, the input's
+shape and dtype, and the device.  On the card a program holds its
+weights, so a pointer its graph bakes in stays valid until
+:func:`clear_segment_cache`; on the CPU it holds none and takes them at
+each call, as the reference's programs do.  On the card a program
+copies the cell's input (a strided view of the previous segment's freshly
+allocated output, so never keyed by its pointer) into its own static
+buffer and runs as a :class:`~repro_torch.runtime.graphs.
+GraphProgram`: eager on its first call, captured on its second, replayed
+after that.  Cells of one run can share a program (the interior cells of
+an InH split have the same records and weights), so each cell's output is
+copied into the reassembled tensor as soon as it is computed, before the
+next replay overwrites it.  On CPU tensors a program runs its records
+eagerly.  ``jit_segments=False`` runs every record eagerly on the card as
+well.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -48,6 +66,7 @@ from repro_torch.core.partition import (DTYPE_BYTES, Mode, Scheme, grid_dims,
 from repro_torch.core.plan import Plan, steps_segments
 from repro_torch.kernels.conv2d import UnsupportedGeometry, conv2d_shard
 from repro_torch.kernels.ops import matmul_tiled
+from repro_torch.runtime.graphs import GraphProgram
 
 Rect = Tuple[Tuple[int, int], Tuple[int, int], Tuple[int, int]]
 
@@ -399,6 +418,80 @@ def _apply_record_b(rec: _SegRec, w, x: torch.Tensor,
     return _apply_record(rec, w, x)
 
 
+def _run_records(recs: Sequence[_SegRec], weights: Sequence,
+                 x: torch.Tensor, backend: str) -> torch.Tensor:
+    """One segment cell's records, eagerly, one after another."""
+    for rec, w in zip(recs, weights):
+        x = _apply_record_b(rec, w, x, backend)
+    return x
+
+
+class _SegmentProgram:
+    """One cached segment program: a cell's records, run eagerly on CPU
+    tensors and as a captured graph on the card, where it holds the
+    weights whose pointers the graph bakes in."""
+
+    def __init__(self, recs: Tuple[_SegRec, ...], backend: str,
+                 weights: Sequence, x: torch.Tensor):
+        self.recs = recs
+        self.backend = backend
+        self.graph = None
+        if x.is_cuda:
+            ws = tuple(weights)
+            self.graph = GraphProgram(
+                lambda a: _run_records(recs, ws, a, backend),
+                torch.empty(x.shape, dtype=x.dtype, device=x.device))
+
+    def __call__(self, x: torch.Tensor, weights: Sequence) -> torch.Tensor:
+        """The cell's output; on the card it lies in the graph's memory
+        and the program's next call overwrites it."""
+        if self.graph is None:
+            return _run_records(self.recs, weights, x, self.backend)
+        return self.graph(x)
+
+
+SegmentCacheInfo = collections.namedtuple(
+    "SegmentCacheInfo", ["hits", "misses", "maxsize", "currsize"])
+_SEGMENTS: Dict[tuple, _SegmentProgram] = {}
+_SEGMENT_STATS = {"hits": 0, "misses": 0}
+
+
+def _weight_key(w) -> Optional[tuple]:
+    if w is None:
+        return None
+    return (w.data_ptr(), tuple(w.shape), w.stride(), w.dtype)
+
+
+def _compiled_segment(recs: Tuple[_SegRec, ...], backend: str,
+                      weights: Sequence, x: torch.Tensor) -> _SegmentProgram:
+    """The program of one (segment-cell signature, backend) pair for these
+    weights and this input geometry, from the cache or made and cached."""
+    key = (recs, backend, tuple(_weight_key(w) for w in weights),
+           tuple(x.shape), x.dtype, x.device)
+    prog = _SEGMENTS.get(key)
+    if prog is None:
+        _SEGMENT_STATS["misses"] += 1
+        prog = _SEGMENTS[key] = _SegmentProgram(recs, backend, weights, x)
+    else:
+        _SEGMENT_STATS["hits"] += 1
+    return prog
+
+
+def segment_cache_info() -> SegmentCacheInfo:
+    """(hits, misses, maxsize, currsize) of the segment-program cache —
+    repeated cells and repeated ``Session.run`` calls should mostly hit.
+    ``maxsize`` is None: the cache is unbounded."""
+    return SegmentCacheInfo(_SEGMENT_STATS["hits"],
+                            _SEGMENT_STATS["misses"], None, len(_SEGMENTS))
+
+
+def clear_segment_cache() -> None:
+    """Drop every segment program (and its graph and memory) and zero the
+    counts."""
+    _SEGMENTS.clear()
+    _SEGMENT_STATS.update(hits=0, misses=0)
+
+
 def _run_branch(layers: Sequence[LayerSpec],
                 weights: Sequence,
                 steps: Sequence[Tuple[Scheme, Mode]],
@@ -406,6 +499,7 @@ def _run_branch(layers: Sequence[LayerSpec],
                 owned: Optional[List[List[Rect]]],
                 nodes: int,
                 stats: ExecStats,
+                jit_segments: bool = True,
                 backend: str = "cuda"
                 ) -> Tuple[torch.Tensor, List[List[Rect]]]:
     """Execute one chain of layers segment by segment.  ``x`` is the full
@@ -416,7 +510,11 @@ def _run_branch(layers: Sequence[LayerSpec],
     for (a, b) in steps_segments(steps):
         scheme = steps[a][0]
         regs_b = exact_regions(layers[b], scheme, nodes)
-        cell_out: List[Tuple[Rect, torch.Tensor]] = []
+        # T boundary: each cell's shard is reassembled ("synchronized")
+        # into this buffer as soon as it is computed
+        lb = layers[b]
+        rebuilt = torch.zeros((lb.out_h, lb.out_w, lb.out_c),
+                              dtype=full.dtype, device=full.device)
         computed = 0
         for n, cells in enumerate(regs_b):
             for reg_b in cells:
@@ -433,15 +531,14 @@ def _run_branch(layers: Sequence[LayerSpec],
                 for li in range(a, b):
                     computed += _rect_elems(need[li])
                 recs = _segment_records(layers, a, b, need, in_rect)
-                for rec, w in zip(recs, weights[a:b + 1]):
-                    node_x = _apply_record_b(rec, w, node_x, backend)
-                cell_out.append((reg_b, node_x))
-        # T boundary: reassemble ("synchronize") in place into one buffer
-        lb = layers[b]
-        rebuilt = torch.zeros((lb.out_h, lb.out_w, lb.out_c),
-                              dtype=full.dtype, device=full.device)
-        for (r, c, ch), shard in cell_out:
-            rebuilt[r[0]:r[1], c[0]:c[1], ch[0]:ch[1]] = shard
+                ws = weights[a:b + 1]
+                if jit_segments:
+                    node_x = _compiled_segment(recs, backend, ws,
+                                               node_x)(node_x, ws)
+                else:
+                    node_x = _run_records(recs, ws, node_x, backend)
+                (r, c, ch) = reg_b
+                rebuilt[r[0]:r[1], c[0]:c[1], ch[0]:ch[1]] = node_x
         stats.sync_points += 1
         stats.redundant_elems += float(computed)
         stats.compute_stages += 1
@@ -488,13 +585,16 @@ def _merge_comm_bytes(l: LayerSpec, prods: Sequence[int],
 
 def _run_partitioned_local(graph: ModelGraph, weights, x: torch.Tensor,
                            plan: Plan, nodes: int,
+                           jit_segments: bool = True,
                            backend: str = "cuda"
                            ) -> Tuple[torch.Tensor, ExecStats]:
     """Execute ``plan`` on ``nodes`` simulated devices in-process (the
     ``executor="local"`` path behind :class:`~repro_torch.runtime.session.
     Session`).  ``backend`` selects the segment-layer lowering: ``"torch"``
     (generic ATen) or ``"cuda"`` (shard kernels with per-record generic
-    fallback); stats accounting is backend-independent by construction."""
+    fallback); ``jit_segments`` routes every segment cell through the
+    segment-program cache.  Stats accounting is backend- and
+    program-independent by construction."""
     if backend not in BACKENDS:
         raise ValueError(f"backend {backend!r} not in {BACKENDS}")
     stats = ExecStats()
@@ -503,7 +603,7 @@ def _run_partitioned_local(graph: ModelGraph, weights, x: torch.Tensor,
         if len(plan) != len(graph):
             raise ValueError("plan/graph length mismatch")
         full, _ = _run_branch(graph.layers, weights, plan.steps, x, None,
-                              nodes, stats, backend)
+                              nodes, stats, jit_segments, backend)
         return full, stats
 
     plan.validate_for(graph)
@@ -539,7 +639,7 @@ def _run_partitioned_local(graph: ModelGraph, weights, x: torch.Tensor,
             ws = [weights[i] for i in rest]
             st = [plan.steps[i] for i in rest]
             cur, owned = _run_branch(ls, ws, st, cur, owned, nodes, stats,
-                                     backend)
+                                     jit_segments, backend)
         outs[ids[-1]] = cur
         owned_map[ids[-1]] = owned
     return outs[len(graph) - 1], stats

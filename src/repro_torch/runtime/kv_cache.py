@@ -15,6 +15,13 @@ Pool layout is ``[local_heads, n_pages, page_size, head_dim]``, the layout
 allocated once on ``device``, and writes go in place (the reference's
 immutable arrays are updated functionally instead); the table is copied to
 the device once per cache (:attr:`PagedKVCache.device_table`).
+
+Two ways to write a token's K/V: :meth:`PagedKVCache.append` resolves the
+slot of a host position, and :meth:`PagedKVCache.write` takes the slot
+that :meth:`PagedKVCache.slot_index` computes on the device from a device
+position, with no host sync, as the decode step does inside its captured
+CUDA graph (the reference's ``pool.at[:, phys, row].set(k)`` at a traced
+``pos``).  Only :meth:`PagedKVCache.advance` bounds the position then.
 """
 from __future__ import annotations
 
@@ -99,6 +106,26 @@ class PagedKVCache:
         phys, row = self.slot(pos)
         self._k[layer][node][:, phys, row] = k
         self._v[layer][node][:, phys, row] = v
+
+    def slot_index(self, pos: torch.Tensor) -> torch.Tensor:
+        """Flat row ``phys * page_size + row`` of the device position
+        ``pos`` (an integer tensor of one element on the cache's device),
+        as a ``[1]`` int64 tensor there: ``phys = device_table[pos //
+        page_size]``, ``row = pos % page_size``, computed on the device.
+        Nothing checks ``pos``: the caller keeps it below the capacity."""
+        p = pos.reshape(1).long()
+        phys = self.device_table.index_select(0, p // self.page_size)
+        return phys.long() * self.page_size + p % self.page_size
+
+    def write(self, layer: int, node: int, slot: torch.Tensor, k,
+              v) -> None:
+        """Write one token's K/V (``[local_heads, head_dim]``) for
+        ``(layer, node)`` at the flat row ``slot`` of :meth:`slot_index`,
+        in place, with no host sync."""
+        for pool, t in zip(self.pages(layer, node), (k, v)):
+            lh = pool.shape[0]
+            pool.view(lh, -1, self.head_dim).index_copy_(
+                1, slot, t.reshape(lh, 1, self.head_dim))
 
     def store(self, layer: int, node: int, k_pages, v_pages) -> None:
         """Replace a pool wholesale."""

@@ -1,7 +1,7 @@
 """Execution API of the port: :class:`ExecConfig` + :class:`Session`.
 
 * :class:`ExecConfig` — frozen, hashable *policy*: which backend, which
-  executor, which device.
+  executor, whether segments run as cached programs, which device.
 * :class:`Session` — *bound state*: one (graph, weights, plan, nodes)
   binding, validated once and run on many inputs.
 
@@ -31,11 +31,16 @@ class ExecConfig:
       ATen ops throughout).
     * ``executor``: ``"local"``, the single-process executor.  The
       multi-device ``"mesh"`` executor is not ported yet.
+    * ``jit_segments``: route every segment cell through the cache of
+      segment programs (``engine._compiled_segment``; on the card a
+      captured CUDA graph each, eager on its first call), as the
+      reference's default; ``False`` runs every record eagerly.
     * ``device``: where tensors live and kernels run.
     """
 
     backend: str = "cuda"
     executor: str = "local"
+    jit_segments: bool = True
     device: str = "cuda"
 
     def __post_init__(self) -> None:
@@ -87,6 +92,7 @@ class Session:
         x = torch.as_tensor(x, device=self.device)
         return _run_partitioned_local(self.graph, self.weights, x,
                                       self.plan, self.nodes,
+                                      jit_segments=self.config.jit_segments,
                                       backend=self.config.backend)
 
     def __call__(self, x) -> torch.Tensor:

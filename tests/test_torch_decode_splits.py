@@ -130,7 +130,9 @@ def test_decode_constants_match_the_cuda_source():
 def test_wrapper_launch_arguments(monkeypatch):
     """The CUDA branch of the wrapper, run with a stand-in library: the
     arguments match the declared C signature, the split count and block
-    width do not move with kv_len, and each call counts one launch."""
+    width do not move with kv_len, each call counts one launch, and a
+    tensor kv_len goes to the kernel as a pointer (by-value argument 0)
+    while an int goes by value (null pointer)."""
     calls = []
 
     class Lib:
@@ -147,20 +149,25 @@ def test_wrapper_launch_arguments(monkeypatch):
     kp = torch.zeros(MAIN_BH, MAIN_PAGES, MAIN_PS, 128)
     table = torch.arange(MAIN_PAGES, dtype=torch.int32)
     n0 = fa.flash_decode_paged.launches
-    for kv_len in (1, 17, 300, 512):
+    lengths = [torch.tensor([n], dtype=torch.int32) for n in (1, 300)]
+    for kv_len in (1, 17, 300, 512, *lengths):
         fa.flash_decode_paged(q, kp, kp, table, kv_len, window=100)
-    assert fa.flash_decode_paged.launches - n0 == 4
+    assert fa.flash_decode_paged.launches - n0 == 6
     want = len(build.SIGNATURES["flash_decode_paged"]
                ["flash_decode_paged_f32"])
-    shapes = set()
+    shapes, by_value, pointers = set(), [], []
     for args in calls:
         assert len(args) == want
-        (bh, n_pages, n_logical, ps, hd, kv_len, window, splits, warps,
-         vec) = args[5:15]
+        (bh, n_pages, n_logical, ps, hd, kv_len, kv_len_ptr, window, splits,
+         warps, vec) = args[5:16]
         assert (bh, n_pages, n_logical, ps, hd, window) == \
             (MAIN_BH, MAIN_PAGES, MAIN_PAGES, MAIN_PS, 128, 100)
         shapes.add((splits, warps, vec))
+        by_value.append(kv_len)
+        pointers.append(kv_len_ptr)
     assert shapes == {(16, 8, 1)}
+    assert by_value == [1, 17, 300, 512, 0, 0]
+    assert pointers == [None] * 4 + [t.data_ptr() for t in lengths]
 
 
 def _paged(rng, bh, n_pages, ps, hd):

@@ -19,12 +19,14 @@ import pytest
 import torch
 
 from repro_torch import (AnalyticEstimator, DecodeSession, ExecConfig,
-                         Session, TransformerSpec, greedy_decode,
-                         init_transformer, init_weights, plan_decode,
-                         plan_search, reference_decode, run_reference)
+                         Scheme, Session, TransformerSpec, fixed_plan,
+                         greedy_decode, init_transformer, init_weights,
+                         plan_decode, plan_search, reference_decode,
+                         run_reference)
 from repro_torch import Testbed as TorchTestbed
-from repro_torch.configs.edge_models import EDGE_MODELS
-from repro_torch.core.graph import ConvT, conv_geometries, shard_halo_pads
+from repro_torch.configs.edge_models import EDGE_MODELS, resnet18
+from repro_torch.core.graph import (ConvT, LayerSpec, chain, conv_geometries,
+                                    shard_halo_pads)
 from repro_torch.kernels import build, gemm, ops
 from repro_torch.kernels.conv2d import conv2d_shard, shard_out_shape
 from repro_torch.kernels.flash_attention import (flash_attention_bh,
@@ -33,6 +35,9 @@ from repro_torch.kernels.ops import matmul_tiled
 from repro_torch.kernels.ref import (conv2d_shard_ref, flash_attention_ref,
                                      flash_decode_paged_ref, live_pages,
                                      matmul_ref)
+from repro_torch.runtime.engine import (clear_segment_cache,
+                                        segment_cache_info)
+from repro_torch.runtime.graphs import GraphProgram
 
 fa_mod = importlib.import_module("repro_torch.kernels.flash_attention")
 
@@ -701,3 +706,172 @@ def test_decode_session_on_the_card_matches_reference_decode(cuda):
     assert toks == ref_toks == toks_t
     assert _rel_err(lg, ref_lg) < 1e-4
     assert _rel_err(lg, lg_t) < 1e-4
+
+
+# ---------------------------------------------------------------------------
+# captured programs: segment programs and the decode step
+# ---------------------------------------------------------------------------
+
+def _rn_rep():
+    """tests/test_engine.py's rn_rep chain (resnet18's stem and max pool at
+    width 32, then two identical 3x3 blocks) under an InH plan: its
+    interior cells share a program within one run."""
+    g = chain("rn_prefix", resnet18(width=32).layers[:2], drop_edges=True)
+    layers = list(g.layers)
+    for tag in ("x", "y"):
+        layers.append(LayerSpec(f"{tag}a", ConvT.CONV, 8, 8, 64, 64, 3, 1,
+                                1))
+    g = chain("rn_rep", layers)
+    return g, fixed_plan(g, Scheme.INH)
+
+
+def _mobilenet_prefix():
+    """MobileNet v1's first ten layers at 224x224 under a searched plan."""
+    g = chain("mb_prefix", EDGE_MODELS["mobilenet"]().layers[:10])
+    plan = plan_search(g, AnalyticEstimator(),
+                       TorchTestbed(nodes=4, bandwidth_gbps=0.5)).plan
+    return g, plan
+
+
+def _launches():
+    return (conv2d_shard.launches, matmul_tiled.launches)
+
+
+@pytest.mark.parametrize("case", ["rn_rep", "mobilenet_prefix"])
+def test_captured_session_run_is_bit_equal_to_eager(cuda, case):
+    """Segment programs on the card, eager then captured then replayed:
+    each run's output has the bits of ``jit_segments=False``, equal
+    ExecStats, and the launch counters add exactly what the eager run
+    adds.  rn_rep's interior cells share a program within a run, so a
+    replay that overwrote an earlier cell's shard would show here."""
+    g, plan = _rn_rep() if case == "rn_rep" else _mobilenet_prefix()
+    ws = init_weights(g, torch.Generator().manual_seed(4), cuda)
+    l0 = g.layers[0]
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (l0.in_h, l0.in_w, l0.in_c)).astype(np.float32)).to(cuda)
+    n0 = _launches()
+    eager, st_e = Session(g, ws, plan, 4,
+                          ExecConfig(jit_segments=False)).run(x)
+    torch.cuda.synchronize()
+    want = tuple(b - a for a, b in zip(n0, _launches()))
+    assert want[0] > 0
+    clear_segment_cache()
+    sess = Session(g, ws, plan, 4)
+    outs = []
+    for run in range(3):
+        n0 = _launches()
+        out, st = sess.run(x)
+        torch.cuda.synchronize()
+        assert tuple(b - a for a, b in zip(n0, _launches())) == want, run
+        assert st == st_e
+        outs.append(out)
+        if run == 0 and case == "rn_rep":
+            assert segment_cache_info().hits > 0
+    info = segment_cache_info()
+    assert info.misses == info.currsize
+    for out in outs:
+        assert torch.equal(out, eager)
+    assert _rel_err(eager, run_reference(g, ws, x)) < 1e-4
+    clear_segment_cache()
+
+
+def test_a_graph_program_counts_replays_and_not_the_capture(cuda):
+    """A GraphProgram around one kernel call: the eager call and each
+    replay count one launch, the capture none, and a replay reads the
+    input tensor as it stands at the call."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    x = torch.randn((16, 64), generator=gen, device=cuda)
+    w = torch.randn((64, 32), generator=gen, device=cuda)
+    prog = GraphProgram(lambda a: matmul_tiled(a, w), x)
+    counts = []
+    for step in range(4):
+        if step % 2:   # refilled in place, or copied in from an argument
+            x.copy_(torch.randn((16, 64), generator=gen, device=cuda))
+            arg = x
+        else:
+            arg = torch.randn((16, 64), generator=gen, device=cuda)
+        n0 = matmul_tiled.launches
+        out = prog(arg)
+        counts.append(matmul_tiled.launches - n0)
+        assert torch.equal(out, matmul_tiled(arg, w)), step
+    assert counts == [1, 1, 1, 1]
+    assert prog.graph is not None and prog.launches == ((matmul_tiled, 1),)
+
+
+@pytest.mark.parametrize("backend", ["cuda", "torch"])
+def test_captured_greedy_decode_is_bit_equal_to_the_eager_body(cuda,
+                                                                backend):
+    """A small spec on 4 nodes: the captured step (eager first, captured
+    second, replayed after) gives the tokens and logits of the eager body
+    bit for bit, the tokens of the card's reference_decode, and counts one
+    kernel launch per step for every node that owns heads."""
+    spec = TransformerSpec(n_layers=2, d_model=256, n_heads=8, d_ff=1024,
+                           vocab=64)
+    prompt, n_new = [3, 17, 42, 7, 11, 5], 9
+    w = init_transformer(spec, seed=2, device=cuda)
+    tb = TorchTestbed(nodes=4, bandwidth_gbps=5.0, link_latency_us=1.0)
+    plan = plan_decode(spec, 2048, 4, tb=tb).plan
+    kw = dict(page_size=4, capacity=32)
+    graphed = DecodeSession(spec, w, plan, 4, ExecConfig(backend=backend),
+                            **kw)
+    assert isinstance(graphed._step_fn, GraphProgram)
+    n0 = flash_decode_paged.launches
+    toks, lg = greedy_decode(graphed, prompt, n_new)
+    torch.cuda.synchronize()
+    per_step = sum(sum(1 for h in hs if h) for hs in graphed.head_split)
+    ran = flash_decode_paged.launches - n0
+    assert ran == (per_step * (len(prompt) + n_new)
+                   if backend == "cuda" else 0)
+    assert graphed._step_fn.graph is not None
+    eager = DecodeSession(spec, w, plan, 4, ExecConfig(backend=backend),
+                          **kw)
+    eager._step_fn = eager._local_step
+    toks_e, lg_e = greedy_decode(eager, prompt, n_new)
+    assert toks == toks_e
+    assert torch.equal(lg, lg_e)
+    for i in range(spec.n_layers):
+        for n in range(4):
+            for a, b in zip(graphed.cache.pages(i, n),
+                            eager.cache.pages(i, n)):
+                assert torch.equal(a, b)
+    ref_toks, ref_lg = reference_decode(spec, w, prompt, n_new)
+    assert toks == ref_toks
+    assert _rel_err(lg, ref_lg) < 1e-4
+
+
+@pytest.mark.parametrize("window", [None, 7, 100])
+@pytest.mark.parametrize("ps", [1, 16])
+def test_decode_kernel_pointer_path_is_bit_equal_to_by_value(cuda, ps,
+                                                             window):
+    """kv_len read from a device int32 gives the by-value call's bits over
+    a sweep of lengths, never reading a dead page (NaN there), and one
+    captured launch replayed at each length gives the same bits again."""
+    gen = torch.Generator(device=cuda).manual_seed(ps * 3 + (window or 0))
+    lh, hd, n_pages = 4, 128, -(-512 // ps)
+    q = torch.randn((lh, hd), generator=gen, device=cuda)
+    length = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    for kv_len in (1, ps - 1, ps, ps + 1, 100, 333, 511, 512):
+        if kv_len < 1:
+            continue
+        kp, vp, _, _, table = _paged_pools(gen, cuda, lh, hd, ps, n_pages,
+                                           kv_len, window)
+        length.fill_(kv_len)
+        by_value = flash_decode_paged(q, kp, vp, table, kv_len,
+                                      window=window)
+        by_ptr = flash_decode_paged(q, kp, vp, table, length, window=window)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(by_ptr).all()), kv_len
+        assert torch.equal(by_value, by_ptr), kv_len
+    # one capture at a short length, replayed at every length
+    kp = torch.randn((lh, n_pages, ps, hd), generator=gen, device=cuda)
+    vp = torch.randn((lh, n_pages, ps, hd), generator=gen, device=cuda)
+    length.fill_(1)
+    prog = GraphProgram(
+        lambda n: flash_decode_paged(q, kp, vp, table, n, window=window),
+        length)
+    for kv_len in (1, 2, 17, 300, 512):
+        length.fill_(kv_len)
+        got = prog(length).clone()
+        assert torch.equal(got, flash_decode_paged(q, kp, vp, table, kv_len,
+                                                   window=window)), kv_len
+    assert prog.graph is not None

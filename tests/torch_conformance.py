@@ -178,3 +178,25 @@ def check_run_reference(name) -> None:
     ref_j = j_run_reference(gj, wj, x)
     ref_t = run_reference(gt, wt, torch.from_numpy(x))
     assert rel_err(ref_t, ref_j) < 1e-4
+
+
+def check_segment_programs(name, backend) -> None:
+    """One model at the reference's test size under a searched 4-node
+    plan: the port's segment programs (``jit_segments=True``, two runs)
+    give the eager records' bits and ExecStats, and agree with the JAX
+    Session (its segment cache on) within 1e-4 of the output scale."""
+    gj, wj, gt, wt, x = model(name)
+    pj, pt, nodes = plans(gj, "search-n4")
+    xt = torch.from_numpy(x)
+    out_j, st_j = JSession(gj, wj, pj, nodes).run(x)
+    eager, st_e = Session(gt, wt, pt, nodes,
+                          ExecConfig(backend=backend, jit_segments=False,
+                                     device="cpu")).run(xt)
+    sess = Session(gt, wt, pt, nodes, ExecConfig(backend=backend,
+                                                 device="cpu"))
+    for _ in range(2):
+        out, st = sess.run(xt)
+        assert torch.equal(out, eager)
+        assert st == st_e
+    assert rel_err(out, out_j) < 1e-4
+    assert geometry_fields(st) == geometry_fields(st_j)
