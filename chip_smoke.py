@@ -6,8 +6,8 @@
 From the root of a checkout, on a machine with one CUDA card and the CUDA
 toolkit.  It builds the hand-written kernels from ``src/repro_torch/
 kernels/csrc``, holds each against its plain PyTorch version on the card,
-then drives the port's three paths at full width with random weights from
-fixed seeds:
+then drives the port's paths at full width with random weights from fixed
+seeds:
 
 * the CNN/bert path — ``plan_search`` -> ``Session(...,
   ExecConfig(backend="cuda")).run(x)`` on MobileNet v1 (224x224),
@@ -24,7 +24,22 @@ fixed seeds:
   token — tokens checked against the card's ``reference_decode``, the
   ``backend="torch"`` session and the eager step body;
 * the flash attention entry point ``ops.flash_attention`` at OLMo-1B
-  prefill, llama3-8b GQA and zamba2-1.2b sliding-window shapes.
+  prefill, llama3-8b GQA and zamba2-1.2b sliding-window shapes;
+* the mesh executor (phase 9) — the same three models, weights, inputs
+  and plans on ``ExecConfig(executor="mesh")``, each node a CUDA stream,
+  one captured graph a pipeline stage, with the halo overlap on and off:
+  eager, capturing and replaying runs bit-equal to each other, within
+  1e-4 of the reference, ``ExecStats`` equal to the local run's, no fault
+  counted, launches equal to ``mesh_kernel_records``, every kernel call
+  of the eager run (the border strips' calls too, at shapes the local
+  path never makes) held against its plain version; then the warm run
+  against the local executor's, in turns, and a replayed
+  ``instrument=True`` run's per-stage walls and per-node completion
+  times;
+* the mesh decode (phase 10) — phase 6's weights, plan and prompt on
+  ``DecodeSession(..., ExecConfig(executor="mesh"))``: tokens against
+  ``reference_decode`` and the local session, launches against the plan,
+  and the warm step against the local step, in turns.
 
 All four kernels' launch counters are zeroed just before each path's run
 and read just after: they must equal the launches the plan (or the case
@@ -33,7 +48,9 @@ the capturing and the replaying runs alike.
 
 Times are taken on the card: the warm ``Session.run`` wall time per model
 and the warm per-token decode step, each eager and through the replayed
-graphs (medians with their ranges), and each kernel's device time over the
+graphs (medians with their ranges; the device's kernel time and its busy
+time, overlapping kernels counted once, from ``torch.profiler``), and each
+kernel's device time over the
 calls one main-path run makes, replayed as a CUDA graph so host launch
 overhead is left out (``conv2d_shard`` also split into its dense and
 depthwise calls, and the five call shapes of each CNN/bert kernel that
@@ -60,6 +77,7 @@ Output: progress lines, the card's name and power limit from nvidia-smi, a
 that line.  Without a CUDA device, or outside a checkout, it exits
 non-zero and prints no result.
 """
+import dataclasses
 import json
 import subprocess
 import sys
@@ -102,6 +120,7 @@ SKINNY_CONVS = (
     (2, 7, 1024, 1024, 1, 1, 0),    # mobilenet pw13
 )
 TOP_SHAPES = 5                  # recorded call shapes printed per kernel
+STAGES_SHOWN = 4                # instrumented mesh stages printed per run
 DECODE_TOL = 1e-5               # the reference's decode-kernel tolerance
 #: long-context paged decode, where bytes set the pace: heads, hd, page
 #: size, kv_len (a full table of kv_len / page size pages)
@@ -164,50 +183,100 @@ def check_counts(path, counts, want) -> None:
 # Expected kernel records of a plan (independent of the launch counters)
 # ---------------------------------------------------------------------------
 
-def kernel_records(graph, plan, nodes):
-    """(conv, fc) counts of the non-degenerate conv-family and FC records
-    that the local executor hands to the kernels for ``plan``."""
+def cell_launches(layers, a, b, need, in_rect):
+    """(conv, fc) kernel launches of one segment program over ``[a..b]``
+    computing the regions ``need`` from the input rect ``in_rect``: its
+    non-degenerate conv-family and FC records."""
     from repro_torch.core.graph import ConvT
-    from repro_torch.core.plan import steps_segments
     from repro_torch.kernels.conv2d import shard_out_shape
-    from repro_torch.runtime.engine import (_segment_records,
-                                            backward_chain, exact_regions)
+    from repro_torch.runtime.engine import _segment_records
 
     counts = [0, 0]
+    recs = _segment_records(layers, a, b, need, in_rect)
+    rows = in_rect[0][1] - in_rect[0][0]
+    for li, (t, k, s, pads, sl, chans) in zip(range(a, b + 1), recs):
+        t = ConvT(t)
+        width = chans[1] - chans[0]
+        if t == ConvT.FC:
+            counts[1] += rows > 0 and width > 0
+        elif t in (ConvT.CONV, ConvT.POINTWISE, ConvT.DWCONV):
+            oh, ow = shard_out_shape(sl[1] - sl[0], sl[3] - sl[2], k, s,
+                                     pads)
+            cout = width if t != ConvT.DWCONV else layers[li].in_c
+            counts[0] += oh > 0 and ow > 0 and cout > 0
+        rows = need[li][0][1] - need[li][0][0]
+    return counts
 
-    def branch(layers, steps):
-        for a, b in steps_segments(steps):
-            for cells in exact_regions(layers[b], steps[a][0], nodes):
-                for reg in cells:
-                    need, in_rect = backward_chain(layers, a, b, reg)
-                    recs = _segment_records(layers, a, b, need, in_rect)
-                    rows = in_rect[0][1] - in_rect[0][0]
-                    for li, (t, k, s, pads, sl, chans) in zip(
-                            range(a, b + 1), recs):
-                        t = ConvT(t)
-                        width = chans[1] - chans[0]
-                        if t == ConvT.FC:
-                            counts[1] += rows > 0 and width > 0
-                        elif t in (ConvT.CONV, ConvT.POINTWISE,
-                                   ConvT.DWCONV):
-                            oh, ow = shard_out_shape(sl[1] - sl[0],
-                                                     sl[3] - sl[2], k, s,
-                                                     pads)
-                            cout = width if t != ConvT.DWCONV else \
-                                layers[li].in_c
-                            counts[0] += oh > 0 and ow > 0 and cout > 0
-                        rows = need[li][0][1] - need[li][0][0]
 
+def plan_records(graph, plan, branch_counts):
+    """(conv, fc) launches of ``plan``: ``branch_counts(layers, steps)``
+    summed over the chain, or over the branches of a DAG less each merge
+    layer (a merge runs no kernel)."""
     layers = graph.layers
     if graph.is_chain:
-        branch(layers, plan.steps)
-        return tuple(counts)
+        return tuple(branch_counts(layers, plan.steps))
+    counts = [0, 0]
     for br in graph.linearize():
         ids = list(br.ids)
         rest = ids[1:] if graph.fan_in(ids[0]) >= 2 else ids
         if rest:
-            branch([layers[i] for i in rest], [plan.steps[i] for i in rest])
+            c = branch_counts([layers[i] for i in rest],
+                              [plan.steps[i] for i in rest])
+            counts = [counts[0] + c[0], counts[1] + c[1]]
     return tuple(counts)
+
+
+def kernel_records(graph, plan, nodes):
+    """(conv, fc) counts of the non-degenerate conv-family and FC records
+    that the local executor hands to the kernels for ``plan``."""
+    from repro_torch.core.plan import steps_segments
+    from repro_torch.runtime.engine import backward_chain, exact_regions
+
+    def branch(layers, steps):
+        counts = [0, 0]
+        for a, b in steps_segments(steps):
+            for cells in exact_regions(layers[b], steps[a][0], nodes):
+                for reg in cells:
+                    need, in_rect = backward_chain(layers, a, b, reg)
+                    c = cell_launches(layers, a, b, need, in_rect)
+                    counts = [counts[0] + c[0], counts[1] + c[1]]
+        return counts
+    return plan_records(graph, plan, branch)
+
+
+def mesh_kernel_records(graph, plan, nodes, overlap):
+    """(conv, fc) launches of one mesh run of ``plan``: as the local
+    executor's, except that with ``overlap`` every segment whose exit
+    boundary takes the halo exchange (``permute_plan``, halo rows on some
+    side) runs each node's cell as its up to three strip programs (top,
+    interior, bottom: ``strip_regions``)."""
+    from repro_torch.core.plan import steps_segments
+    from repro_torch.runtime.engine import backward_chain, exact_regions
+    from repro_torch.runtime.mesh_exec import permute_plan, strip_regions
+
+    def branch(layers, steps):
+        counts = [0, 0]
+        segs = steps_segments(steps)
+        for si, (a, b) in enumerate(segs):
+            regs = exact_regions(layers[b], steps[a][0], nodes)
+            rp = None
+            if overlap and si + 1 < len(segs):
+                a2, b2 = segs[si + 1]
+                rp = permute_plan(layers, regs, a2, b2, steps[a][0],
+                                  steps[a2][0], nodes)
+            for cells in regs:
+                for reg in cells:
+                    need, in_rect = backward_chain(layers, a, b, reg)
+                    parts = [need]
+                    if rp is not None and (rp.h_up or rp.h_dn):
+                        parts = [backward_chain(layers, a, b, strip)[0]
+                                 for strip in strip_regions(reg, rp)
+                                 if strip is not None]
+                    for part in parts:
+                        c = cell_launches(layers, a, b, part, in_rect)
+                        counts = [counts[0] + c[0], counts[1] + c[1]]
+        return counts
+    return plan_records(graph, plan, branch)
 
 
 # ---------------------------------------------------------------------------
@@ -242,8 +311,11 @@ def graph_ms(fn, reps=TIMED_REPS) -> float:
 def device_profile(run, reps):
     """What the card ran over ``reps`` calls of ``run``, from
     ``torch.profiler`` (CUPTI, kernels inside replayed graphs included):
-    (kernels a call, device ms a call, {kernel name: ms a call}).  No
-    kernel seen gives (0, None, {}), printed as not measured."""
+    (kernels a call, kernel ms a call, busy ms a call, {kernel name: ms a
+    call}).  Kernel ms sums every kernel's time; busy ms is the union of
+    the kernels' intervals, which counts once the time that kernels on
+    concurrent streams (the mesh's nodes) overlap.  No kernel seen gives
+    (0, None, None, {}), printed as not measured."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -258,17 +330,27 @@ def device_profile(run, reps):
             by_name[e.key] = e.self_device_time_total / 1e3 / reps
             n += e.count
     if not n:
-        return 0, None, {}
-    return n / reps, sum(by_name.values()), by_name
+        return 0, None, None, {}
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return n / reps, sum(by_name.values()), busy / 1e3 / reps, by_name
 
 
-def profile_text(kernels, dev_ms, wall_ms) -> str:
-    """A device profile beside the wall time it belongs to."""
+def profile_text(kernels, dev_ms, busy_ms, wall_ms) -> str:
+    """A device profile beside the wall time it belongs to; the idle share
+    is of the busy time."""
     if dev_ms is None:
         return "device time not measured (the profiler saw no kernel)"
-    return (f"{kernels:.0f} kernels, {dev_ms:.3f} ms of device time a "
-            f"call, the device idle {max(0.0, 1 - dev_ms / wall_ms) * 100:.1f}"
-            f"% of the {wall_ms:.3f} ms median wall")
+    return (f"{kernels:.0f} kernels, {dev_ms:.3f} ms of kernel time a call "
+            f"and the device busy {busy_ms:.3f} ms of it (overlapping "
+            f"kernels counted once), the device idle "
+            f"{max(0.0, 1 - busy_ms / wall_ms) * 100:.1f}% of the "
+            f"{wall_ms:.3f} ms median wall")
 
 
 def library_conv(x, w, pads, stride, depthwise):
@@ -510,21 +592,10 @@ def phase_main_path(dev, name, kw, seed, totals, errs, card):
 
     # record the kernel calls of one run, then time them three ways
     calls = {"conv2d_shard": [], "matmul_tiled": []}
-
-    def rec_conv(xs, w, **kwargs):
-        out = conv2d_shard(xs, w, **kwargs)
-        calls["conv2d_shard"].append((xs, w, kwargs, out))
-        return out
-
-    def rec_mm(xs, w):
-        out = matmul_tiled(xs, w)
-        calls["matmul_tiled"].append((xs, w, out))
-        return out
-
     prof = {"eager": device_profile(lambda: sess_e.run(x), 3),
             "graph": device_profile(lambda: sess_k.run(x), 3)}
 
-    engine.conv2d_shard, engine.matmul_tiled = rec_conv, rec_mm
+    engine.conv2d_shard, engine.matmul_tiled = recorders(calls)
     try:
         sess_e.run(x)   # a replayed program calls no wrapper
     finally:
@@ -532,18 +603,13 @@ def phase_main_path(dev, name, kw, seed, totals, errs, card):
     torch.cuda.synchronize()
     engine.clear_segment_cache()
 
-    row = {"model": name, "eager_ms": spread(walls["eager"]),
-           "graph_ms": spread(walls["graph"])}
     conv_calls = calls["conv2d_shard"]
     mm_calls = calls["matmul_tiled"]
-    for xs, w, kwargs, out in conv_calls:
-        plain = conv2d_shard_ref(xs, w, **kwargs)
-        check(rel_err(out, plain) < TOL, f"{name}: recorded conv call")
-        errs["conv2d_shard"] = max(errs["conv2d_shard"], abs_err(out, plain))
-    for xs, w, out in mm_calls:
-        plain = matmul_ref(xs, w)
-        check(rel_err(out, plain) < TOL, f"{name}: recorded FC call")
-        errs["matmul_tiled"] = max(errs["matmul_tiled"], abs_err(out, plain))
+    row = {"model": name, "eager_ms": spread(walls["eager"]),
+           "graph_ms": spread(walls["graph"]),
+           "mesh_inputs": (g, ws, x, plan, out_k, st_k, ref,
+                           call_shapes(conv_calls, mm_calls))}
+    check_recorded(name, conv_calls, mm_calls, errs)
     if conv_calls:
         nbytes = flops = 0.0
         for xs, w, kwargs, out in conv_calls:
@@ -598,8 +664,8 @@ def phase_main_path(dev, name, kw, seed, totals, errs, card):
              f"(replayed graphs) {gm:.3f} ms (range {glo:.3f}-{ghi:.3f}); "
              f"medians of {SESSION_REPS} synchronised runs each, in turns; "
              f"profiled: eager records "
-             f"{profile_text(*prof['eager'][:2], em)}; replayed graphs "
-             f"{profile_text(*prof['graph'][:2], gm)}"]
+             f"{profile_text(*prof['eager'][:3], em)}; replayed graphs "
+             f"{profile_text(*prof['graph'][:3], gm)}"]
     for kname in ("conv2d_shard", "matmul_tiled"):
         r = row.get(kname)
         if r:
@@ -611,6 +677,50 @@ def phase_main_path(dev, name, kw, seed, totals, errs, card):
                 f"{r['flops'] / 1e9:.3f} GFLOP, {r['bytes'] / 1e6:.2f} MB)")
     print("; ".join(parts) + f" [{card}]", flush=True)
     return row
+
+
+def call_shapes(conv_calls, mm_calls) -> set:
+    """The distinct shapes (kernel, input, weight, arguments) of recorded
+    calls."""
+    return ({("conv2d_shard", tuple(a.shape), tuple(b.shape),
+              tuple(sorted((k, str(v)) for k, v in c.items())))
+             for a, b, c, _ in conv_calls}
+            | {("matmul_tiled", tuple(a.shape), tuple(b.shape), ())
+               for a, b, _ in mm_calls})
+
+
+def check_recorded(name, conv_calls, mm_calls, errs) -> None:
+    """Hold every recorded kernel call against its plain version on the
+    same inputs (scale-normalised TOL) and keep each kernel's largest
+    absolute difference in ``errs``."""
+    from repro_torch.kernels.ref import conv2d_shard_ref, matmul_ref
+    for xs, w, kwargs, out in conv_calls:
+        plain = conv2d_shard_ref(xs, w, **kwargs)
+        check(rel_err(out, plain) < TOL, f"{name}: recorded conv call")
+        errs["conv2d_shard"] = max(errs["conv2d_shard"], abs_err(out, plain))
+    for xs, w, out in mm_calls:
+        plain = matmul_ref(xs, w)
+        check(rel_err(out, plain) < TOL, f"{name}: recorded FC call")
+        errs["matmul_tiled"] = max(errs["matmul_tiled"], abs_err(out, plain))
+
+
+def recorders(calls):
+    """Stand-ins for the engine's conv2d_shard and matmul_tiled that call
+    the wrappers (so launches count as before) and record each call's
+    inputs and output in ``calls``."""
+    from repro_torch.kernels.conv2d import conv2d_shard
+    from repro_torch.kernels.ops import matmul_tiled
+
+    def rec_conv(xs, w, **kwargs):
+        out = conv2d_shard(xs, w, **kwargs)
+        calls["conv2d_shard"].append((xs, w, kwargs, out))
+        return out
+
+    def rec_mm(xs, w):
+        out = matmul_tiled(xs, w)
+        calls["matmul_tiled"].append((xs, w, out))
+        return out
+    return rec_conv, rec_mm
 
 
 def top_shapes(name, conv_calls, mm_calls, card):
@@ -1035,6 +1145,7 @@ def phase_decode_path(dev, errs, card):
     row = dict(
         calls=len(calls), bytes=nbytes, flops=flops, step_ms=step_ms,
         run_s=run_s, margin=margin, launches=counts["flash_decode_paged"],
+        mesh_inputs=(spec, w, plan, prompt, toks_k, lg_k, toks_r, lg_r),
         ms=graph_ms(lambda: [flash_decode_paged(q, a, b, t, d, **k)
                              for q, a, b, t, d, _, k, _ in calls],
                     reps=DECODE_REPS),
@@ -1051,7 +1162,7 @@ def phase_decode_path(dev, errs, card):
               for c in calls), "decode: recorded calls of several shapes")
     (em, elo, ehi), (gm, glo, ghi) = step_ms["eager"], step_ms["graph"]
     dm = step_ms["device"]
-    n_kernels, prof_ms, by_name = step_prof
+    n_kernels, prof_ms, busy_ms, by_name = step_prof
     groups = {"cuBLAS products": 0.0, "flash_decode_paged": 0.0,
               "other": 0.0}
     for kname, ms in by_name.items():
@@ -1061,7 +1172,8 @@ def phase_decode_path(dev, errs, card):
         groups[group] += ms
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     print(f"phase 7: the replayed step's kernels (torch.profiler over 8 "
-          f"replays): {profile_text(n_kernels, prof_ms, gm)}; by group "
+          f"replays): {profile_text(n_kernels, prof_ms, busy_ms, gm)}; by "
+          f"group "
           + ", ".join(f"{g} {ms:.3f} ms" for g, ms in groups.items())
           + "; the costliest: " + "; ".join(
               f"{kname[:60]} {ms:.3f} ms" for kname, ms in top)
@@ -1247,6 +1359,273 @@ def phase_flash(dev, errs, card):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# The mesh executor
+# ---------------------------------------------------------------------------
+
+def stage_text(st, first=STAGES_SHOWN) -> str:
+    """The first ``first`` instrumented stages (wall and per-node done
+    times in ms) and the sums of the walls by kind."""
+    parts = []
+    for t in st.stage_times[:first]:
+        done = "/".join(f"{d * 1e3:.3f}" for d in t.device_done_s)
+        parts.append(f"{t.label} {t.wall_s * 1e3:.3f}"
+                     + (f" [{done}]" if done else ""))
+    sums = {}
+    for t in st.stage_times:
+        sums[t.kind] = sums.get(t.kind, 0.0) + t.wall_s * 1e3
+    occ = st.to_occupancy()
+    return ("; ".join(parts) + f"; ... {len(st.stage_times)} stages, walls "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(sums.items()))
+            + f"; straggler node's compute {occ.dev_occupancy_s * 1e3:.3f}"
+            f" ms")
+
+
+def phase_mesh(dev, row, errs, card):
+    """Session(executor="mesh").run on one phase-3 model (its plan,
+    weights and input) with overlap on and off, three runs each (eager,
+    capturing, replaying): outputs within TOL of the reference, bit-equal
+    across the runs, ExecStats equal to the local run's, no fault counted,
+    launches equal to ``mesh_kernel_records``, and every kernel call of
+    the eager run (the border strips' too) held against its plain
+    version; then the warm run against the local executor's and one
+    instrumented run."""
+    import torch
+    from repro_torch import ExecConfig, Session
+    from repro_torch.runtime import engine, mesh_exec
+
+    name = row["model"]
+    g, ws, x, plan, out_local, st_local, ref, local_shapes = \
+        row.pop("mesh_inputs")
+    wrappers = engine.conv2d_shard, engine.matmul_tiled
+    local = Session(g, ws, plan, NODES, ExecConfig(backend="cuda"))
+    out = {}
+    for overlap in (True, False):
+        want = mesh_kernel_records(g, plan, NODES, overlap)
+        want_counts = {"conv2d_shard": want[0], "matmul_tiled": want[1]}
+        cfg = ExecConfig(backend="cuda", executor="mesh", overlap=overlap)
+        sess = Session(g, ws, plan, NODES, cfg)
+        check(len(sess.mesh.streams) == NODES,
+              f"{name}: the mesh has {len(sess.mesh.streams)} streams")
+        mesh_exec.clear_mesh_program_cache()
+        outs = []
+        calls = {"conv2d_shard": [], "matmul_tiled": []}
+        for run in ("eager", "capture", "replay"):
+            zero_counts()
+            if run == "eager":
+                # the stage programs' first calls run the wrappers
+                engine.conv2d_shard, engine.matmul_tiled = recorders(calls)
+            try:
+                o, st = sess.run(x)
+            finally:
+                engine.conv2d_shard, engine.matmul_tiled = wrappers
+            torch.cuda.synchronize()
+            counts = read_counts()
+            check_counts(f"{name} mesh overlap={overlap} ({run} run)",
+                         counts, want_counts)
+            check(st == st_local, f"{name} mesh: {run} run ExecStats {st} "
+                                  f"!= the local executor's {st_local}")
+            check(st.failure_count == 0,
+                  f"{name} mesh: {run} run counted {st.failure_count} "
+                  f"faults (retries, timeouts, fallbacks)")
+            e = rel_err(o, ref)
+            check(e < TOL, f"{name} mesh: {run} run vs reference {e}")
+            outs.append(o)
+        check(all(torch.equal(o, outs[0]) for o in outs),
+              f"{name} mesh: eager, capture and replay runs differ")
+        n_rec = tuple(len(calls[k]) for k in ("conv2d_shard",
+                                              "matmul_tiled"))
+        check(n_rec == tuple(want),
+              f"{name} mesh overlap={overlap}: recorded {n_rec} calls, "
+              f"the plan's records {want}")
+        check_recorded(f"{name} mesh overlap={overlap}",
+                       calls["conv2d_shard"], calls["matmul_tiled"], errs)
+        added = sorted(call_shapes(calls["conv2d_shard"],
+                                   calls["matmul_tiled"]) - local_shapes)
+        del calls
+        print(f"phase 9: {name} mesh overlap={overlap}: the eager run's "
+              f"{n_rec[0]} conv2d_shard and {n_rec[1]} matmul_tiled calls "
+              f"each within {TOL:g} of its plain version (max abs err so "
+              f"far conv2d_shard {errs['conv2d_shard']:.3g}, matmul_tiled "
+              f"{errs['matmul_tiled']:.3g}); {len(added)} call shapes the "
+              f"local path does not make (kernel, input, weight, "
+              f"arguments): "
+              + ("; ".join(f"{k} {a}x{b} {' '.join('='.join(c) for c in cs)}"
+                           for k, a, b, cs in added[:8])
+                 + (" ..." if len(added) > 8 else "") if added else "none"),
+              flush=True)
+        info = mesh_exec.mesh_program_cache_info()
+        # instrumented: eager, capturing, then the replayed run read
+        isess = Session(g, ws, plan, NODES,
+                        dataclasses.replace(cfg, instrument=True))
+        for _ in range(3):
+            o, st_i = isess.run(x)
+            check(st_i.failure_count == 0 and rel_err(o, ref) < TOL,
+                  f"{name} mesh: an instrumented run counted "
+                  f"{st_i.failure_count} faults, err {rel_err(o, ref)}")
+        kinds = {}
+        for t in st_i.stage_times:
+            kinds[t.kind] = kinds.get(t.kind, 0) + 1
+        check(all(len(t.device_done_s) == NODES for t in st_i.stage_times
+                  if t.kind == "compute"),
+              f"{name} mesh: a compute stage lacks a node's done time")
+        same = torch.equal(outs[0], out_local)
+        print(f"phase 9: {name} mesh overlap={overlap}: launches "
+              f"conv2d_shard={counts['conv2d_shard']} matmul_tiled="
+              f"{counts['matmul_tiled']} == mesh_kernel_records on the "
+              f"eager, capture and replay runs (local executor "
+              f"{kernel_records(g, plan, NODES)}); the three outputs "
+              f"bit-equal, err vs reference {e:.3g}, vs the local executor"
+              f" {abs_err(outs[0], out_local):.3g} ("
+              f"{'bit-equal' if same else 'not bit-equal'}"
+              f"); ExecStats equal to the local run's, failure_count 0; "
+              f"programs made {info.misses}, hit {info.hits}; stages "
+              f"{dict(sorted(kinds.items()))}", flush=True)
+        print(f"phase 9: {name} mesh overlap={overlap} instrumented "
+              f"(replayed stages, per-node done from CUDA events in each "
+              f"stage's graph; ms, per-node done in brackets): "
+              f"{stage_text(st_i)} [{card}]", flush=True)
+
+        # warm runs, the mesh's replayed stages and the local executor's
+        # replayed cells in turns
+        engine.clear_segment_cache()
+        for _ in range(2):
+            local.run(x)
+        walls = {"local": [], "mesh": []}
+        for _ in range(SESSION_REPS):
+            walls["local"] += wall_ms(lambda: local.run(x), 1)
+            walls["mesh"] += wall_ms(lambda: sess.run(x), 1)
+        prof = {k: device_profile(lambda s=s: s.run(x), 3)
+                for k, s in (("local", local), ("mesh", sess))}
+        (lm, llo, lhi), (mm, mlo, mhi) = (spread(walls["local"]),
+                                          spread(walls["mesh"]))
+        print(f"phase 9: {name} mesh overlap={overlap}: warm Session.run "
+              f"mesh (replayed stages) {mm:.3f} ms (range {mlo:.3f}-"
+              f"{mhi:.3f}), local executor (replayed cells) {lm:.3f} ms "
+              f"(range {llo:.3f}-{lhi:.3f}); medians of {SESSION_REPS} "
+              f"synchronised runs each, in turns; profiled: mesh "
+              f"{profile_text(*prof['mesh'][:3], mm)}; local "
+              f"{profile_text(*prof['local'][:3], lm)} [{card}]",
+              flush=True)
+        out[overlap] = dict(mesh_ms=mm, local_ms=lm)
+        mesh_exec.clear_mesh_program_cache()
+        engine.clear_segment_cache()
+        del sess
+    return out
+
+
+def mesh_decode_launches(spec, plan, nodes, n_steps) -> int:
+    """flash_decode_paged launches of ``n_steps`` mesh decode steps of
+    ``plan``: per step and layer one per node that holds heads — a
+    head-sharded layer's owners, every node of a replicated one."""
+    from repro_torch.core.partition import Scheme, split_sizes
+    per_step = 0
+    for i in range(spec.n_layers):
+        split = split_sizes(spec.n_heads, nodes) \
+            if plan.steps[2 * i][0] == Scheme.OUTC else [spec.n_heads] * nodes
+        per_step += sum(1 for h in split if h)
+    return per_step * n_steps
+
+
+def phase_mesh_decode(dev, dec, card):
+    """greedy_decode(DecodeSession(executor="mesh")) at OLMo-1B's widths on
+    phase 6's weights, plan and prompt, the step one captured graph over
+    the node streams: tokens against reference_decode and the local
+    session's, logits against both, launches against the plan; then the
+    warm step against the local step."""
+    import torch
+    from repro_torch import DecodeSession, ExecConfig, greedy_decode
+    from repro_torch.runtime.graphs import GraphProgram
+
+    spec, w, plan, prompt, toks_l, lg_l, toks_r, lg_r = dec.pop("mesh_inputs")
+    n_steps = PROMPT_LEN + N_NEW
+    want = mesh_decode_launches(spec, plan, NODES, n_steps)
+    kw = dict(page_size=PAGE_SIZE, capacity=CAPACITY)
+
+    def session(executor):
+        sess = DecodeSession(spec, w, plan, NODES,
+                             ExecConfig(backend="cuda", executor=executor),
+                             **kw)
+        check(isinstance(sess._step_fn, GraphProgram),
+              f"{executor} decode: the step is not a GraphProgram")
+        return sess
+
+    sess = session("mesh")
+    check(len(sess.mesh.streams) == NODES, "mesh decode: streams")
+    zero_counts()
+    t0 = time.perf_counter()
+    toks, lg = greedy_decode(sess, prompt, N_NEW)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = read_counts()
+    check_counts("mesh decode", counts, {"flash_decode_paged": want})
+    check(sess._step_fn.graph is not None and sess._step_fn.calls == n_steps,
+          "mesh decode: the step was not captured and replayed")
+    check(bool(torch.isfinite(lg).all()), "mesh decode: non-finite logits")
+    top2 = lg.topk(2, dim=-1).values
+    margin = float((top2[:, 0] - top2[:, 1]).min())
+    e_r, e_l = rel_err(lg, lg_r), rel_err(lg, lg_l)
+    same = torch.equal(lg, lg_l)
+    print(f"phase 10: mesh decode olmo-1b widths at {NODES} nodes: "
+          f"{PROMPT_LEN} + {N_NEW} tokens in {run_s:.2f} s through the "
+          f"captured step; launches flash_decode_paged="
+          f"{counts['flash_decode_paged']} == plan {want}; tokens "
+          f"{'identical' if toks == toks_r == toks_l else 'DIFFER'} to "
+          f"reference_decode and the local session; logits vs "
+          f"reference_decode {e_r:.3g}, vs the local replayed step "
+          f"{e_l:.3g} ({'bit-equal' if same else 'not bit-equal'}); "
+          f"smallest top-two logit margin {margin:.4g}", flush=True)
+    check(toks == toks_r, f"mesh decode: tokens {toks} != reference_decode "
+                          f"{toks_r} (smallest margin {margin})")
+    check(toks == toks_l, f"mesh decode: tokens {toks} != the local "
+                          f"session's {toks_l}")
+    check(e_r < TOL, f"mesh decode: logits vs reference_decode {e_r}")
+    check(e_l < TOL, f"mesh decode: logits vs the local step {e_l}")
+    del sess
+
+    # warm per-token step, local and mesh sessions past the same prompt,
+    # stepped in turns
+    emb = w["emb"]
+    sessions = {k: session(k) for k in ("local", "mesh")}
+    toks_now = {}
+    for k, s in sessions.items():
+        toks_now[k] = int(torch.argmax(s.prefill(prompt) @ emb.T))
+    steps = {"local": [], "mesh": []}
+    for _ in range(N_NEW):
+        for k, s in sessions.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            h = s.step(toks_now[k])
+            torch.cuda.synchronize()
+            steps[k].append((time.perf_counter() - t0) * 1e3)
+            toks_now[k] = int(torch.argmax(h @ emb.T))
+    dev_ms = {}
+    for k, s in sessions.items():
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(N_NEW):
+            s._step_fn.graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        dev_ms[k] = start.elapsed_time(end) / N_NEW
+    prof = device_profile(sessions["mesh"]._step_fn.graph.replay, 8)
+    (lm, llo, lhi), (mm, mlo, mhi) = spread(steps["local"]), \
+        spread(steps["mesh"])
+    print(f"phase 10: decode warm step: mesh replayed {mm:.3f} ms per token "
+          f"(range {mlo:.3f}-{mhi:.3f}), local replayed {lm:.3f} ms (range "
+          f"{llo:.3f}-{lhi:.3f}); medians of {N_NEW} synchronised steps, in "
+          f"turns; device time a step ({N_NEW} back-to-back replays between "
+          f"CUDA events) mesh {dev_ms['mesh']:.3f} ms, local "
+          f"{dev_ms['local']:.3f} ms, so the device idles "
+          f"{max(0.0, 1 - dev_ms['mesh'] / mm) * 100:.1f}% of a mesh step "
+          f"and {max(0.0, 1 - dev_ms['local'] / lm) * 100:.1f}% of a local "
+          f"one; the mesh step's kernels (torch.profiler over 8 replays): "
+          f"{profile_text(*prof[:3], mm)} [{card}]", flush=True)
+    return dict(mesh_ms=mm, local_ms=lm, mesh_dev_ms=dev_ms["mesh"],
+                local_dev_ms=dev_ms["local"])
+
+
 def run(dev) -> dict:
     import torch
     from repro_torch.kernels import build
@@ -1291,6 +1670,9 @@ def run(dev) -> dict:
     totals["flash_attention_bh"] = len(flash)
     for kname, t in totals.items():
         check(t > 0, f"{kname} was never launched on the main path")
+    for row in rows:
+        phase_mesh(dev, row, errs, card)
+    phase_mesh_decode(dev, dec, card)
 
     meta = {
         "conv2d_shard": ("src/repro_torch/kernels/csrc/conv2d_shard.cu",

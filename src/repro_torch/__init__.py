@@ -26,15 +26,24 @@ Autoregressive decode of a head-sharded plan over the paged KV cache:
     tokens, logits = greedy_decode(DecodeSession(spec, weights, plan, 4),
                                    prompt=[3, 17], n_new=8)
 
+The same plan on the mesh executor — each node a CUDA stream of the card,
+one captured graph a pipeline stage, halo exchange and gathers as device
+copies:
+
+    out, stats = Session(graph, weights, res.plan, 4,
+                         ExecConfig(executor="mesh")).run(x)
+
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for ``device="cpu"``.  Deeper layers stay importable from the subpackages
-``repro_torch.core``, ``repro_torch.kernels``, ``repro_torch.runtime``
-and ``repro_torch.configs``.
+``repro_torch.core``, ``repro_torch.kernels``, ``repro_torch.runtime``,
+``repro_torch.launch`` and ``repro_torch.configs``.
 """
 from repro_torch.core import (AnalyticEstimator, Mode, Plan, Scheme,
                               Testbed, fixed_plan, plan_search)
-from repro_torch.runtime import (DecodeSession, ExecConfig, ExecStats,
-                                 PagedKVCache, Session, TransformerSpec,
+from repro_torch.launch import make_nodes_mesh
+from repro_torch.runtime import (EXECUTORS, DecodeSession, ExecConfig,
+                                 ExecStats, PagedKVCache, Session,
+                                 TransformerSpec,
                                  decode_graph, greedy_decode,
                                  init_transformer, init_weights, plan_decode,
                                  prefill_graph, reference_decode,
@@ -48,5 +57,6 @@ __all__ = [
     "fixed_plan", "Plan", "Scheme", "Mode", "DecodeSession",
     "TransformerSpec", "PagedKVCache", "decode_graph", "prefill_graph",
     "init_transformer", "transformer_weights_from_numpy",
-    "reference_decode", "greedy_decode", "plan_decode",
+    "reference_decode", "greedy_decode", "plan_decode", "EXECUTORS",
+    "make_nodes_mesh",
 ]

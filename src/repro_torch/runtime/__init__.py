@@ -1,9 +1,9 @@
-"""Execution runtime of the port: the Session API over the local
-executor, weight set-up and the unpartitioned reference, and the decode
-slice (:class:`DecodeSession` over the distributed paged KV cache,
+"""Execution runtime of the port: the Session API over the local and the
+mesh executor, weight set-up and the unpartitioned reference, and the
+decode slice (:class:`DecodeSession` over the distributed paged KV cache,
 :class:`TransformerSpec` and the decode-graph helpers)."""
-from .engine import (ExecStats, init_weights, run_reference,
-                     weights_from_numpy)
+from .engine import (EXECUTORS, ExecStats, MeasuredOccupancy, init_weights,
+                     run_reference, weights_from_numpy)
 from .session import ExecConfig, Session
 from .kv_cache import PagedKVCache
 from .decode import (DecodeSession, TransformerSpec, decode_graph,
@@ -12,7 +12,8 @@ from .decode import (DecodeSession, TransformerSpec, decode_graph,
                      transformer_weights_from_numpy)
 
 __all__ = [
-    "ExecConfig", "Session", "ExecStats", "init_weights",
+    "EXECUTORS", "ExecConfig", "Session", "ExecStats", "MeasuredOccupancy",
+    "init_weights",
     "weights_from_numpy", "run_reference", "PagedKVCache", "DecodeSession",
     "TransformerSpec", "decode_graph", "prefill_graph", "init_transformer",
     "transformer_weights_from_numpy", "reference_decode", "greedy_decode",

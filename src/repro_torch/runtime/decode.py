@@ -14,7 +14,7 @@ The port of the reference's decode slice:
   bit-identical to the JAX package's for the same seed;
   :func:`transformer_weights_from_numpy` carries any other set across.
 * :class:`DecodeSession`: decode-step execution of a searched plan on
-  ``nodes`` simulated nodes with the distributed paged KV cache
+  ``nodes`` nodes with the distributed paged KV cache
   (:class:`repro_torch.runtime.kv_cache.PagedKVCache`).  ``Scheme.OUTC`` on
   an ATTN layer shards *heads* across nodes — each node projects, caches
   and attends only its own heads, and the one cross-node exchange is the
@@ -22,21 +22,32 @@ The port of the reference's decode slice:
   ``Scheme.OUTC`` on an FFN layer column-shards ``w1`` the same way.  Any
   other scheme runs the layer replicated.
 
-Only the local executor is ported (the mesh executor is ROADMAP queue A 3
-and A 4).  ``ExecConfig(backend="cuda")`` runs each node's decode
-attention through the hand-written kernel
-:func:`repro_torch.kernels.flash_decode_paged` (its plain version on CPU
-tensors); ``backend="torch"`` runs the plain gather-and-mask version.  The
-projections and the FFN are plain ``torch.matmul`` products, as the
-reference leaves them to XLA.
+Both executors are ported.  ``ExecConfig(executor="mesh")`` runs the
+step on a mesh of node streams (:func:`repro_torch.launch.mesh.
+make_nodes_mesh`, the one-card mapping): each node's q/k/v products
+against its column slices, its K/V writes into its own pools, its
+``flash_decode_paged`` call and its ``w1`` columns run on its own stream,
+and the head-output and FFN gathers concatenate the nodes' outputs into
+one tensor after the join; a replicated layer runs on every node, each
+writing its own pools, as the reference's mesh step does.  The paged
+cache's pools are the mesh's pools, so nothing is stacked, padded or
+mirrored back.
+``ExecConfig(backend="cuda")`` runs each node's decode attention through
+the hand-written kernel :func:`repro_torch.kernels.flash_decode_paged`
+(its plain version on CPU tensors); ``backend="torch"`` runs the plain
+gather-and-mask version.  The projections and the FFN are plain
+``torch.matmul`` products, as the reference leaves them to XLA.
 
 The step is one program, as the reference's jitted step is.  Its body
-(:meth:`DecodeSession._local_step`) takes the token and the position as
-device tensors: the embedding row is an ``index_select``, each node's K/V
-goes to the slot the cache computes on the device
-(:meth:`~repro_torch.runtime.kv_cache.PagedKVCache.write`), and the decode
-kernel reads ``kv_len`` from device memory, so nothing in it reads a
-device value on the host.  On the card ``_step_fn`` runs that body as a
+(:meth:`DecodeSession._step`, the same for both executors: the nodes'
+parts run through a :class:`~repro_torch.launch.mesh.NodesMesh`, one
+after another for the local executor, each on its stream on the mesh)
+takes the token and the position as device tensors: the embedding row
+is an ``index_select``, each node's K/V goes to the slot the cache
+computes on the device
+(:meth:`~repro_torch.runtime.kv_cache.PagedKVCache.write`), and the
+decode kernel reads ``kv_len`` from device memory, so nothing in it
+reads a device value on the host.  On the card ``_step_fn`` runs that body as a
 :class:`~repro_torch.runtime.graphs.GraphProgram` — eager on the first
 step, captured on the second, replayed on every later one; on the CPU it
 is the body itself.
@@ -54,6 +65,7 @@ from repro_torch.core.graph import ConvT, LayerSpec, ModelGraph, chain
 from repro_torch.core.partition import Scheme, split_sizes
 from repro_torch.kernels.flash_attention import flash_decode_paged
 from repro_torch.kernels.ref import flash_decode_paged_ref
+from repro_torch.launch.mesh import NodesMesh, check_mesh, make_nodes_mesh
 from repro_torch.runtime.graphs import GraphProgram
 from repro_torch.runtime.kv_cache import PagedKVCache
 from repro_torch.runtime.session import ExecConfig
@@ -259,8 +271,7 @@ def _offsets(split: Sequence[int]) -> List[int]:
 
 
 class DecodeSession:
-    """Stateful decode of one plan on ``nodes`` simulated nodes (the local
-    executor).
+    """Stateful decode of one plan on ``nodes`` nodes.
 
     ``plan.steps`` must pair up with :func:`decode_graph`'s layers —
     entry ``2i`` is block ``i``'s ATTN layer, ``2i+1`` its FFN.  An OutC
@@ -269,19 +280,23 @@ class DecodeSession:
     replicated (every node keeps all heads, all pools stay full — memory
     accounting via :meth:`PagedKVCache.bytes_per_node` reflects that).
 
-    ``config.backend`` picks the attention inner: ``"cuda"`` the paged
-    decode kernel, ``"torch"`` the plain gather-and-mask version.
-    ``config.device`` (default ``"cuda"``) is where the cache lives and the
-    step runs; the weights must already lie there (see
-    :func:`init_transformer`, :func:`transformer_weights_from_numpy`).
-    Without a card the session raises unless given ``device="cpu"``.
-    One step program serves every position (see the module docstring).
+    ``config.executor`` picks the local executor (the nodes' parts one
+    after another) or the mesh (each node's part on its own stream;
+    ``mesh`` optionally passes a prebuilt one, else it is made over
+    ``[config.device]``).  ``config.backend`` picks the attention inner:
+    ``"cuda"`` the paged decode kernel, ``"torch"`` the plain
+    gather-and-mask version.  ``config.device`` (default ``"cuda"``) is
+    where the cache lives and the step runs; the weights must already lie
+    there (see :func:`init_transformer`,
+    :func:`transformer_weights_from_numpy`).  Without a card the session
+    raises unless given ``device="cpu"``.  One step program serves every
+    position (see the module docstring).
     """
 
     def __init__(self, spec: TransformerSpec, weights: Dict, plan,
                  nodes: int, config: ExecConfig = ExecConfig(), *,
                  page_size: int = 16, capacity: int = 256,
-                 cache_seed: int = 0):
+                 cache_seed: int = 0, mesh=None):
         if len(plan.steps) != 2 * spec.n_layers:
             raise ValueError(f"plan has {len(plan.steps)} steps, decode "
                              f"graph needs {2 * spec.n_layers}")
@@ -315,10 +330,24 @@ class DecodeSession:
         # the step's inputs, filled in place before each step
         self._tok = torch.zeros((1,), dtype=torch.int64, device=self.device)
         self._pos = torch.zeros((), dtype=torch.int64, device=self.device)
-        self._step_fn = self._local_step
+        self._mesh = None
+        # the local executor's nodes: one after another, no streams
+        self._serial = NodesMesh([self.device] * self.nodes)
+        body = self._local_step
+        if config.executor == "mesh":
+            if mesh is None:
+                mesh = make_nodes_mesh(self.nodes, [self.device])
+            check_mesh(mesh, self.nodes, self.device)
+            self._mesh = mesh
+            body = self._mesh_step
+        self._step_fn = body
         if self.device.type == "cuda":
-            self._step_fn = GraphProgram(self._local_step, self._tok,
-                                         self._pos)
+            self._step_fn = GraphProgram(body, self._tok, self._pos)
+
+    @property
+    def mesh(self):
+        """The mesh of node streams (``None`` for the local executor)."""
+        return self._mesh
 
     def step(self, token: int) -> torch.Tensor:
         """Process one token at the cache's current position; returns the
@@ -345,11 +374,32 @@ class DecodeSession:
 
     def _local_step(self, tok: torch.Tensor,
                     pos: torch.Tensor) -> torch.Tensor:
+        """The local executor's step body: the nodes' parts one after
+        another on the calling stream; a replicated layer computed once,
+        its K/V written into every node's pools."""
+        return self._step(tok, pos, self._serial, every_node=False)
+
+    def _mesh_step(self, tok: torch.Tensor,
+                   pos: torch.Tensor) -> torch.Tensor:
+        """The mesh's step body: each node's part on its own stream; a
+        replicated layer runs on every node, each writing its own pools,
+        as the reference's mesh step does."""
+        return self._step(tok, pos, self._mesh, every_node=True)
+
+    def _step(self, tok: torch.Tensor, pos: torch.Tensor, nodes: NodesMesh,
+              every_node: bool) -> torch.Tensor:
         """The step body: token ``tok`` (``[1]`` int64) at position
         ``pos`` (a 0-d integer tensor), both on the session's device;
-        returns the final hidden state.  It reads no device value on the
-        host, so the card can capture it."""
-        spec, nodes, cache = self.spec, self.nodes, self.cache
+        returns the final hidden state.  Per layer, ``nodes.run`` runs
+        each node's attention part (its q/k/v columns, its K/V write, its
+        decode call) and then each node's ``w1`` columns; after the join
+        the nodes' outputs are concatenated into one tensor (the
+        head-output and FFN gathers), which the replicated norms and
+        output projections read.  A replicated layer runs on every node
+        (``every_node``) or on node 0 alone, which then writes every
+        node's pools.  The body reads no device value on the host, so the
+        card can capture it."""
+        spec, cache, N = self.spec, self.cache, self.nodes
         H, hd = spec.n_heads, spec.head_dim
         scale = 1.0 / math.sqrt(hd)
         backend = self.config.backend
@@ -357,45 +407,51 @@ class DecodeSession:
         x = self.weights["emb"].index_select(0, tok.reshape(1))[0]
         kv_len = (pos + 1).to(torch.int32).reshape(1)
         slot = cache.slot_index(pos)
+
+        def cols(sharded: bool, split: Sequence[int], total: int):
+            # node n's columns [c0, c1): its share, or all (every node,
+            # or node 0 alone) when replicated
+            off = _offsets(split)
+            return [(off[n], off[n + 1]) if sharded
+                    else (0, total) if every_node or n == 0 else (0, 0)
+                    for n in range(N)]
+
+        def gather(outs: list, sharded: bool) -> torch.Tensor:
+            # a replicated layer's nodes agree: node 0's output serves
+            if not sharded:
+                return outs[0]
+            return torch.cat([t for t in outs if t is not None])
+
         for i, blk in enumerate(self.weights["blocks"]):
             a = _rmsnorm(x)
-            if self.attn_sharded[i]:
-                hs = self.head_split[i]
-                off = _offsets(hs)
-                outs = []
-                for n in range(nodes):
-                    if hs[n] == 0:
-                        continue
-                    cols = slice(off[n] * hd, off[n + 1] * hd)
-                    q = (a @ blk["wq"][:, cols]).reshape(hs[n], hd)
-                    k = (a @ blk["wk"][:, cols]).reshape(hs[n], hd)
-                    v = (a @ blk["wv"][:, cols]).reshape(hs[n], hd)
-                    cache.write(i, n, slot, k, v)
-                    kp, vp = cache.pages(i, n)
-                    outs.append(_paged_attn(q, kp, vp, table, kv_len,
-                                            scale=scale, backend=backend))
-                o = torch.cat(outs, 0).reshape(-1)
-            else:
-                # replicated: one full computation; every node's pool
-                # receives the same K/V (replication costs memory on every
-                # node — by design)
-                q = (a @ blk["wq"]).reshape(H, hd)
-                k = (a @ blk["wk"]).reshape(H, hd)
-                v = (a @ blk["wv"]).reshape(H, hd)
-                for n in range(nodes):
-                    cache.write(i, n, slot, k, v)
-                kp, vp = cache.pages(i, 0)
-                o = _paged_attn(q, kp, vp, table, kv_len, scale=scale,
-                                backend=backend).reshape(-1)
-            x = x + o @ blk["wo"]
+            sharded = self.attn_sharded[i]
+            heads = cols(sharded, self.head_split[i], H)
+
+            def attn(n):
+                h0, h1 = heads[n]
+                if h1 == h0:
+                    return None
+                cs = slice(h0 * hd, h1 * hd)
+                q = (a @ blk["wq"][:, cs]).reshape(h1 - h0, hd)
+                k = (a @ blk["wk"][:, cs]).reshape(h1 - h0, hd)
+                v = (a @ blk["wv"][:, cs]).reshape(h1 - h0, hd)
+                for m in (range(N) if not (sharded or every_node)
+                          else (n,)):
+                    cache.write(i, m, slot, k, v)
+                kp, vp = cache.pages(i, n)
+                return _paged_attn(q, kp, vp, table, kv_len, scale=scale,
+                                   backend=backend).reshape(-1)
+            x = x + gather(nodes.run(attn), sharded) @ blk["wo"]
             f = _rmsnorm(x)
-            if self.ffn_sharded[i]:
-                fo = _offsets(self.ff_split[i])
-                hv = torch.cat(
-                    [torch.relu(f @ blk["w1"][:, fo[n]:fo[n + 1]])
-                     for n in range(nodes) if fo[n + 1] > fo[n]], -1)
-            else:
-                hv = torch.relu(f @ blk["w1"])
+            ffn_cols = cols(self.ffn_sharded[i], self.ff_split[i],
+                            spec.d_ff)
+
+            def ffn(n):
+                c0, c1 = ffn_cols[n]
+                if c1 == c0:
+                    return None
+                return torch.relu(f @ blk["w1"][:, c0:c1])
+            hv = gather(nodes.run(ffn), self.ffn_sharded[i])
             x = x + hv @ blk["w2"]
         return x
 

@@ -71,6 +71,7 @@ from repro_torch.runtime.graphs import GraphProgram
 Rect = Tuple[Tuple[int, int], Tuple[int, int], Tuple[int, int]]
 
 BACKENDS = ("torch", "cuda")
+EXECUTORS = ("local", "mesh")
 
 
 # ---------------------------------------------------------------------------
@@ -266,14 +267,34 @@ def _clip(r: Tuple[int, int], bound: int) -> Tuple[int, int]:
 
 @dataclasses.dataclass(frozen=True)
 class StageTime:
-    """Measured wall time of one dispatched pipeline stage (filled by the
-    multi-device executor, a later part of the port; the local executor
-    records none)."""
+    """Measured wall time of one dispatched pipeline stage (mesh executor,
+    ``instrument=True``).  ``device_done_s[n]`` is node ``n``'s completion
+    offset from the stage's start: on the card CUDA events on the node's
+    stream against an event recorded before the fork, both inside the
+    stage's captured graph once it replays; on the CPU the host clock
+    after the node's branch (the nodes run one after another)."""
 
     kind: str                            # "compute" | "sync"
     label: str                           # simulator stage label convention
     wall_s: float
     device_done_s: Tuple[float, ...] = ()
+
+
+@dataclasses.dataclass(frozen=True)
+class MeasuredOccupancy:
+    """Per-request resource-class occupancy measured from a real run —
+    the counterpart of the simulator occupancy that the reference's
+    ``cluster.refine`` extracts from a ``SimReport``
+    (``occupancy_fn`` protocol)."""
+
+    dev_occupancy_s: float     # max over nodes of summed compute time
+    link_occupancy_s: float    # summed sync-stage wall time
+    period_s: float            # pipelined steady-state period estimate
+    latency_s: float           # single-request wall time
+    #: dispatch failures behind the measurement (retries + timeouts +
+    #: degraded fallbacks) — ``cluster.refine`` treats any nonzero value
+    #: as an untrusted sample and keeps its previous axis weights
+    failures: int = 0
 
 
 @dataclasses.dataclass
@@ -283,17 +304,53 @@ class ExecStats:
     redundant_elems: float = 0.0     # halo outputs computed more than once
     #: executed T-terminated segments — the plan's compute-stage count
     compute_stages: int = 0
-    #: measured pipeline stages.  Excluded from equality: geometry
-    #: accounting is executor- and backend-independent by contract, wall
-    #: times never are.
+    #: measured pipeline stages (mesh executor with ``instrument=True``).
+    #: Excluded from equality: geometry accounting is executor- and
+    #: backend-independent by contract, wall times never are.
     stage_times: List[StageTime] = dataclasses.field(
         default_factory=list, compare=False, repr=False)
-    #: end-to-end wall seconds of the run (multi-device executor only)
+    #: end-to-end wall seconds of the run (mesh executor only)
     wall_s: float = dataclasses.field(default=0.0, compare=False)
-    #: fault counters of the multi-device executor, excluded from equality
+    #: stage dispatches re-attempted after a failure (mesh executor with
+    #: ``stage_retries > 0``), excluded from equality like wall times
     retries: int = dataclasses.field(default=0, compare=False)
+    #: stage dispatches that exceeded ``stage_timeout_s``
     timeouts: int = dataclasses.field(default=0, compare=False)
+    #: runs completed by the degraded single-process fallback
     fallbacks: int = dataclasses.field(default=0, compare=False)
+
+    @property
+    def failure_count(self) -> int:
+        """Total faults observed while producing this run's numbers."""
+        return self.retries + self.timeouts + self.fallbacks
+
+    def to_occupancy(self) -> MeasuredOccupancy:
+        """Fold the measured stage times into per-resource-class occupancy:
+        device occupancy is the straggler node's summed compute time, link
+        occupancy sums the sync-stage walls, and the period is the busier
+        class (the reference's ``PipelineCost`` bottleneck semantics
+        applied to measurements)."""
+        if not self.stage_times:
+            raise ValueError(
+                "no measured stages — run with "
+                'ExecConfig(executor="mesh", instrument=True) '
+                "(only the mesh executor measures stage times)")
+        per_dev: Dict[int, float] = {}
+        sync = 0.0
+        for st in self.stage_times:
+            if st.kind == "compute":
+                if st.device_done_s:
+                    for d, t in enumerate(st.device_done_s):
+                        per_dev[d] = per_dev.get(d, 0.0) + t
+                else:
+                    per_dev[0] = per_dev.get(0, 0.0) + st.wall_s
+            else:
+                sync += st.wall_s
+        dev = max(per_dev.values()) if per_dev else 0.0
+        return MeasuredOccupancy(
+            dev_occupancy_s=dev, link_occupancy_s=sync,
+            period_s=max(dev, sync), latency_s=self.wall_s,
+            failures=self.failure_count)
 
 
 def _rect_elems(r: Rect) -> int:

@@ -1,6 +1,6 @@
 """Captured CUDA graphs: the port's counterpart of the reference's
-``jax.jit`` programs (the segment programs of ``Session.run`` and the
-decode step).
+``jax.jit`` programs (the segment programs of ``Session.run``, the mesh
+executor's stage programs and the decode step).
 
 A :class:`GraphProgram` runs ``fn(*inputs)`` on fixed input tensors on the
 card:
@@ -12,10 +12,17 @@ card:
   side stream, then replays it;
 * every later call replays it.
 
+``fn`` returns a tensor or a list or tuple of them (a mesh stage returns
+each node's outputs).  It may fork work onto other streams of the device
+(each waits on the stream ``fn`` was called on) as long as it joins them
+again before it returns: the capture then records every stream's work
+into the one graph, in the graph's own memory pool, and the replay runs
+the branches as the graph's parallel paths.
+
 The program owns its input tensors: a call copies each argument into its
 input (an argument that is the input itself is left as it is), and the
-graph reads them where they lie.  The caller reads the output before the
-next call, which overwrites it in the graph's memory.
+graph reads them where they lie.  The caller reads the outputs before the
+next call, which overwrites them in the graph's memory.
 
 Memory: every graph captures into a private memory pool of its own, so
 graphs replay in any order (cache hits across sessions, programs dropped
@@ -32,7 +39,7 @@ back to the eager path.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Any, Callable, Dict
 
 import torch
 
@@ -64,9 +71,10 @@ class GraphProgram:
     """``fn(*inputs)`` on the card: eager on the first call, captured as a
     CUDA graph on the second and replayed on that and every later call.
     ``inputs`` are the program's own CUDA tensors; each call's arguments
-    are copied into them."""
+    are copied into them.  A call returns what ``fn`` returned (on a
+    replay, the tensors the capture left in the graph's memory)."""
 
-    def __init__(self, fn: Callable[..., torch.Tensor],
+    def __init__(self, fn: Callable[..., Any],
                  *inputs: torch.Tensor):
         self.device = inputs[0].device
         if self.device.type != "cuda":
@@ -79,7 +87,7 @@ class GraphProgram:
         self.out = None
         self.launches = ()
 
-    def __call__(self, *args: torch.Tensor) -> torch.Tensor:
+    def __call__(self, *args: torch.Tensor) -> Any:
         for dst, src in zip(self.inputs, args):
             if src is not dst:
                 dst.copy_(src)

@@ -30,7 +30,8 @@ from repro.runtime.session import ExecConfig as JExecConfig
 from repro_torch import (DecodeSession, ExecConfig, Mode, PagedKVCache,
                          Plan, Scheme, TransformerSpec,
                          decode_graph, greedy_decode, init_transformer,
-                         plan_decode, prefill_graph, reference_decode,
+                         make_nodes_mesh, plan_decode, prefill_graph,
+                         reference_decode,
                          transformer_weights_from_numpy)
 from repro_torch import Testbed as TorchTestbed
 
@@ -291,8 +292,11 @@ def test_decode_session_device_and_executor_rules():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             DecodeSession(SPEC, wt, plan, 2)
-    with pytest.raises(NotImplementedError, match="A 3.*A 4"):
-        ExecConfig(executor="mesh", **CPU)
+    with pytest.raises(ValueError, match="executor"):
+        ExecConfig(executor="remote", **CPU)
+    with pytest.raises(ValueError, match="mesh must be 1-D"):
+        DecodeSession(SPEC, wt, plan, 2, ExecConfig(executor="mesh", **CPU),
+                      mesh=make_nodes_mesh(4, ["cpu"]))
     with pytest.raises(ValueError, match="steps"):
         DecodeSession(SPEC, wt, Plan(plan.steps[:2]), 2, ExecConfig(**CPU))
     meta = {"emb": wt["emb"].to("meta"), "blocks": wt["blocks"]}

@@ -155,8 +155,8 @@ def test_session_needs_card_unless_cpu_requested():
 
 def test_exec_config_validation():
     assert ExecConfig().device == "cuda" and ExecConfig().backend == "cuda"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ExecConfig(executor="mesh")
+    mesh = ExecConfig(executor="mesh")
+    assert mesh.overlap and mesh.fallback == "raise" and not mesh.instrument
     with pytest.raises(ValueError, match="backend"):
         ExecConfig(backend="xla")
     with pytest.raises(ValueError, match="executor"):

@@ -1,5 +1,5 @@
-"""The CUDA kernels, the ``backend="cuda"`` engine and the
-``backend="cuda"`` decode session on the card.
+"""The CUDA kernels, the ``backend="cuda"`` engine, the mesh executor and
+the ``backend="cuda"`` decode session on the card.
 
 Every test here needs a CUDA device: it carries the ``gpu`` marker and
 skips (inside the ``cuda`` fixture, never at import) where there is none.
@@ -13,13 +13,17 @@ the kernel and the plain version sum in f32 in different orders (TF32 is
 switched off for the plain versions).
 """
 import importlib
+import importlib.util
+import threading
+import time
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch import (AnalyticEstimator, DecodeSession, ExecConfig,
-                         Scheme, Session, TransformerSpec, fixed_plan,
+from repro_torch import (AnalyticEstimator, DecodeSession, ExecConfig, Mode,
+                         Plan, Scheme, Session, TransformerSpec, fixed_plan,
                          greedy_decode, init_transformer, init_weights,
                          plan_decode, plan_search, reference_decode,
                          run_reference)
@@ -37,7 +41,12 @@ from repro_torch.kernels.ref import (conv2d_shard_ref, flash_attention_ref,
                                      matmul_ref)
 from repro_torch.runtime.engine import (clear_segment_cache,
                                         segment_cache_info)
+from repro_torch.launch.mesh import NodesMesh
+from repro_torch.runtime import mesh_exec
 from repro_torch.runtime.graphs import GraphProgram
+from repro_torch.runtime.mesh_exec import (StageTimeoutError,
+                                           clear_mesh_program_cache,
+                                           mesh_program_cache_info)
 
 fa_mod = importlib.import_module("repro_torch.kernels.flash_attention")
 
@@ -875,3 +884,256 @@ def test_decode_kernel_pointer_path_is_bit_equal_to_by_value(cuda, ps,
         assert torch.equal(got, flash_decode_paged(q, kp, vp, table, kv_len,
                                                    window=window)), kv_len
     assert prog.graph is not None
+
+
+# ---------------------------------------------------------------------------
+# the mesh executor: a stream a node, one captured graph a stage
+# ---------------------------------------------------------------------------
+
+def _smoke():
+    """chip_smoke.py as a module, for its launch records of a plan."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _mesh_case(case, dev):
+    g, plan = _rn_rep() if case == "rn_rep" else _mobilenet_prefix()
+    ws = init_weights(g, torch.Generator().manual_seed(5), dev)
+    l0 = g.layers[0]
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (l0.in_h, l0.in_w, l0.in_c)).astype(np.float32)).to(dev)
+    return g, plan, ws, x
+
+
+@pytest.mark.parametrize("overlap", [True, False])
+@pytest.mark.parametrize("nodes", [2, 4])
+@pytest.mark.parametrize("case", ["rn_rep", "mobilenet_prefix"])
+def test_mesh_session_run_is_bit_equal_across_capture_and_replay(
+        cuda, case, nodes, overlap):
+    """The mesh's eager, capturing and replaying runs give the same bits,
+    within 1e-4 of the local executor, its ExecStats and no fault; each
+    run launches the kernels the plan's mesh records call for.  rn_rep's
+    repeated blocks would show a stage output overwritten by a replay."""
+    g, plan, ws, x = _mesh_case(case, cuda)
+    local, st_l = Session(g, ws, plan, nodes,
+                          ExecConfig(jit_segments=False)).run(x)
+    want = _smoke().mesh_kernel_records(g, plan, nodes, overlap)
+    assert want[0] > 0
+    clear_mesh_program_cache()
+    sess = Session(g, ws, plan, nodes, ExecConfig(executor="mesh",
+                                                  overlap=overlap))
+    assert len(sess.mesh.streams) == nodes
+    outs = []
+    for run in range(3):
+        n0 = _launches()
+        out, st = sess.run(x)
+        torch.cuda.synchronize()
+        assert tuple(b - a for a, b in zip(n0, _launches())) == want, run
+        assert st == st_l and st.failure_count == 0
+        outs.append(out)
+    for out in outs:
+        assert torch.equal(out, outs[0])
+    assert _rel_err(outs[0], local) < 1e-4
+    info = mesh_program_cache_info()
+    assert info.hits == 2 * info.misses == 2 * info.currsize
+    clear_mesh_program_cache()
+
+
+def test_a_mesh_stage_graph_holds_every_node_stream(cuda, monkeypatch):
+    """The capture of a 4-node mesh run records each node's records on
+    that node's stream (fork) and ends (a stream left unjoined fails
+    ``capture_end``); every stage output lies in its graph's own pool."""
+    g, plan, ws, x = _mesh_case("rn_rep", cuda)
+    clear_mesh_program_cache()
+    sess = Session(g, ws, plan, 4, ExecConfig(executor="mesh"))
+    seen = []
+    run_records = mesh_exec._run_records
+
+    def spy(recs, weights, xs, backend):
+        seen.append((torch.cuda.current_stream().cuda_stream,
+                     torch.cuda.is_current_stream_capturing()))
+        return run_records(recs, weights, xs, backend)
+    monkeypatch.setattr(mesh_exec, "_run_records", spy)
+    sess.run(x)
+    seen.clear()
+    out, _ = sess.run(x)
+    torch.cuda.synchronize()
+    assert {s for s, capturing in seen if capturing} == \
+        {s.cuda_stream for s in sess.mesh.streams}
+    segments = torch.cuda.memory_snapshot()
+
+    def pool_of(t):
+        p = t.data_ptr()
+        return next(tuple(seg["segment_pool_id"]) for seg in segments
+                    if seg["address"] <= p < seg["address"]
+                    + seg["total_size"])
+
+    def tensors(obj):
+        if isinstance(obj, torch.Tensor):
+            return [obj] if obj.numel() else []
+        return [t for o in obj for t in tensors(o)]
+    progs = [p for p in mesh_exec._PROGRAMS.values() if p.graph is not None]
+    assert progs and all(p.graph.graph is not None for p in progs)
+    for prog in progs:
+        pool = tuple(prog.graph.graph.pool())
+        for t in tensors(prog.graph.out):
+            assert pool_of(t) == pool
+    assert _rel_err(out, run_reference(g, ws, x)) < 1e-4
+    clear_mesh_program_cache()
+
+
+def test_instrumented_mesh_stages_time_every_node(cuda):
+    """instrument=True on the eager, capturing and replaying runs: every
+    compute stage carries each of the 4 nodes' completion (timing events
+    on its stream, inside the stage's graph once captured), within the
+    stage's wall, and the outputs keep their bits."""
+    g, plan, ws, x = _mesh_case("mobilenet_prefix", cuda)
+    clear_mesh_program_cache()
+    sess = Session(g, ws, plan, 4, ExecConfig(executor="mesh",
+                                              instrument=True, overlap=False))
+    outs = []
+    for run in range(3):
+        out, st = sess.run(x)
+        outs.append(out)
+        comp = [t for t in st.stage_times if t.kind == "compute"]
+        assert comp and {t.kind for t in st.stage_times} == \
+            {"compute", "sync"}
+        for t in comp:
+            assert len(t.device_done_s) == 4
+            assert all(0.0 < d <= t.wall_s for d in t.device_done_s), \
+                (run, t)
+        assert st.to_occupancy().dev_occupancy_s > 0.0
+    assert all(p.graph.graph is not None
+               for p in mesh_exec._PROGRAMS.values() if p.graph is not None)
+    for out in outs:
+        assert torch.equal(out, outs[0])
+    assert _rel_err(outs[0], run_reference(g, ws, x)) < 1e-4
+    clear_mesh_program_cache()
+
+
+def test_mesh_stage_timeout_fires_in_a_worker_on_the_callers_stream(
+        cuda, monkeypatch):
+    """An unmeetable stage_timeout_s raises StageTimeoutError from the
+    watchdog; with a generous one every stage forks from the caller's
+    stream inside the worker thread and the run completes."""
+    g, plan, ws, x = _mesh_case("rn_rep", cuda)
+    clear_mesh_program_cache()
+    forks = []
+    run = NodesMesh.run
+
+    def spy(self, *phases, marks=None):
+        forks.append((threading.current_thread().name,
+                      torch.cuda.current_stream()))
+        return run(self, *phases, marks=marks)
+    monkeypatch.setattr(NodesMesh, "run", spy)
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        with pytest.raises(StageTimeoutError, match="first call"):
+            Session(g, ws, plan, 4, ExecConfig(
+                executor="mesh", stage_timeout_s=1e-4)).run(x)
+        assert torch.cuda.current_stream() == side
+        for th in threading.enumerate():
+            if th.name.startswith("mesh-stage:"):
+                th.join(120)
+                assert not th.is_alive()
+        # first calls only: each runs eagerly, forking from the stream
+        # the worker took over (a capture forks from its own stream)
+        clear_mesh_program_cache()
+        forks.clear()
+        out, st = Session(g, ws, plan, 4, ExecConfig(
+            executor="mesh", stage_timeout_s=300.0)).run(x)
+    torch.cuda.synchronize()
+    assert forks and all(name.startswith("mesh-stage:") and s == side
+                         for name, s in forks)
+    assert st.failure_count == 0
+    assert _rel_err(out, run_reference(g, ws, x)) < 1e-4
+    clear_mesh_program_cache()
+
+
+def test_mesh_timeout_during_a_capture_falls_back_after_the_worker(
+        cuda, monkeypatch):
+    """stage_timeout_s expires while the first stage's second call
+    captures its graph (held up inside the capture), with
+    fallback='local': the fallback waits for the abandoned worker to end
+    the capture, then the local executor runs on the card: the local
+    run's bits, one timeout and one fallback counted."""
+    g, plan, ws, x = _mesh_case("rn_rep", cuda)
+    clear_mesh_program_cache()
+    Session(g, ws, plan, 4, ExecConfig(executor="mesh")).run(x)  # eager
+    torch.cuda.synchronize()
+    run = NodesMesh.run
+    slowed = []
+
+    def slow(self, *phases, marks=None):
+        if torch.cuda.is_current_stream_capturing() and not slowed:
+            slowed.append(threading.current_thread().name)
+            time.sleep(0.5)
+        return run(self, *phases, marks=marks)
+    monkeypatch.setattr(NodesMesh, "run", slow)
+    out, st = Session(g, ws, plan, 4, ExecConfig(
+        executor="mesh", stage_timeout_s=0.1, fallback="local")).run(x)
+    torch.cuda.synchronize()
+    assert slowed and slowed[0].startswith("mesh-stage:")
+    assert not any(th.name.startswith("mesh-stage:")
+                   for th in threading.enumerate())
+    assert st.timeouts == 1 and st.fallbacks == 1 and st.retries == 0
+    local, _ = Session(g, ws, plan, 4, ExecConfig()).run(x)
+    assert torch.equal(out, local)
+    assert _rel_err(out, run_reference(g, ws, x)) < 1e-4
+    clear_mesh_program_cache()
+
+
+@pytest.mark.parametrize("kind", ["searched", "mixed"])
+@pytest.mark.parametrize("backend", ["cuda", "torch"])
+def test_captured_mesh_decode_is_bit_equal_to_its_eager_body(cuda, backend,
+                                                            kind):
+    """The mesh decode step on 4 node streams, captured as one graph: its
+    tokens, logits and pools equal its eager body's bit for bit, the local
+    session's tokens and (within 1e-4) logits and pools, and it launches
+    the decode kernel once a step for every node that holds heads (every
+    node, in the mixed plan's replicated ATTN)."""
+    spec = TransformerSpec(n_layers=2, d_model=256, n_heads=8, d_ff=1024,
+                           vocab=64)
+    prompt, n_new = [3, 17, 42, 7, 11, 5], 9
+    w = init_transformer(spec, seed=2, device=cuda)
+    tb = TorchTestbed(nodes=4, bandwidth_gbps=5.0, link_latency_us=1.0)
+    plan = plan_decode(spec, 2048, 4, tb=tb).plan if kind == "searched" \
+        else Plan(((Scheme.INH, Mode.T), (Scheme.OUTC, Mode.T),
+                   (Scheme.OUTC, Mode.T), (Scheme.INH, Mode.T)))
+    kw = dict(page_size=4, capacity=32)
+
+    def session(executor):
+        return DecodeSession(spec, w, plan, 4, ExecConfig(
+            backend=backend, executor=executor), **kw)
+    graphed = session("mesh")
+    assert isinstance(graphed._step_fn, GraphProgram)
+    assert len(graphed.mesh.streams) == 4
+    n0 = flash_decode_paged.launches
+    toks, lg = greedy_decode(graphed, prompt, n_new)
+    torch.cuda.synchronize()
+    per_step = sum(sum(1 for h in hs if h) for hs in graphed.head_split)
+    ran = flash_decode_paged.launches - n0
+    assert ran == (per_step * (len(prompt) + n_new)
+                   if backend == "cuda" else 0)
+    assert graphed._step_fn.graph is not None
+    eager = session("mesh")
+    eager._step_fn = eager._mesh_step
+    toks_e, lg_e = greedy_decode(eager, prompt, n_new)
+    local = session("local")
+    toks_l, lg_l = greedy_decode(local, prompt, n_new)
+    assert toks == toks_e == toks_l
+    assert torch.equal(lg, lg_e)
+    assert _rel_err(lg, lg_l) < 1e-4
+    for i in range(spec.n_layers):
+        for n in range(4):
+            for a, b, c in zip(graphed.cache.pages(i, n),
+                               eager.cache.pages(i, n),
+                               local.cache.pages(i, n)):
+                assert torch.equal(a, b)
+                assert _rel_err(a, c) < 1e-4
+    ref_toks, ref_lg = reference_decode(spec, w, prompt, n_new)
+    assert toks == ref_toks
+    assert _rel_err(lg, ref_lg) < 1e-4

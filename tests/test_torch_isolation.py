@@ -48,6 +48,7 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
                 "repro_torch.kernels.flash_attention",
                 "repro_torch.runtime.engine", "repro_torch.runtime.session",
                 "repro_torch.runtime.decode", "repro_torch.runtime.kv_cache",
+                "repro_torch.runtime.mesh_exec", "repro_torch.launch.mesh",
                 "repro_torch.configs.edge_models"}
     assert expected <= set(out["mods"])
 

@@ -1,7 +1,7 @@
 """Shared pieces of the port-vs-reference conformance tests
 (``tests/test_torch_*.py``): the reference's test-scale model sizes, its
 scale-normalised error, the conv-shard grid check and the engine
-comparison."""
+comparisons (local and mesh executor)."""
 import dataclasses
 import functools
 
@@ -171,6 +171,38 @@ def check_session(name, kind) -> None:
         assert tuple(out.shape) == out_j.shape
         assert rel_err(out, out_j) < 1e-4, backend
         assert geometry_fields(st) == want, backend
+
+
+#: the mesh executor's plan kinds: searched plans at 2, 4 and 8 nodes and
+#: the 3-node GRID2D plan
+MESH_PLANS = ("search-n2", "search-n4", "search-n8", "grid2d-n3")
+
+
+def check_mesh(name, kind) -> None:
+    """The port's mesh executor on CPU tensors, under both backends and
+    with the halo overlap on (and off, under "cuda"), against the JAX
+    local ``Session`` (backend "xla") and the port's local executor on the
+    same plan, weights and input: outputs within 1e-4 of the output
+    scale, ``ExecStats`` equal, no fault counted."""
+    gj, wj, gt, wt, x = model(name)
+    pj, pt, nodes = plans(gj, kind)
+    out_j, st_j = JSession(gj, wj, pj, nodes,
+                           JExecConfig(backend="xla")).run(x)
+    xt = torch.from_numpy(x)
+    local, st_l = Session(gt, wt, pt, nodes, ExecConfig(
+        backend="cuda", device="cpu")).run(xt)
+    for backend, overlap in (("torch", True), ("cuda", True),
+                             ("cuda", False)):
+        sess = Session(gt, wt, pt, nodes, ExecConfig(
+            backend=backend, executor="mesh", overlap=overlap,
+            device="cpu"))
+        assert sess.mesh.shape == {"nodes": nodes}
+        out, st = sess.run(xt)
+        assert tuple(out.shape) == out_j.shape
+        assert rel_err(out, out_j) < 1e-4, (backend, overlap)
+        assert rel_err(out, local) < 1e-4, (backend, overlap)
+        assert geometry_fields(st) == geometry_fields(st_j)
+        assert st == st_l and st.failure_count == 0
 
 
 def check_run_reference(name) -> None:
