@@ -40,6 +40,16 @@ seeds:
   ``DecodeSession(..., ExecConfig(executor="mesh"))``: tokens against
   ``reference_decode`` and the local session, launches against the plan,
   and the warm step against the local step, in turns.
+* the throughput planner's loop on measured occupancy (phase 11) —
+  phase 3's models, weights and inputs on ``homogeneous(4, 0.5 Gbps)``
+  (phase 3's testbed): the (compute, sync) frontier
+  (``cluster_pipeline_frontier(prune_ub=False)``), then
+  ``refine_with_simulator`` whose ``occupancy_fn`` runs each plan it
+  tries on the mesh executor (``overlap=False``, ``instrument=True``:
+  eager, capturing, replayed) and returns the replayed run's
+  ``to_occupancy()``, then the frontier's two extreme plans; every plan
+  run held to phase 9's checks and its measured stages to the port's own
+  ``build_stages``.
 
 All four kernels' launch counters are zeroed just before each path's run
 and read just after: they must equal the launches the plan (or the case
@@ -1396,7 +1406,7 @@ def phase_mesh(dev, row, errs, card):
 
     name = row["model"]
     g, ws, x, plan, out_local, st_local, ref, local_shapes = \
-        row.pop("mesh_inputs")
+        row["mesh_inputs"]
     wrappers = engine.conv2d_shard, engine.matmul_tiled
     local = Session(g, ws, plan, NODES, ExecConfig(backend="cuda"))
     out = {}
@@ -1625,6 +1635,174 @@ def phase_mesh_decode(dev, dec, card):
     return dict(mesh_ms=mm, local_ms=lm, mesh_dev_ms=dev_ms["mesh"],
                 local_dev_ms=dev_ms["local"])
 
+# ---------------------------------------------------------------------------
+# The throughput planner refined on measured mesh occupancy
+# ---------------------------------------------------------------------------
+
+def scheme_counts(plan) -> str:
+    counts = {}
+    for s, _ in plan.steps:
+        counts[s.name] = counts.get(s.name, 0) + 1
+    nt = sum(1 for _, m in plan.steps if int(m) == 1)
+    return (" ".join(f"{k} {v}" for k, v in sorted(counts.items()))
+            + f", {nt} NT")
+
+
+def phase_refine(dev, row, errs, card):
+    """The throughput planner's loop on the card: ``refine_with_simulator``
+    over the (compute, sync) frontier of one phase-3 model on phase 3's
+    4-node, 0.5 Gbps cluster, each plan it tries run on the mesh executor
+    (``overlap=False``, ``instrument=True``: eager, capturing, replayed)
+    and the replayed run's ``to_occupancy()`` fed back, plus the
+    frontier's two extreme plans.  Every plan run is held to the mesh
+    contract: within TOL of the reference, the three runs bit-equal,
+    ``ExecStats`` equal to the local executor's, no fault counted,
+    launches equal to ``mesh_kernel_records``, every kernel call of the
+    eager run within TOL of its plain version, and the measured stages
+    equal to the port's own ``build_stages`` one for one.  A check that
+    fails inside the loop stops the phase: a faulty sample never passes
+    as an untrusted step."""
+    import torch
+    from repro_torch import (AnalyticEstimator, ExecConfig, Session,
+                             Testbed, plan_search)
+    from repro_torch.cluster import (Objective, OnlineCalibrator,
+                                     build_stages, cluster_pipeline_frontier,
+                                     homogeneous, refine_with_simulator)
+    from repro_torch.runtime import engine, mesh_exec
+
+    name = row["model"]
+    g, ws, x, plan3, _, _, ref, _ = row.pop("mesh_inputs")
+    t_phase = time.perf_counter()
+    cl = homogeneous(NODES, bandwidth_gbps=0.5)
+    tb = Testbed(nodes=NODES, bandwidth_gbps=0.5)
+    check(cl.compat_testbed() == tb,
+          f"{name}: compat_testbed {cl.compat_testbed()} != {tb}")
+    t0 = time.perf_counter()
+    fr = cluster_pipeline_frontier(g, cl, prune_ub=False)
+    search_s = time.perf_counter() - t0
+    res = plan_search(g, AnalyticEstimator(), tb)
+    check(res.plan == plan3, f"{name}: plan_search differs from phase 3's")
+    i_lat = fr.select(Objective.LATENCY)
+    lat_plan = fr.plan(i_lat)
+    lat_sum = float(fr.points[i_lat].sum())
+    # the frontier's latency point costs what the latency search's plan
+    # costs; its plan may be another of the same cost (a tie)
+    check(abs(lat_sum - res.cost) <= 1e-12 * res.cost,
+          f"{name}: the frontier's latency point {lat_sum} != plan_search's "
+          f"cost {res.cost}")
+    n_diff = sum(1 for a, b in zip(lat_plan.steps, res.plan.steps) if a != b)
+    print(f"phase 11: {name}: frontier of {len(fr)} points built in "
+          f"{search_s:.3f} s (prune_ub=False, homogeneous({NODES}, 0.5 "
+          f"Gbps) == phase 3's testbed); latency selection point {i_lat} "
+          f"costs {lat_sum:.9g} s == plan_search's {res.cost:.9g} s, its "
+          f"plan " + ("identical to phase 3's" if not n_diff else
+                      f"a tie that differs from phase 3's in {n_diff} "
+                      f"steps") + f"; THROUGHPUT selection point "
+          f"{fr.select(Objective.THROUGHPUT)}", flush=True)
+
+    tried = []
+
+    def measure(plan):
+        want = mesh_kernel_records(g, plan, NODES, False)
+        want_counts = {"conv2d_shard": want[0], "matmul_tiled": want[1]}
+        mesh_exec.clear_mesh_program_cache()
+        engine.clear_segment_cache()
+        out_l, st_l = Session(g, ws, plan, NODES, ExecConfig(
+            backend="cuda", device=dev.type)).run(x)
+        sess = Session(g, ws, plan, NODES, ExecConfig(
+            backend="cuda", executor="mesh", overlap=False, instrument=True,
+            device=dev.type))
+        wrappers = engine.conv2d_shard, engine.matmul_tiled
+        calls = {"conv2d_shard": [], "matmul_tiled": []}
+        outs = []
+        for run in ("eager", "capture", "replay"):
+            zero_counts()
+            if run == "eager":
+                engine.conv2d_shard, engine.matmul_tiled = recorders(calls)
+            try:
+                o, st = sess.run(x)
+            finally:
+                engine.conv2d_shard, engine.matmul_tiled = wrappers
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            what = f"{name} refine plan {len(tried)} ({run} run)"
+            check_counts(what, read_counts(), want_counts)
+            check(st == st_l, f"{what}: ExecStats {st} != the local "
+                              f"executor's {st_l}")
+            check(st.failure_count == 0,
+                  f"{what}: {st.failure_count} faults counted")
+            e = rel_err(o, ref)
+            check(e < TOL, f"{what}: vs reference {e}")
+            outs.append(o)
+        check(all(torch.equal(o, outs[0]) for o in outs),
+              f"{name} refine plan {len(tried)}: eager, capture and replay "
+              f"runs differ")
+        n_rec = (len(calls["conv2d_shard"]), len(calls["matmul_tiled"]))
+        check(n_rec == tuple(want), f"{name} refine: recorded {n_rec} "
+                                    f"calls, the plan's records {want}")
+        check_recorded(f"{name} refine plan {len(tried)}",
+                       calls["conv2d_shard"], calls["matmul_tiled"], errs)
+        v = mesh_exec.validate_stage_decomposition(
+            st, build_stages(g, plan, cl))
+        check(v["structure_match"], f"{name} refine: stages missing "
+                                    f"{v['missing']}, extra {v['extra']}")
+        occ = st.to_occupancy()
+        tried.append((plan, occ, n_rec, rel_err(outs[0], ref),
+                      torch.equal(outs[0], out_l)))
+        return occ
+
+    cal = OnlineCalibrator(cl)
+    rr = refine_with_simulator(g, cl, max_iters=4, frontier=fr,
+                               occupancy_fn=measure, calibrator=cal)
+    check(rr.report is None and rr.steps, f"{name}: refine took no step")
+    for k, st in enumerate(rr.steps):
+        plan, occ, n_rec, e, same = tried[k]
+        print(f"phase 11: {name} step {k}: point {st.point_idx} "
+              f"({scheme_counts(plan)}), analytic (compute, sync) "
+              f"({st.compute_s * 1e3:.4f}, {st.sync_s * 1e3:.4f}) ms, "
+              f"measured (dev, link, period) ({st.dev_occupancy_s * 1e3:.4f}"
+              f", {st.link_occupancy_s * 1e3:.4f}, {st.sim_period_s * 1e3:.4f}"
+              f") ms, beta {st.beta:.6g}, alpha {st.alpha:.6g}; launches "
+              f"{n_rec} == mesh_kernel_records, err vs reference {e:.3g}, "
+              f"{'bit-equal' if same else 'not bit-equal'} to the local "
+              f"executor [{card}]", flush=True)
+    beta, alpha = cal.axis_scales()
+    last = cal.history[-1]
+    print(f"phase 11: {name}: converged={rr.converged} after "
+          f"{len(rr.steps)} steps; chosen plan ({scheme_counts(rr.plan)}) "
+          f"against the latency plan ({scheme_counts(res.plan)}), "
+          f"{'the same plan' if rr.plan == res.plan else 'another plan'}; "
+          f"best measured {rr.best_throughput_rps:.1f} runs/s; calibrator "
+          f"axis_scales (beta, alpha) ({beta:.6g}, {alpha:.6g}), its last "
+          f"sample predicted {last.predicted_period_s * 1e3:.4f} ms against "
+          f"{last.measured_period_s * 1e3:.4f} ms measured, corrected "
+          f"prediction of the chosen plan "
+          f"{cal.predict_period(g, rr.plan) * 1e3:.4f} ms [{card}]",
+          flush=True)
+    for label, scales in (("compute-heavy", dict(compute_scale=1e6)),
+                          ("sync-heavy", dict(sync_scale=1e6))):
+        i = fr.select(Objective.THROUGHPUT, **scales)
+        plan = fr.plan(i)
+        occ = measure(plan)
+        _, _, n_rec, e, same = tried[-1]
+        print(f"phase 11: {name} extreme {label} point {i} "
+              f"({scheme_counts(plan)}), analytic ({fr.points[i, 0] * 1e3:.4f}"
+              f", {fr.points[i, 1] * 1e3:.4f}) ms, measured (dev, link, "
+              f"period) ({occ.dev_occupancy_s * 1e3:.4f}, "
+              f"{occ.link_occupancy_s * 1e3:.4f}, {occ.period_s * 1e3:.4f}) "
+              f"ms; launches {n_rec} == mesh_kernel_records, err vs "
+              f"reference {e:.3g} [{card}]", flush=True)
+    mesh_exec.clear_mesh_program_cache()
+    engine.clear_segment_cache()
+    n_plans = len({p.steps for p, *_ in tried})
+    print(f"phase 11: {name}: {len(tried)} plan runs ({n_plans} distinct "
+          f"plans) each within {TOL:g} of the reference, bit-equal across "
+          f"eager, capture and replay, ExecStats equal to the local run's, "
+          f"failure_count 0, launches equal to mesh_kernel_records, every "
+          f"kernel call within {TOL:g} of plain, stages equal to "
+          f"build_stages; phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
 
 def run(dev) -> dict:
     import torch
@@ -1673,6 +1851,8 @@ def run(dev) -> dict:
     for row in rows:
         phase_mesh(dev, row, errs, card)
     phase_mesh_decode(dev, dec, card)
+    for row in rows:
+        phase_refine(dev, row, errs, card)
 
     meta = {
         "conv2d_shard": ("src/repro_torch/kernels/csrc/conv2d_shard.cu",

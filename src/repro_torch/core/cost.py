@@ -7,21 +7,22 @@ property tests compare DPP against.  The model captures the effects the paper
 measures: straggler imbalance, scheme-dependent efficiency, per-message
 latency, topology (ring / PS / mesh) and bandwidth.
 
-A trimmed copy of the JAX package's ``core/cost.py``: the scalar and
-batched homogeneous physics, without the heterogeneous-cluster forms.
+A copy of the JAX package's ``core/cost.py``: the scalar and batched
+homogeneous physics and the heterogeneous-cluster compute times.
 """
 from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
 from .graph import ConvT, LayerSpec
 from .partition import (Scheme, boundary_bytes_same_scheme,
                         boundary_bytes_same_scheme_batch,
-                        conv_flops_per_elem_batch, relayout_bytes,
+                        conv_flops_per_elem_batch, hetero_flops_batch,
+                        hetero_shard_work, relayout_bytes,
                         relayout_bytes_batch, shard_work,
                         straggler_flops_batch)
 
@@ -88,7 +89,8 @@ def sync_bytes_messages(layer: LayerSpec, nxt: Optional[LayerSpec],
                         src: Scheme, dst: Optional[Scheme],
                         nodes: int) -> Tuple[float, int]:
     """Busiest-node byte volume and message count of one T-mode boundary —
-    the topology-independent half of :func:`sync_time_s`.
+    the topology-independent half of :func:`sync_time_s`, shared with the
+    cluster simulator's per-link transfer accounting.
 
     ``nxt=None``/``dst=None`` means final layer: gather to node 0.
     """
@@ -120,6 +122,81 @@ def sync_time_s(layer: LayerSpec, nxt: Optional[LayerSpec], src: Scheme,
     """
     b, msgs = sync_bytes_messages(layer, nxt, src, dst, tb.nodes)
     return tb.comm_time_s(b, n_messages=msgs)
+
+
+# ---------------------------------------------------------------------------
+# Heterogeneous-cluster compute times (capability-weighted shard fractions).
+#
+# The per-device capability arrays come from
+# ``repro_torch.cluster.ClusterSpec`` (kept as plain sequences here so core
+# stays import-cycle free).  ``tb``
+# supplies the scheme efficiencies and node count exactly as in the
+# homogeneous path; per-device speed enters as ``gflops_d`` and a
+# kernel-efficiency derate ``e_d``.  Straggler time = max over per-device
+# compute — with uniform devices and weights every expression reduces
+# bit-identically to :func:`compute_time_s`.
+# ---------------------------------------------------------------------------
+
+def hetero_device_times_s(layer: LayerSpec, scheme: Scheme, tb: Testbed,
+                          speeds_gflops: Sequence[float],
+                          dev_derates: Sequence[float],
+                          weights: Sequence[float],
+                          extra_halo: int = 0) -> np.ndarray:
+    """Per-device compute seconds of one layer on a heterogeneous cluster
+    (the straggler max of this vector is :func:`hetero_compute_time_s`; the
+    full vector feeds the discrete-event simulator's device queues)."""
+    work = hetero_shard_work(layer, scheme, weights, extra_halo=extra_halo)
+    eff = tb.efficiency(scheme)
+    derate = _CONV_T_DERATE.get(layer.conv_t)
+    if derate is not None:
+        eff *= derate
+    return np.asarray([f / (g * 1e9 * (eff * e))
+                       for f, g, e in zip(work.flops_per_node, speeds_gflops,
+                                          dev_derates)], np.float64)
+
+
+def hetero_compute_time_s(layer: LayerSpec, scheme: Scheme, tb: Testbed,
+                          speeds_gflops: Sequence[float],
+                          dev_derates: Sequence[float],
+                          weights: Sequence[float],
+                          extra_halo: int = 0) -> float:
+    """i-Estimator ground truth on a heterogeneous cluster: straggler time
+    = max over per-device compute under capability-weighted shards."""
+    return float(np.max(hetero_device_times_s(
+        layer, scheme, tb, speeds_gflops, dev_derates, weights,
+        extra_halo=extra_halo)))
+
+
+def hetero_compute_time_batch_s(X: np.ndarray, tb: Testbed,
+                                speeds_gflops: np.ndarray,
+                                dev_derates: np.ndarray,
+                                weights: np.ndarray,
+                                flop_factor: Optional[np.ndarray] = None
+                                ) -> np.ndarray:
+    """Vector form of :func:`hetero_compute_time_s` over an ``(n, 17)``
+    i-feature matrix with one fixed cluster.  Float expressions mirror the
+    scalar op order, so any row bit-matches the scalar call."""
+    X = np.asarray(X, np.float64)
+    conv_t = X[:, _F_CONV_T].astype(np.int64)
+    scheme = X[:, _F_SCHEME].astype(np.int64)
+    oh = X[:, _F_OUT_H].astype(np.int64)
+    ow = X[:, _F_OUT_W].astype(np.int64)
+    oc = X[:, _F_OUT_C].astype(np.int64)
+    halo = X[:, _F_HALO].astype(np.int64)
+    factor = (np.ones(len(X), np.float64) if flop_factor is None
+              else np.asarray(flop_factor, np.float64))
+    per = conv_flops_per_elem_batch(conv_t, X[:, _F_IN_C], X[:, _F_K],
+                                    X[:, _F_FAN_IN])
+    flops = hetero_flops_batch(per, oh, ow, oc, scheme, halo, factor,
+                               np.asarray(weights, np.float64),
+                               heads=X[:, _F_HEADS].astype(np.int64))
+    eff = np.asarray([tb.eff_inh, tb.eff_inw, tb.eff_outc,
+                      tb.eff_grid])[scheme]
+    for ct, derate in _CONV_T_DERATE.items():
+        eff = np.where(conv_t == ct, eff * derate, eff)
+    denom = np.asarray(speeds_gflops, np.float64)[None, :] * 1e9 \
+        * (eff[:, None] * np.asarray(dev_derates, np.float64)[None, :])
+    return (flops / denom).max(axis=1)
 
 
 # ---------------------------------------------------------------------------

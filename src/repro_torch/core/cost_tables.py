@@ -9,14 +9,12 @@ between its scalar and batched paths), so any search driven from them
 reproduces the scalar reference bit for bit.
 
 A trimmed copy of the JAX package's ``core/cost_tables.py``: the metrics
-pushes, the Pareto reductions of the throughput objectives, the
-re-evaluation hooks of incremental replanning and ``PrefetchedEstimator``
-are left out.
+pushes and dedup counters and ``PrefetchedEstimator`` are left out.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -91,16 +89,34 @@ class CostTableBuilder:
     def s_entries(self) -> int:
         return len(self._s_rows)
 
-    def evaluate(self) -> Tuple[np.ndarray, np.ndarray]:
-        """Resolve every registered query in two batched estimator calls."""
-        est = self._est
-        ivals = (est.i_cost_batch(
-            np.asarray(self._i_rows, np.float64), self._tb,
-            np.asarray(self._i_factors, np.float64))
-            if self._i_rows else np.empty(0))
-        svals = (est.s_cost_batch(
-            np.asarray(self._s_rows, np.float64), self._tb)
-            if self._s_rows else np.empty(0))
+    def evaluate(self, est: Optional[CostEstimator] = None,
+                 ivals: Optional[np.ndarray] = None,
+                 svals: Optional[np.ndarray] = None
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+        """Resolve every registered query in two batched estimator calls.
+
+        ``est`` re-evaluates the *same registered rows* under a different
+        estimator: registration (the enumeration and dedup phase) depends
+        only on graph geometry and the testbed projection, so a capability
+        change that leaves ``cluster.compat_testbed()`` intact reuses it.
+        ``ivals`` / ``svals`` skip re-evaluating that side entirely and
+        return the passed array."""
+        est = self._est if est is None else est
+        if ivals is None:
+            ivals = (est.i_cost_batch(
+                np.asarray(self._i_rows, np.float64), self._tb,
+                np.asarray(self._i_factors, np.float64))
+                if self._i_rows else np.empty(0))
+        elif len(ivals) != len(self._i_rows):
+            raise ValueError(f"cached ivals cover {len(ivals)} rows, "
+                             f"builder has {len(self._i_rows)}")
+        if svals is None:
+            svals = (est.s_cost_batch(
+                np.asarray(self._s_rows, np.float64), self._tb)
+                if self._s_rows else np.empty(0))
+        elif len(svals) != len(self._s_rows):
+            raise ValueError(f"cached svals cover {len(svals)} rows, "
+                             f"builder has {len(self._s_rows)}")
         return np.asarray(ivals, np.float64), np.asarray(svals, np.float64)
 
 
@@ -180,6 +196,64 @@ class ChainTables:
 
     def bound(self, b: int, pi: int, qi: int) -> float:
         return float(self.sbound[b, pi, qi])
+
+    def final(self, pi: int) -> float:
+        """Gather-to-root s-cost of the last layer (``with_final`` only)."""
+        return float(self.s_final[pi])
+
+
+# ---------------------------------------------------------------------------
+# Pareto reductions over (compute, sync) cost pairs.
+#
+# The throughput objectives carry two accumulators per partial plan — the
+# per-request device occupancy (sum of segment i-costs) and link occupancy
+# (sum of sync s-costs) — and every composition step in the DP is monotone
+# in both, so exact search reduces to nondominated-set propagation.  These
+# are the batched primitives: one lexsort + cummin per frontier merge, the
+# same numpy-reduction style as the latency DP's argmin scans.
+# ---------------------------------------------------------------------------
+
+def pareto_front_2d(a: np.ndarray, b: np.ndarray,
+                    ub: float = _INF) -> np.ndarray:
+    """Indices of the nondominated (min-``a``, min-``b``) points, sorted by
+    ``a`` ascending.  Duplicate values collapse to the first occurrence in
+    the input order (the scalar scan's tie-breaking); points with either
+    coordinate beyond ``ub`` are dropped (any completion only adds cost, so
+    they can never beat an incumbent whose total is ``ub``)."""
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    idx = np.arange(len(a))
+    if ub != _INF:
+        ok = (a <= ub) & (b <= ub)
+        idx = idx[ok]
+        if not len(idx):
+            return idx
+        a, b = a[idx], b[idx]
+    order = np.lexsort((idx, b, a))     # a asc, then b asc, then input order
+    a_s, b_s = a[order], b[order]
+    keep = np.empty(len(order), bool)
+    keep[0] = True
+    if len(order) > 1:
+        cm = np.minimum.accumulate(b_s)
+        keep[1:] = b_s[1:] < cm[:-1]
+    return idx[order[keep]]
+
+
+def pareto_front_nd(cols: Sequence[np.ndarray]) -> np.ndarray:
+    """Indices of the nondominated rows under elementwise minimisation of
+    ``cols`` (pairwise O(m^2) domination — used on the small per-branch
+    option tables of the DAG composition, where m stays in the tens)."""
+    M = np.stack([np.asarray(c, np.float64) for c in cols], axis=1)
+    m = len(M)
+    if m <= 1:
+        return np.arange(m)
+    le = (M[:, None, :] <= M[None, :, :]).all(axis=2)
+    lt = (M[:, None, :] < M[None, :, :]).any(axis=2)
+    dominated = (le & lt).any(axis=0)
+    # drop exact-duplicate rows, keeping the first occurrence
+    eq = (M[:, None, :] == M[None, :, :]).all(axis=2)
+    first_dup = np.triu(eq, 1).any(axis=0)
+    return np.nonzero(~(dominated | first_dup))[0]
 
 
 def plan_chain_tables(ls: Sequence[LayerSpec], registry: CostTableBuilder,

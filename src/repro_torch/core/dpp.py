@@ -32,25 +32,73 @@ the chain DP runs as numpy reductions over the scheme axis.  The batched DP
 replicates the scalar tie-breaking (first minimum wins in ``b`` then ``q``
 order), so it returns the JAX package's plans and costs bit for bit.
 
-A trimmed copy of the JAX package's ``core/dpp.py``: the latency objective
-only.  The throughput/P99 frontier DP, the scalar reference search and the
-tracing spans are left out.
+The throughput objectives (``THROUGHPUT``, ``P99_BOUNDED``) run an exact
+Pareto-frontier DP over (compute, sync) occupancy pairs from the same tables
+(:func:`pipeline_frontier`).
+
+A trimmed copy of the JAX package's ``core/dpp.py``: the scalar reference
+search, the scalar-call providers and the tracing spans are left out, so
+every search needs a batched estimator.
 """
 from __future__ import annotations
 
+import bisect
 import dataclasses
+import enum
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from .cost import Testbed
-from .cost_tables import CostTableBuilder, plan_chain_tables
+from .cost_tables import (CostTableBuilder, pareto_front_2d, pareto_front_nd,
+                          plan_chain_tables)
 from .estimator import CostEstimator
 from .graph import ModelGraph
 from .partition import ALL_SCHEMES, Mode, Scheme
-from .plan import Plan
+from .plan import Plan, PipelineCost
 
 _INF = float("inf")
+
+
+class Objective(enum.Enum):
+    """What the planner optimizes for.
+
+    * ``LATENCY`` — single-request inference time (the paper's objective):
+      every compute and sync stage in series.
+    * ``THROUGHPUT`` — steady-state pipelined serving rate: requests
+      overlap, devices and links work concurrently, and the plan's period
+      is the busier resource class (``PipelineCost.bottleneck_s``).
+    * ``P99_BOUNDED`` — max throughput subject to an analytic
+      single-request latency bound (``latency_bound_s``): the tail-latency
+      proxy the serving layer refines with the simulator's real p99.
+    """
+
+    LATENCY = "latency"
+    THROUGHPUT = "throughput"
+    P99_BOUNDED = "p99_bounded"
+
+
+def pipeline_objective_key(compute_s: float, sync_s: float,
+                           objective: "Objective",
+                           latency_bound_s: Optional[float] = None) -> tuple:
+    """Total order over (compute, sync) cost pairs for one objective —
+    shared by the DP's frontier selection and the JAX package's
+    exhaustive oracle, so both break ties identically.
+
+    ``P99_BOUNDED`` sorts feasible plans (latency within the bound) before
+    infeasible ones; when no plan is feasible both sides therefore degrade
+    to the latency optimum."""
+    mx = max(compute_s, sync_s)
+    sm = compute_s + sync_s
+    if objective == Objective.THROUGHPUT:
+        return (mx, sm)
+    if objective == Objective.P99_BOUNDED:
+        if latency_bound_s is None:
+            raise ValueError("P99_BOUNDED needs latency_bound_s")
+        if sm <= latency_bound_s:
+            return (0, mx, sm)
+        return (1, sm, mx)
+    return (sm, mx)
 
 
 @dataclasses.dataclass
@@ -67,25 +115,44 @@ class SearchResult:
     plan: Plan
     cost: float
     stats: SearchStats
+    #: objective the search optimized (LATENCY for the historical paths)
+    objective: Objective = Objective.LATENCY
+    #: per-resource-class occupancy of the plan (throughput objectives)
+    pipeline: Optional[PipelineCost] = None
+
+
+def _require_batched(est: CostEstimator) -> None:
+    if not hasattr(est, "i_cost_batch"):
+        raise TypeError(
+            f"{type(est).__name__} lacks i_cost_batch/s_cost_batch; the "
+            f"port's planner runs only batched estimators")
 
 
 def plan_search(graph: ModelGraph, est: CostEstimator, tb: Testbed,
                 schemes: Sequence[Scheme] = ALL_SCHEMES,
                 max_segment: int = 32,
-                allow_fusion: bool = True) -> SearchResult:
+                allow_fusion: bool = True,
+                objective: Objective = Objective.LATENCY,
+                latency_bound_s: Optional[float] = None) -> SearchResult:
     """Run DPP from precomputed batched cost tables.  ``allow_fusion=False``
     restricts to all-T plans (the layerwise baseline); ``schemes``
     restricted to one scheme with fusion on gives the fused-layer baseline.
     Dispatches to the per-branch DAG composition when the graph is not a
     chain.
 
+    Throughput objectives (``THROUGHPUT``, ``P99_BOUNDED``) run the exact
+    Pareto-frontier DP over (compute, sync) occupancy pairs from the same
+    tables (see :func:`pipeline_frontier`); ``cost`` is then the pipeline
+    bottleneck time and ``latency_bound_s`` feeds the P99 constraint.
+
     The estimator must implement the batched protocol
     (``BatchedCostEstimator``); the tables assume its costs are determined
     by the feature expression."""
-    if not hasattr(est, "i_cost_batch"):
-        raise TypeError(
-            f"{type(est).__name__} lacks i_cost_batch/s_cost_batch; the "
-            f"port's planner runs only batched estimators")
+    _require_batched(est)
+    if objective != Objective.LATENCY:
+        fr = pipeline_frontier(graph, est, tb, schemes, max_segment,
+                               allow_fusion)
+        return fr.search_result(objective, latency_bound_s)
     if not graph.is_chain:
         return _dag_plan_search_batched(graph, est, tb, tuple(schemes),
                                         max_segment, allow_fusion)
@@ -546,3 +613,682 @@ def _dag_plan_search_batched(graph: ModelGraph, est: CostEstimator,
         return float(svals[jidx[(prod, cons, pi, qi)]])
 
     return _dag_compose(graph, schemes, btable, jscost, stats)
+
+
+# ---------------------------------------------------------------------------
+# Pipelined-cost objectives: exact Pareto-frontier DP over (compute, sync)
+# occupancy pairs.
+#
+# Under pipelined serving the two resource classes overlap across requests,
+# so a plan's steady-state period is max(sum of segment i-costs, sum of
+# sync s-costs) — see ``plan.PipelineCost``.  Both that bottleneck and the
+# single-request latency (the sum) are monotone in the pair, and every DP
+# composition step (segment extension, boundary crossing, fork delivery,
+# merge max, bundle/spine concatenation) is monotone too, so propagating
+# nondominated (compute, sync) suffix sets is exact for *any* monotone
+# objective of the pair.  One frontier therefore serves THROUGHPUT,
+# P99_BOUNDED and latency selection — and the simulator-in-the-loop
+# refinement, which only rescales the two axes (``cluster.refine``).
+#
+# The frontier runs from the same batched cost tables as the latency DP
+# (one i_cost_batch + one s_cost_batch call; the per-state merges are
+# numpy lexsort/cummin reductions — no scalar estimator fallback).  A
+# latency-optimal search seeds the upper bound: any partial pair with a
+# coordinate beyond the latency optimum can never win (completions only
+# add), which keeps suffix frontiers small.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class _FSet:
+    """One state's nondominated suffix set: parallel point arrays."""
+
+    a: np.ndarray                  # compute occupancy (sum of i-costs)
+    b: np.ndarray                  # sync occupancy (sum of s-costs)
+    back: tuple                    # per-point reconstruction payload
+
+
+def _chain_frontier(n: int, k: int, seg_options, bound, final,
+                    ub: float, stats: SearchStats,
+                    warm: Optional[Tuple[int, list]] = None):
+    """Reverse Pareto DP over one full chain (final gather included).
+
+    ``F[i][pi]`` holds the nondominated (compute, sync) suffix pairs from
+    layer ``i`` given segment scheme ``schemes[pi]``; back-pointers are
+    ``(segment_end, next_scheme_or_-1, next_point)``.
+
+    ``warm=(start, F_prev)`` warm-starts from surviving suffix frontiers:
+    the caller has verified that every table row reachable from layers
+    ``>= start`` is unchanged since ``F_prev`` was computed (segment costs,
+    boundary syncs and the final gather), so those suffix sets are reused
+    verbatim and the reverse DP only recomputes layers ``< start``.
+    ``stats.states`` counts recomputed states only.
+    """
+    start = n if warm is None else warm[0]
+    F: List[List[Optional[_FSet]]] = [[None] * k for _ in range(n)]
+    if warm is not None:
+        for i in range(start, n):
+            F[i] = list(warm[1][i])
+    for i in range(min(start, n) - 1, -1, -1):
+        for pi in range(k):
+            As: List[np.ndarray] = []
+            Bs: List[np.ndarray] = []
+            Eb: List[np.ndarray] = []
+            Qs: List[np.ndarray] = []
+            Nx: List[np.ndarray] = []
+            for bnd, segcost in seg_options(i, pi):
+                if bnd == n - 1:
+                    As.append(np.asarray([segcost]))
+                    Bs.append(np.asarray([final(pi)]))
+                    Eb.append(np.asarray([bnd]))
+                    Qs.append(np.asarray([-1]))
+                    Nx.append(np.asarray([-1]))
+                    continue
+                for qi in range(k):
+                    Fn = F[bnd + 1][qi]
+                    if Fn is None:
+                        continue
+                    m = len(Fn.a)
+                    As.append(segcost + Fn.a)
+                    Bs.append(bound(bnd, pi, qi) + Fn.b)
+                    Eb.append(np.full(m, bnd))
+                    Qs.append(np.full(m, qi))
+                    Nx.append(np.arange(m))
+            if not As:
+                continue
+            a = np.concatenate(As)
+            b = np.concatenate(Bs)
+            keep = pareto_front_2d(a, b, ub)
+            if not len(keep):
+                continue
+            stats.states += len(keep)
+            F[i][pi] = _FSet(a[keep], b[keep],
+                             (np.concatenate(Eb)[keep],
+                              np.concatenate(Qs)[keep],
+                              np.concatenate(Nx)[keep]))
+    return F
+
+
+def _chain_plan_from(F, schemes: Tuple[Scheme, ...], pi: int,
+                     idx: int) -> Plan:
+    steps: List[Tuple[Scheme, Mode]] = []
+    i = 0
+    while True:
+        fs = F[i][pi]
+        bnd = int(fs.back[0][idx])
+        qi = int(fs.back[1][idx])
+        nxt = int(fs.back[2][idx])
+        p = schemes[pi]
+        for m in range(i, bnd + 1):
+            steps.append((p, Mode.NT if m < bnd else Mode.T))
+        if qi < 0:
+            return Plan(tuple(steps))
+        i, pi, idx = bnd + 1, qi, nxt
+
+
+def _pinned_pareto_tables(n: int, schemes: Tuple[Scheme, ...], seg_costs,
+                          bound_cost, ub: float, stats: SearchStats) -> Dict:
+    """Per-branch Pareto counterpart of :func:`_pinned_chain_dp`.
+
+    Returns ``{(head_idx, tail_idx): (a, b, steps)}`` — the nondominated
+    *internal* (compute, sync) pairs of the branch with pinned head/tail
+    schemes, with the realizing step tuples materialised per point
+    (branches are short, so eager reconstruction is cheap).
+    """
+    k = len(schemes)
+    out: Dict[Tuple[int, int], Tuple[np.ndarray, np.ndarray, list]] = {}
+    for ti in range(k):
+        F: List[List[Optional[_FSet]]] = [[None] * k for _ in range(n)]
+        for i in range(n - 1, -1, -1):
+            for pi in range(k):
+                As, Bs, Eb, Qs, Nx = [], [], [], [], []
+                for bnd, segcost in seg_costs(i, pi):
+                    if bnd == n - 1:
+                        if pi != ti:
+                            continue
+                        As.append(np.asarray([segcost]))
+                        Bs.append(np.asarray([0.0]))
+                        Eb.append(np.asarray([bnd]))
+                        Qs.append(np.asarray([-1]))
+                        Nx.append(np.asarray([-1]))
+                        continue
+                    for qi in range(k):
+                        Fn = F[bnd + 1][qi]
+                        if Fn is None:
+                            continue
+                        m = len(Fn.a)
+                        As.append(segcost + Fn.a)
+                        Bs.append(bound_cost(bnd, pi, qi) + Fn.b)
+                        Eb.append(np.full(m, bnd))
+                        Qs.append(np.full(m, qi))
+                        Nx.append(np.arange(m))
+                if not As:
+                    continue
+                a = np.concatenate(As)
+                b = np.concatenate(Bs)
+                keep = pareto_front_2d(a, b, ub)
+                if not len(keep):
+                    continue
+                stats.states += len(keep)
+                F[i][pi] = _FSet(a[keep], b[keep],
+                                 (np.concatenate(Eb)[keep],
+                                  np.concatenate(Qs)[keep],
+                                  np.concatenate(Nx)[keep]))
+        for pi in range(k):
+            if F[0][pi] is None:
+                continue
+            fs = F[0][pi]
+            steps = [tuple(_chain_plan_from(F, schemes, pi, j).steps)
+                     for j in range(len(fs.a))]
+            out[(pi, ti)] = (fs.a, fs.b, steps)
+    return out
+
+
+def _dag_pipeline_frontier(graph: ModelGraph, schemes: Tuple[Scheme, ...],
+                           ptable, jscost, ub: float, stats: SearchStats):
+    """Ladder composition of per-branch Pareto tables.
+
+    Returns ``(points, build_plan)``: the root nondominated set over the
+    whole DAG plus a reconstruction callable.  Mirrors ``_dag_compose``
+    stage semantics — fork deliveries add to the sync axis, each merge
+    contributes the max over its incoming deliveries (one merge stage),
+    the spine tail pays the final gather.
+    """
+    branches, spine, bundles = _ladder(graph)
+    k = len(schemes)
+    K = len(spine)
+
+    spine_tab = [ptable(s, idx > 0) for idx, s in enumerate(spine)]
+    interior_tab = {b: ptable(b, False)
+                    for ints, _ in bundles for b in ints}
+
+    bundle_memo: Dict[Tuple[int, int, int], Optional[tuple]] = {}
+
+    def bundle_frontier(t: int, pt_i: int, qm_i: int) -> Optional[tuple]:
+        """Nondominated (compute, sync) contributions of bundle ``t`` given
+        fork tail / merge head schemes; back payload = per-interior-branch
+        ``(branch_id, steps)`` assignments."""
+        key = (t, pt_i, qm_i)
+        if key in bundle_memo:
+            return bundle_memo[key]
+        ints, n_direct = bundles[t]
+        fork_id = branches[spine[t]].tail
+        merge_id = branches[spine[t + 1]].head
+        d0 = jscost(fork_id, merge_id, pt_i, qm_i) if n_direct else None
+        if not ints:
+            res = (np.zeros(1), np.asarray([d0 if d0 is not None else 0.0]),
+                   [()])
+            bundle_memo[key] = res
+            return res
+        opts = []
+        for b in ints:
+            head_id = branches[b].head
+            tail_id = branches[b].tail
+            fid = graph.producer_ids[head_id][0]
+            A, B, D, back = [], [], [], []
+            for (ph_i, pti), (aa, bb, steps) in interior_tab[b].items():
+                fork = jscost(fid, head_id, pt_i, ph_i)
+                d = jscost(tail_id, merge_id, pti, qm_i)
+                for j in range(len(aa)):
+                    A.append(float(aa[j]))
+                    B.append(fork + float(bb[j]))
+                    D.append(d)
+                    back.append((b, steps[j]))
+            if not A:
+                bundle_memo[key] = None
+                return None
+            keep = pareto_front_nd([np.asarray(A), np.asarray(B),
+                                    np.asarray(D)])
+            opts.append((np.asarray(A)[keep], np.asarray(B)[keep],
+                         np.asarray(D)[keep], [back[j] for j in keep]))
+        shapes = [len(o[0]) for o in opts]
+        grid = np.indices(shapes).reshape(len(opts), -1)
+        A = np.zeros(grid.shape[1])
+        B = np.zeros(grid.shape[1])
+        Ds = []
+        for o, g in zip(opts, grid):
+            A = A + o[0][g]
+            B = B + o[1][g]
+            Ds.append(o[2][g])
+        D = np.maximum.reduce(Ds)
+        if d0 is not None:
+            D = np.maximum(D, d0)
+        b_tot = B + D
+        keep = pareto_front_2d(A, b_tot, ub)
+        if not len(keep):
+            bundle_memo[key] = None
+            return None
+        back_out = [tuple(opts[bi][3][int(grid[bi, j])]
+                          for bi in range(len(opts))) for j in keep]
+        res = (A[keep], b_tot[keep], back_out)
+        bundle_memo[key] = res
+        return res
+
+    # ---- spine DP (reverse): V[t][ph] = suffix frontier -------------------
+    # back payload: (pt, branch_point, bundle_assign, next_head, next_point)
+    V: List[Dict[int, tuple]] = [dict() for _ in range(K)]
+    tail_id = branches[spine[-1]].tail
+    for ph_i in range(k):
+        As, Bs, back = [], [], []
+        for pt_i in range(k):
+            e = spine_tab[K - 1].get((ph_i, pt_i))
+            if e is None:
+                continue
+            gather = jscost(tail_id, None, pt_i, None)
+            aa, bb, _steps = e
+            for j in range(len(aa)):
+                As.append(float(aa[j]))
+                Bs.append(float(bb[j]) + gather)
+                back.append((pt_i, j, (), -1, -1))
+        if not As:
+            continue
+        a = np.asarray(As)
+        b = np.asarray(Bs)
+        keep = pareto_front_2d(a, b, ub)
+        if len(keep):
+            stats.states += len(keep)
+            V[K - 1][ph_i] = (a[keep], b[keep], [back[j] for j in keep])
+    for t in range(K - 2, -1, -1):
+        for ph_i in range(k):
+            As, Bs = [], []
+            chunks = []           # (offset, pt, ph2, shape, bundle_back)
+            total = 0
+            for pt_i in range(k):
+                e = spine_tab[t].get((ph_i, pt_i))
+                if e is None:
+                    continue
+                ea, eb, _steps = e
+                for ph2, (sa, sb, _sback) in V[t + 1].items():
+                    bf = bundle_frontier(t, pt_i, ph2)
+                    if bf is None:
+                        continue
+                    ba, bb2, bback = bf
+                    A3 = ea[:, None, None] + ba[None, :, None] \
+                        + sa[None, None, :]
+                    B3 = eb[:, None, None] + bb2[None, :, None] \
+                        + sb[None, None, :]
+                    As.append(A3.ravel())
+                    Bs.append(B3.ravel())
+                    chunks.append((total, pt_i, ph2, A3.shape, bback))
+                    total += A3.size
+            if not As:
+                continue
+            a = np.concatenate(As)
+            b = np.concatenate(Bs)
+            keep = pareto_front_2d(a, b, ub)
+            if not len(keep):
+                continue
+            stats.states += len(keep)
+            offs = [c[0] for c in chunks]
+            back = []
+            for j in keep:
+                ci = bisect.bisect_right(offs, int(j)) - 1
+                off, pt_i, ph2, (m1, m2, m3), bback = chunks[ci]
+                e1, rem = divmod(int(j) - off, m2 * m3)
+                e2, e3 = divmod(rem, m3)
+                back.append((pt_i, e1, bback[e2], ph2, e3))
+            V[t][ph_i] = (a[keep], b[keep], back)
+
+    if not V[0]:
+        raise RuntimeError(f"{graph.name}: no feasible plan found")
+
+    roots = []                    # (ph, point_idx) per root frontier point
+    As, Bs = [], []
+    for ph_i, (a, b, _back) in V[0].items():
+        for j in range(len(a)):
+            As.append(float(a[j]))
+            Bs.append(float(b[j]))
+            roots.append((ph_i, j))
+    a = np.asarray(As)
+    b = np.asarray(Bs)
+    keep = pareto_front_2d(a, b, ub)
+    points = np.stack([a[keep], b[keep]], axis=1)
+    kept_roots = [roots[int(j)] for j in keep]
+
+    def build_plan(idx: int) -> Plan:
+        ph_i, j = kept_roots[idx]
+        steps: List[Optional[Tuple[Scheme, Mode]]] = [None] * len(graph)
+        t = 0
+        while True:
+            _a, _b, back = V[t][ph_i]
+            pt_i, e_idx, assign, ph2, nxt = back[j]
+            for lid, st in zip(branches[spine[t]].ids,
+                               spine_tab[t][(ph_i, pt_i)][2][e_idx]):
+                steps[lid] = st
+            if ph2 < 0:
+                return Plan(tuple(steps))
+            for bid, bsteps in assign:
+                for lid, st in zip(branches[bid].ids, bsteps):
+                    steps[lid] = st
+            ph_i, j = ph2, nxt
+            t += 1
+
+    return points, build_plan
+
+
+@dataclasses.dataclass
+class PlanFrontier:
+    """Latency/throughput Pareto frontier of one planning problem.
+
+    ``points[i] = (compute_s, sync_s)`` — nondominated per-resource-class
+    occupancy pairs over valid plans, compute ascending.  Every monotone
+    objective of the pair has its optimum on this set, so selection (and
+    the simulator-in-the-loop re-weighting, which only scales the axes)
+    never rebuilds the tables.
+
+    Built with ``prune_ub=True`` (the ``plan_search`` default) the set is
+    additionally trimmed to points whose coordinates stay within the
+    latency optimum — exact for the *unscaled* objectives (a coordinate
+    beyond the latency optimum can never win ``max(a, b)`` or the bounded
+    variants) but potentially missing extreme points that only win under
+    strong axis re-weighting; build with ``prune_ub=False`` (what
+    ``cluster.refine`` does) when scaled re-selection must be exact over
+    the complete set.
+    """
+
+    schemes: Tuple[Scheme, ...]
+    points: np.ndarray
+    stats: SearchStats
+    _build: Callable[[int], Plan]
+
+    def __len__(self) -> int:
+        return len(self.points)
+
+    def plan(self, idx: int) -> Plan:
+        """Materialise the plan realizing ``points[idx]``."""
+        return self._build(int(idx))
+
+    def select(self, objective: Objective = Objective.THROUGHPUT,
+               latency_bound_s: Optional[float] = None,
+               compute_scale: float = 1.0,
+               sync_scale: float = 1.0) -> int:
+        """Index of the objective-optimal point.  ``compute_scale`` /
+        ``sync_scale`` re-weight the two resource classes (the refinement
+        loop sets them from simulator occupancy measurements)."""
+        best = None
+        best_key = None
+        for i in range(len(self.points)):
+            key = pipeline_objective_key(
+                float(self.points[i, 0]) * compute_scale,
+                float(self.points[i, 1]) * sync_scale,
+                objective, latency_bound_s)
+            if best_key is None or key < best_key:
+                best, best_key = i, key
+        if best is None:
+            raise RuntimeError("empty frontier")
+        return best
+
+    def search_result(self, objective: Objective,
+                      latency_bound_s: Optional[float] = None
+                      ) -> SearchResult:
+        i = self.select(objective, latency_bound_s)
+        a, b = float(self.points[i, 0]), float(self.points[i, 1])
+        return SearchResult(plan=self.plan(i), cost=max(a, b),
+                            stats=self.stats, objective=objective,
+                            pipeline=PipelineCost(a, b))
+
+
+@dataclasses.dataclass
+class FrontierTables:
+    """Reusable registration artifacts of one ``pipeline_frontier`` problem.
+
+    Splits the batched frontier build into its three phases so incremental
+    replanning (the JAX package's ``cluster.elastic``, not ported yet) can
+    redo only what a cluster event invalidated:
+
+    1. **register** — enumerate/dedup every admissible segment, boundary
+       and junction query (the Python-heavy phase).  Depends only on graph
+       geometry and the testbed projection, so any capability change that
+       leaves ``cluster.compat_testbed()`` intact reuses it wholesale.
+    2. **evaluate** — resolve the registered rows in one
+       ``i_cost_batch``/``s_cost_batch`` pair.  ``est`` swaps the
+       estimator (same rows, new capabilities); ``ivals``/``svals`` reuse
+       a cached side verbatim (a derate dirties only i-rows, a link change
+       only s-rows).
+    3. **frontier** — assemble tables and run the Pareto DP.  Consecutive
+       calls on one instance warm-start from the previous build: chain
+       suffix frontiers whose reachable table rows are value-identical are
+       reused (``_chain_frontier(warm=...)``); on DAGs, per-unique-branch
+       pinned Pareto tables are reused when that branch's seg/bound rows
+       are unchanged.  ``last_reuse`` reports what fired.
+
+    ``pipeline_frontier`` routes every batched build through a fresh
+    instance, so the one-shot path and the incremental path are the same
+    code — a warm rebuild is bit-identical to a scratch build by
+    construction (the reused suffix sets are recomputed-value-equal).
+    """
+
+    graph: ModelGraph
+    tb: Testbed
+    schemes: Tuple[Scheme, ...]
+    max_segment: int
+    allow_fusion: bool
+    builder: CostTableBuilder
+    _chain_fin: Optional[Callable] = None
+    _branches: Optional[list] = None
+    _bkeys: Optional[list] = None
+    _uniq: Optional[Dict] = None
+    _finalizers: Optional[list] = None
+    _jidx: Optional[Dict] = None
+    #: what the most recent :meth:`frontier` call reused from the previous
+    #: build on this instance (empty before the first build)
+    last_reuse: Dict = dataclasses.field(default_factory=dict)
+    _last: Optional[Dict] = dataclasses.field(default=None, repr=False)
+
+    @classmethod
+    def register(cls, graph: ModelGraph, est: CostEstimator, tb: Testbed,
+                 schemes: Sequence[Scheme] = ALL_SCHEMES,
+                 max_segment: int = 32,
+                 allow_fusion: bool = True) -> "FrontierTables":
+        """Phase 1: build the query registration for ``graph`` on ``tb``.
+        ``est`` must implement the batched protocol; it is only stored as
+        the default evaluator (registration never calls it)."""
+        if not hasattr(est, "i_cost_batch"):
+            raise TypeError("FrontierTables requires the batched estimator "
+                            "protocol (est.i_cost_batch)")
+        schemes_t = tuple(schemes)
+        builder = CostTableBuilder(est, tb)
+        if graph.is_chain:
+            fin = plan_chain_tables(graph.layers, builder, schemes_t,
+                                    max_segment, allow_fusion, tb.nodes,
+                                    with_final=True)
+            return cls(graph, tb, schemes_t, max_segment, allow_fusion,
+                       builder, _chain_fin=fin)
+        layers = graph.layers
+        branches = graph.linearize()
+        bkeys = [tuple(builder.layer_key(layers[i]) for i in br.ids)
+                 for br in branches]
+        uniq: Dict[tuple, int] = {}
+        finalizers: List[Callable] = []
+        for t, bkey in enumerate(bkeys):
+            if bkey not in uniq:
+                uniq[bkey] = len(finalizers)
+                ls = [layers[i] for i in branches[t].ids]
+                finalizers.append(plan_chain_tables(
+                    ls, builder, schemes_t, max_segment, allow_fusion,
+                    tb.nodes, with_final=False))
+        jidx: Dict[Tuple[int, Optional[int], int, Optional[int]], int] = {}
+        for br in branches:
+            tail = br.ids[-1]
+            consumers = graph.consumer_ids[tail]
+            if not consumers:
+                for pi, p in enumerate(schemes_t):
+                    jidx[(tail, None, pi, None)] = builder.s_index(
+                        layers[tail], None, p, None)
+            for c in consumers:
+                for pi, p in enumerate(schemes_t):
+                    for qi, q in enumerate(schemes_t):
+                        jidx[(tail, c, pi, qi)] = builder.s_index(
+                            layers[tail], layers[c], p, q)
+        return cls(graph, tb, schemes_t, max_segment, allow_fusion, builder,
+                   _branches=branches, _bkeys=bkeys, _uniq=uniq,
+                   _finalizers=finalizers, _jidx=jidx)
+
+    def evaluate(self, est: Optional[CostEstimator] = None,
+                 ivals: Optional[np.ndarray] = None,
+                 svals: Optional[np.ndarray] = None
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+        """Phase 2: resolve the registered rows (see
+        :meth:`CostTableBuilder.evaluate` for the reuse semantics)."""
+        return self.builder.evaluate(est=est, ivals=ivals, svals=svals)
+
+    # -- phase 3 ------------------------------------------------------------
+
+    def _chain_suffix_start(self, tbl) -> int:
+        """Deepest ``i0`` with every table row reachable from layers
+        ``>= i0`` unchanged vs. the previous build (suffix frontiers above
+        it survive verbatim); ``tbl.n`` when nothing survives."""
+        old = self._last["tbl"]
+        n = tbl.n
+        if not np.array_equal(tbl.s_final, old.s_final, equal_nan=True):
+            return n
+        i0 = n
+        while i0 > 0:
+            i = i0 - 1
+            if not np.array_equal(tbl.seg[i], old.seg[i]):
+                break
+            if i < n - 1 and not np.array_equal(tbl.sbound[i],
+                                                old.sbound[i]):
+                break
+            i0 = i
+        return i0
+
+    def frontier(self, ivals: np.ndarray, svals: np.ndarray,
+                 ub: float = _INF, warm: bool = True) -> PlanFrontier:
+        """Phase 3: assemble tables from the evaluated rows and run the
+        Pareto DP, warm-starting from the previous build on this instance
+        when ``warm`` (value-equal suffixes/branches only, so the result
+        is always bit-identical to a scratch build)."""
+        stats = SearchStats(i_calls=self.builder.i_entries,
+                            s_calls=self.builder.s_entries)
+        if self._chain_fin is not None:
+            return self._frontier_chain(ivals, svals, ub, warm, stats)
+        return self._frontier_dag(ivals, svals, ub, warm, stats)
+
+    def _frontier_chain(self, ivals, svals, ub, warm, stats):
+        schemes_t = self.schemes
+        n = len(self.graph)
+        k = len(schemes_t)
+        tbl = self._chain_fin(ivals, svals)
+        stats.pruned_halo = tbl.halo_cuts
+        warm_arg = None
+        reused = 0
+        if warm and self._last is not None and self._last["ub"] == ub:
+            i0 = self._chain_suffix_start(tbl)
+            if i0 < n:
+                warm_arg = (i0, self._last["F"])
+                reused = n - i0
+        F = _chain_frontier(n, k, tbl.seg_options, tbl.bound, tbl.final,
+                            ub, stats, warm=warm_arg)
+        self._last = {"tbl": tbl, "F": F, "ub": ub}
+        self.last_reuse = {"mode": "chain", "layers": n,
+                           "suffix_reused_layers": reused}
+        roots = []
+        As: List[float] = []
+        Bs: List[float] = []
+        for pi in range(k):
+            if F[0][pi] is None:
+                continue
+            fs = F[0][pi]
+            for j in range(len(fs.a)):
+                As.append(float(fs.a[j]))
+                Bs.append(float(fs.b[j]))
+                roots.append((pi, j))
+        if not roots:
+            raise RuntimeError(f"{self.graph.name}: no feasible plan found")
+        a = np.asarray(As)
+        b = np.asarray(Bs)
+        keep = pareto_front_2d(a, b, ub)
+        points = np.stack([a[keep], b[keep]], axis=1)
+        kept = [roots[int(j)] for j in keep]
+
+        def build(idx: int) -> Plan:
+            pi, j = kept[idx]
+            return _chain_plan_from(F, schemes_t, pi, j)
+
+        return PlanFrontier(schemes_t, points, stats, build)
+
+    def _frontier_dag(self, ivals, svals, ub, warm, stats):
+        graph = self.graph
+        schemes_t = self.schemes
+        branches = self._branches
+        bkeys, uniq, jidx = self._bkeys, self._uniq, self._jidx
+        utables = [fin(ivals, svals) for fin in self._finalizers]
+        stats.pruned_halo = sum(utables[u].halo_cuts for u in uniq.values())
+        ptab_memo: Dict[Tuple[int, bool], Dict] = {}
+        reused_branches = 0
+        if warm and self._last is not None and self._last["ub"] == ub:
+            prev_ut = self._last["utables"]
+            for u, tblu in enumerate(utables):
+                old = prev_ut[u]
+                # pinned per-branch tables read seg + internal bounds only
+                if np.array_equal(tblu.seg, old.seg) \
+                        and np.array_equal(tblu.sbound, old.sbound):
+                    for (uu, hs), v in self._last["ptab"].items():
+                        if uu == u:
+                            ptab_memo[(u, hs)] = v
+                    reused_branches += 1
+
+        def ptable(t: int, head_solo: bool):
+            u = uniq[bkeys[t]]
+            hit = ptab_memo.get((u, head_solo))
+            if hit is not None:
+                return hit
+            tblu = utables[u]
+
+            def seg_costs(i: int, pi: int):
+                return tblu.seg_options(i, pi, head_solo)
+
+            out = _pinned_pareto_tables(len(branches[t]), schemes_t,
+                                        seg_costs, tblu.bound, ub, stats)
+            ptab_memo[(u, head_solo)] = out
+            return out
+
+        def jscost(prod: int, cons: Optional[int], pi: int,
+                   qi: Optional[int]) -> float:
+            return float(svals[jidx[(prod, cons, pi, qi)]])
+
+        points, build = _dag_pipeline_frontier(graph, schemes_t, ptable,
+                                               jscost, ub, stats)
+        self._last = {"utables": utables, "ptab": ptab_memo, "ub": ub}
+        self.last_reuse = {"mode": "dag", "unique_branches": len(utables),
+                           "branch_tables_reused": reused_branches}
+        return PlanFrontier(schemes_t, points, stats, build)
+
+
+def pipeline_frontier(graph: ModelGraph, est: CostEstimator, tb: Testbed,
+                      schemes: Sequence[Scheme] = ALL_SCHEMES,
+                      max_segment: int = 32,
+                      allow_fusion: bool = True,
+                      ub_cost: Optional[float] = None,
+                      prune_ub: bool = True) -> PlanFrontier:
+    """Exact (compute, sync) Pareto frontier of all valid plans.
+
+    The estimator must implement the batched protocol: it evaluates
+    through one ``i_cost_batch`` + ``s_cost_batch`` table build (the
+    latency DP's tables, reused).
+
+    ``prune_ub=True`` trims partial pairs against the latency optimum —
+    exact for the unscaled objectives and what ``plan_search`` uses; pass
+    ``ub_cost`` (the latency of any feasible plan under the *same*
+    schemes/fusion settings, e.g. a latency ``plan_search`` the caller
+    already ran) to skip the internal pre-search.  ``prune_ub=False``
+    keeps the complete nondominated set (no pre-search at all) — needed
+    when ``select`` will re-weight the axes (see ``cluster.refine``).
+    """
+    _require_batched(est)
+    schemes_t = tuple(schemes)
+    if not prune_ub:
+        ub = _INF
+    else:
+        # Latency optimum: every frontier coordinate is bounded by it
+        # (both axes sum to the latency), so it is a valid cutoff.
+        if ub_cost is None:
+            ub_cost = plan_search(graph, est, tb, schemes_t, max_segment,
+                                  allow_fusion).cost
+        ub = ub_cost * (1.0 + 1e-12)
+    # the registration/evaluation/DP split (one fresh instance here; an
+    # incremental replanner holds onto one across cluster events)
+    ft = FrontierTables.register(graph, est, tb, schemes_t, max_segment,
+                                 allow_fusion)
+    return ft.frontier(*ft.evaluate(), ub=ub)

@@ -10,16 +10,16 @@ feature columns (one row per query).  The batch forms replicate the scalar
 float operation *order*, so results are bit-identical — the planner's
 batched cost tables must agree exactly with the scalar reference path.
 
-A trimmed copy of the JAX package's ``core/partition.py``: the
-capability-weighted (heterogeneous-cluster) forms are left out.  The enum
-values are the reference's, so plans convert between the packages by value.
+A copy of the JAX package's ``core/partition.py``, with its
+capability-weighted (heterogeneous-cluster) forms.  The enum values are the
+reference's, so plans convert between the packages by value.
 """
 from __future__ import annotations
 
 import dataclasses
 import enum
 import math
-from typing import List, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 
@@ -50,6 +50,32 @@ def split_sizes(total: int, parts: int) -> List[int]:
     """Balanced 1-D split (ceil for the first ``total % parts`` shards)."""
     q, r = divmod(total, parts)
     return [q + (1 if i < r else 0) for i in range(parts)]
+
+
+def weighted_split_sizes(total: int, weights: Sequence[float]) -> List[int]:
+    """Capability-proportional integer split (largest-remainder method).
+
+    Device ``d`` receives ``round(total * w_d / sum(w))`` units, with the
+    leftover units after flooring handed to the largest fractional parts
+    (ties broken toward lower device index).  Uniform weights reduce
+    *exactly* to :func:`split_sizes` — every fractional part ties, so the
+    first ``total % parts`` shards take the ceil, shard for shard — which
+    is what keeps homogeneous ``ClusterSpec`` costs bit-identical to the
+    historical ``Testbed`` path.  A zero weight yields a zero-size shard.
+    """
+    ws = [float(w) for w in weights]
+    if any(w < 0.0 for w in ws):
+        raise ValueError(f"negative capability weight in {ws}")
+    s = sum(ws)
+    if s <= 0.0:
+        raise ValueError("capability weights must sum to a positive value")
+    ideal = [total * w / s for w in ws]
+    base = [int(math.floor(x)) for x in ideal]
+    rem = total - sum(base)
+    order = sorted(range(len(ws)), key=lambda i: (base[i] - ideal[i], i))
+    for i in order[:rem]:
+        base[i] += 1
+    return base
 
 
 def grid_dims(nodes: int) -> Tuple[int, int]:
@@ -147,6 +173,54 @@ def shard_work(layer: LayerSpec, scheme: Scheme, nodes: int,
             per_node_f[node] += _conv_row_flops(layer, rr, cc, oc)
             per_node_b[node] += rr * cc * oc * DTYPE_BYTES
         flops, obytes = per_node_f, per_node_b
+    else:  # pragma: no cover
+        raise ValueError(scheme)
+    return ShardWork(tuple(flops), tuple(obytes))
+
+
+def hetero_shard_work(layer: LayerSpec, scheme: Scheme,
+                      weights: Sequence[float],
+                      extra_halo: int = 0) -> ShardWork:
+    """Workload of ``layer`` under ``scheme`` with capability-weighted shard
+    fractions: device ``d`` owns a :func:`weighted_split_sizes` share of the
+    split axis instead of a balanced one.
+
+    Mirrors :func:`shard_work` expression for expression (including the
+    ``min(extent + 2*halo, full)`` NT-halo clip), so uniform weights give
+    bit-identical per-node numbers.  GRID2D keeps the balanced round-robin
+    cell grid — the 2-D cell layout has no natural 1-D weighting — so
+    capability only enters GRID2D through the per-device *speeds* the cost
+    model divides by (skewed clusters simply stop choosing it).
+    """
+    nodes = len(weights)
+    oh, ow, oc = layer.out_h, layer.out_w, layer.out_c
+    if extra_halo and not scheme.spatial:
+        raise ValueError("NT halo is undefined for OutC partition")
+    if scheme == Scheme.GRID2D:
+        return shard_work(layer, scheme, nodes, extra_halo=extra_halo)
+
+    flops: List[float] = []
+    obytes: List[float] = []
+    if scheme == Scheme.INH:
+        for rows in weighted_split_sizes(oh, weights):
+            r = min(rows + 2 * extra_halo, oh)
+            flops.append(_conv_row_flops(layer, r, ow, oc))
+            obytes.append(r * ow * oc * DTYPE_BYTES)
+    elif scheme == Scheme.INW:
+        for cols in weighted_split_sizes(ow, weights):
+            c = min(cols + 2 * extra_halo, ow)
+            flops.append(_conv_row_flops(layer, oh, c, oc))
+            obytes.append(oh * c * oc * DTYPE_BYTES)
+    elif scheme == Scheme.OUTC:
+        if layer.heads:
+            per_head = oc // layer.heads
+            chs = [h * per_head
+                   for h in weighted_split_sizes(layer.heads, weights)]
+        else:
+            chs = weighted_split_sizes(oc, weights)
+        for ch in chs:
+            flops.append(_conv_row_flops(layer, oh, ow, ch))
+            obytes.append(oh * ow * ch * DTYPE_BYTES)
     else:  # pragma: no cover
         raise ValueError(scheme)
     return ShardWork(tuple(flops), tuple(obytes))
@@ -281,6 +355,88 @@ def straggler_flops_batch(per_elem: np.ndarray, oh: np.ndarray,
             acc[j % int(nval)] += \
                 per_elem[m] * rr * cc * oc[m] * flop_factor[m]
         out[m] = acc.max(axis=0)
+    return out
+
+
+def weighted_split_batch(total: np.ndarray,
+                         weights: np.ndarray) -> np.ndarray:
+    """Vector form of :func:`weighted_split_sizes`: one shared weight vector,
+    a batch of totals.  Returns an ``(n_rows, n_devices)`` int64 matrix,
+    row-for-row identical to the scalar largest-remainder split."""
+    total = np.asarray(total, np.int64)
+    w = np.asarray(weights, np.float64)
+    if np.any(w < 0.0):
+        raise ValueError(f"negative capability weight in {w}")
+    s = float(w.sum())
+    if s <= 0.0:
+        raise ValueError("capability weights must sum to a positive value")
+    ideal = total[:, None] * w[None, :] / s
+    base = np.floor(ideal).astype(np.int64)
+    rem = total - base.sum(axis=1)
+    order = np.argsort(base - ideal, axis=1, kind="stable")
+    rank = np.empty_like(order)
+    np.put_along_axis(rank, order,
+                      np.broadcast_to(np.arange(len(w)), order.shape), axis=1)
+    return base + (rank < rem[:, None])
+
+
+def hetero_flops_batch(per_elem: np.ndarray, oh: np.ndarray, ow: np.ndarray,
+                       oc: np.ndarray, scheme: np.ndarray, halo: np.ndarray,
+                       flop_factor: np.ndarray,
+                       weights: np.ndarray,
+                       heads: np.ndarray = None) -> np.ndarray:
+    """Vector form of ``hetero_shard_work(...).flops_per_node`` over stacked
+    feature columns: returns the full ``(n_rows, n_devices)`` per-device
+    FLOP matrix (the cost model divides by per-device speeds and takes the
+    straggler max).  Expression order mirrors the scalar path so uniform
+    weights stay bit-identical to :func:`straggler_flops_batch`.  Rows with
+    ``heads > 0`` (ATTN layers) split OutC at head granularity."""
+    if np.any((halo > 0) & (scheme == Scheme.OUTC)):
+        raise ValueError("NT halo is undefined for OutC partition")
+    if heads is None:
+        heads = np.zeros(per_elem.shape, np.int64)
+    ndev = len(weights)
+    out = np.empty((len(per_elem), ndev), np.float64)
+
+    def _oned(m: np.ndarray, extent: np.ndarray, clip_halo: bool) -> \
+            np.ndarray:
+        e = weighted_split_batch(extent[m], weights)
+        if clip_halo:
+            e = np.minimum(e + 2 * halo[m][:, None], extent[m][:, None])
+        return e
+
+    m = scheme == Scheme.INH
+    if m.any():
+        r = _oned(m, oh, True)
+        out[m] = per_elem[m][:, None] * r * ow[m][:, None] \
+            * oc[m][:, None] * flop_factor[m][:, None]
+    m = scheme == Scheme.INW
+    if m.any():
+        c = _oned(m, ow, True)
+        out[m] = per_elem[m][:, None] * oh[m][:, None] * c \
+            * oc[m][:, None] * flop_factor[m][:, None]
+    m = scheme == Scheme.OUTC
+    if m.any():
+        h = np.maximum(heads[m], 1)
+        ch_head = weighted_split_batch(h, weights) * (oc[m] // h)[:, None]
+        ch = np.where((heads[m] > 0)[:, None], ch_head, _oned(m, oc, False))
+        out[m] = per_elem[m][:, None] * oh[m][:, None] * ow[m][:, None] \
+            * ch * flop_factor[m][:, None]
+    m = scheme == Scheme.GRID2D
+    if m.any():
+        # balanced round-robin cell grid (see hetero_shard_work), replayed
+        # in the scalar accumulation order per node
+        gh, gw = grid_dims(ndev)
+        q_r, rem_r = oh[m] // gh, oh[m] % gh
+        q_c, rem_c = ow[m] // gw, ow[m] % gw
+        acc = np.zeros((ndev, int(m.sum())), np.float64)
+        for j in range(gh * gw):
+            r = q_r + (j // gw < rem_r)
+            c = q_c + (j % gw < rem_c)
+            rr = np.minimum(r + 2 * halo[m], oh[m])
+            cc = np.minimum(c + 2 * halo[m], ow[m])
+            acc[j % ndev] += per_elem[m] * rr * cc * oc[m] * flop_factor[m]
+        out[m] = acc.T
     return out
 
 

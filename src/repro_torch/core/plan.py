@@ -25,8 +25,7 @@ DAG graphs add junction rules on top (segments live *within* branches of
 * A merge pays the **max** over its incoming branch deliveries (the paper's
   branch transfers overlap; the slowest re-layout gates the merge).
 
-A trimmed copy of the JAX package's ``core/plan.py``: the pipelined
-(throughput-objective) cost and stage counts are left out.
+A copy of the JAX package's ``core/plan.py``.
 """
 from __future__ import annotations
 
@@ -105,6 +104,113 @@ def _validate_steps_slice(steps: Sequence[Tuple[Scheme, Mode]],
                     f"{where} [{a},{b}] uses non-spatial scheme in NT mode")
 
 
+@dataclasses.dataclass(frozen=True)
+class PipelineCost:
+    """Two-resource occupancy of one plan under pipelined execution.
+
+    The simulator's resource model (``cluster.simsched``) has two resource
+    classes: devices execute every compute stage, links carry every sync
+    stage.  In a saturated pipeline each class processes its whole
+    per-request workload back to back across overlapping requests, so the
+    steady-state inter-departure time is the larger per-request occupancy —
+    not the single-request latency, which pays both classes in series.
+
+    ``compute_s`` sums the segment compute stages (straggler times, halos
+    included); ``sync_s`` sums the sync stages (internal boundaries, fork
+    deliveries, per-merge max over incoming deliveries, final gather).
+    """
+
+    compute_s: float
+    sync_s: float
+
+    @property
+    def bottleneck_s(self) -> float:
+        """Steady-state pipeline period: the busier resource class."""
+        return max(self.compute_s, self.sync_s)
+
+    @property
+    def latency_s(self) -> float:
+        """Single-request time: both classes in series (== plan_cost)."""
+        return self.compute_s + self.sync_s
+
+    @property
+    def throughput_rps(self) -> float:
+        t = self.bottleneck_s
+        return 1.0 / t if t > 0.0 else float("inf")
+
+
+def plan_pipeline_cost(graph: ModelGraph, plan: Plan, est: CostEstimator,
+                       tb: Testbed) -> PipelineCost:
+    """Pipelined cost of ``plan``: per-resource-class occupancy sums.
+
+    Stage decomposition and estimator call pattern are identical to
+    :func:`dag_plan_cost` (same segments, same s-queries, merge deliveries
+    combine with max) — the two accumulators just land in separate buckets,
+    so ``compute_s + sync_s`` equals the latency cost up to float
+    association.
+    """
+    plan.validate_for(graph)
+    layers = graph.layers
+    compute = 0.0
+    sync = 0.0
+    merge_deliveries: Dict[int, List[float]] = {}
+    for br in graph.linearize():
+        ids = br.ids
+        ls = [layers[i] for i in ids]
+        steps = [plan.steps[i] for i in ids]
+        for a, b in steps_segments(steps):
+            scheme = steps[a][0]
+            halos = halo_growth(ls[a:b + 1], b - a)
+            for off, m in enumerate(range(a, b + 1)):
+                compute += est.i_cost(ls[m], scheme, tb,
+                                      extra_halo=halos[off] if b > a else 0)
+            if b < len(ids) - 1:
+                sync += est.s_cost(ls[b], ls[b + 1], scheme,
+                                   steps[b + 1][0], tb)
+        p_tail = steps[-1][0]
+        consumers = graph.consumer_ids[ids[-1]]
+        if not consumers:
+            sync += est.s_cost(ls[-1], None, p_tail, None, tb)
+        for c in consumers:
+            d = est.s_cost(ls[-1], layers[c], p_tail, plan.steps[c][0], tb)
+            if graph.fan_in(c) >= 2:
+                merge_deliveries.setdefault(c, []).append(d)
+            else:
+                sync += d
+    for ds in merge_deliveries.values():
+        sync += max(ds)
+    return PipelineCost(compute_s=compute, sync_s=sync)
+
+
+def plan_stage_counts(graph: ModelGraph, plan: Plan) -> Tuple[int, int]:
+    """``(compute_stages, sync_stages)`` of the plan's pipeline stage DAG.
+
+    The shared stage-decomposition arithmetic: ``cluster.simsched`` builds
+    exactly this many stages, and the engine's ``ExecStats`` reports the
+    same compute-stage count from its executed segments — one contract
+    across the analytic model, the simulator, and the real execution path.
+    """
+    plan.validate_for(graph)
+    n_compute = 0
+    n_sync = 0
+    merges = set()
+    for br in graph.linearize():
+        ids = br.ids
+        steps = [plan.steps[i] for i in ids]
+        segs = steps_segments(steps)
+        n_compute += len(segs)
+        n_sync += len(segs) - 1          # internal boundaries
+        consumers = graph.consumer_ids[ids[-1]]
+        if not consumers:
+            n_sync += 1                  # final gather
+        for c in consumers:
+            if graph.fan_in(c) >= 2:
+                merges.add(c)            # one merge stage per merge layer
+            else:
+                n_sync += 1              # fork delivery
+    return n_compute, n_sync + len(merges)
+
+
 def plan_cost(graph: ModelGraph, plan: Plan, est: CostEstimator,
               tb: Testbed) -> float:
     """Total estimated inference time of ``plan`` (seconds).
@@ -153,6 +259,11 @@ def dag_plan_cost(graph: ModelGraph, plan: Plan, est: CostEstimator,
     for ds in merge_deliveries.values():
         total += max(ds)
     return total
+
+
+def segment_halos(layers: Sequence[LayerSpec], a: int, b: int) -> List[int]:
+    """Halo (extra output rows per side) for each layer of segment [a..b]."""
+    return halo_growth(layers[a:b + 1], b - a)
 
 
 def segment_feasible(layers: Sequence[LayerSpec], a: int, b: int,

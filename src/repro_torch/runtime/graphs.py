@@ -26,7 +26,13 @@ next call, which overwrites them in the graph's memory.
 
 Memory: every graph captures into a private memory pool of its own, so
 graphs replay in any order (cache hits across sessions, programs dropped
-and captured again) and a dropped graph frees its memory.
+and captured again) and a dropped graph frees its memory.  A dropped
+program caught in a reference cycle (a stage program's body holds the
+program) frees its graph only when Python's cyclic collector runs, and a
+graph freed while another capture is under way invalidates that capture
+(``cudaGraphExecDestroy`` is not permitted then).  So the collector is
+paused for the length of each capture and frees such graphs between
+captures.
 
 Launch counters: the ``launches`` counter of each kernel wrapper
 (:data:`COUNTED`) counts kernels that ran on the device.  A capture runs
@@ -39,6 +45,7 @@ back to the eager path.
 """
 from __future__ import annotations
 
+import gc
 from typing import Any, Callable, Dict
 
 import torch
@@ -107,6 +114,8 @@ class GraphProgram:
         stream = _capture_stream(self.device)
         current = torch.cuda.current_stream(self.device)
         stream.wait_stream(current)
+        collecting = gc.isenabled()
+        gc.disable()      # no dropped graph is freed inside the capture
         try:
             with torch.cuda.stream(stream):
                 graph.capture_begin()
@@ -118,6 +127,8 @@ class GraphProgram:
                                   for f, n in zip(COUNTED, before)
                                   if f.launches != n)
         finally:
+            if collecting:
+                gc.enable()
             for f, n in zip(COUNTED, before):
                 f.launches = n
         current.wait_stream(stream)

@@ -807,6 +807,43 @@ def test_a_graph_program_counts_replays_and_not_the_capture(cuda):
     assert prog.graph is not None and prog.launches == ((matmul_tiled, 1),)
 
 
+def test_the_collector_waits_out_a_capture(cuda):
+    """Captured programs dropped inside reference cycles (a mesh stage
+    program's body holds its program) are freed by Python's cyclic
+    collector; one that ran during a later capture would free their
+    graphs inside it and invalidate it.  The collector is paused for
+    the length of each capture, switched back on after it, and frees
+    those graphs between captures."""
+    import gc
+    import weakref
+
+    seen = []
+
+    def body(t):
+        if torch.cuda.is_current_stream_capturing():
+            seen.append(gc.isenabled())
+        return t + 1.0
+
+    class Holder:
+        pass
+
+    x = torch.ones(64, device=cuda)
+    h = Holder()
+    h.prog = GraphProgram(lambda t, h=h: t * 2.0, x.clone())
+    h.prog(x)
+    h.prog(x)                                    # captured
+    dropped = weakref.ref(h.prog)
+    del h
+    assert gc.isenabled() and dropped() is not None
+    prog = GraphProgram(body, x.clone())
+    for _ in range(3):
+        out = prog(x)
+    assert seen == [False] and gc.isenabled()
+    assert prog.graph is not None and torch.equal(out, x + 1.0)
+    gc.collect()
+    assert dropped() is None
+
+
 @pytest.mark.parametrize("backend", ["cuda", "torch"])
 def test_captured_greedy_decode_is_bit_equal_to_the_eager_body(cuda,
                                                                 backend):
@@ -1137,3 +1174,50 @@ def test_captured_mesh_decode_is_bit_equal_to_its_eager_body(cuda, backend,
     ref_toks, ref_lg = reference_decode(spec, w, prompt, n_new)
     assert toks == ref_toks
     assert _rel_err(lg, ref_lg) < 1e-4
+
+
+# ---------------------------------------------------------------------------
+# the refinement loop on occupancy measured on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", ["mobilenet", "resnet18"])
+def test_refine_on_measured_card_occupancy(cuda, name):
+    """``refine_with_simulator(occupancy_fn=...)`` where each tried plan
+    runs on the mesh executor (eager, capturing, replayed; instrument=True,
+    overlap=False) and the replayed run's occupancy is returned: every
+    tried plan within 1e-4 of the ``backend="torch"`` run, no fault
+    counted, and the frontier's extreme plans too."""
+    from repro_torch.cluster import (Objective, OnlineCalibrator,
+                                     cluster_pipeline_frontier, homogeneous,
+                                     refine_with_simulator)
+    g = EDGE_MODELS[name](**SMALL[name])
+    ws = init_weights(g, torch.Generator().manual_seed(0), cuda)
+    l0 = g.layers[0]
+    x = torch.randn((l0.in_h, l0.in_w, l0.in_c),
+                    generator=torch.Generator().manual_seed(1)).to(cuda)
+    cl = homogeneous(4, bandwidth_gbps=0.5)
+    tried = []
+
+    def measure(plan):
+        clear_mesh_program_cache()
+        sess = Session(g, ws, plan, 4, ExecConfig(
+            executor="mesh", overlap=False, instrument=True))
+        outs = [sess.run(x) for _ in range(3)]
+        ref, _ = Session(g, ws, plan, 4, ExecConfig(backend="torch")).run(x)
+        for out, st in outs:
+            assert st.failure_count == 0
+            assert torch.equal(out, outs[0][0])
+            assert _rel_err(out, ref) < 1e-4
+        tried.append(plan)
+        return outs[-1][1].to_occupancy()
+
+    fr = cluster_pipeline_frontier(g, cl, prune_ub=False)
+    cal = OnlineCalibrator(cl)
+    rr = refine_with_simulator(g, cl, max_iters=3, frontier=fr,
+                               occupancy_fn=measure, calibrator=cal)
+    assert rr.report is None and rr.steps and tried
+    assert all(s.dev_occupancy_s > 0.0 for s in rr.steps)
+    assert all(h.trusted for h in cal.history)
+    for scales in (dict(compute_scale=1e6), dict(sync_scale=1e6)):
+        measure(fr.plan(fr.select(Objective.THROUGHPUT, **scales)))
+    clear_mesh_program_cache()

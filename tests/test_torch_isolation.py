@@ -49,7 +49,11 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
                 "repro_torch.runtime.engine", "repro_torch.runtime.session",
                 "repro_torch.runtime.decode", "repro_torch.runtime.kv_cache",
                 "repro_torch.runtime.mesh_exec", "repro_torch.launch.mesh",
-                "repro_torch.configs.edge_models"}
+                "repro_torch.configs.edge_models",
+                "repro_torch.cluster.spec", "repro_torch.cluster.estimator",
+                "repro_torch.cluster.simsched",
+                "repro_torch.cluster.calibrate", "repro_torch.cluster.refine",
+                "repro_torch.cluster.serving"}
     assert expected <= set(out["mods"])
 
 
