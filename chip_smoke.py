@@ -49,7 +49,25 @@ seeds:
   eager, capturing, replayed) and returns the replayed run's
   ``to_occupancy()``, then the frontier's two extreme plans; every plan
   run held to phase 9's checks and its measured stages to the port's own
-  ``build_stages``.
+  ``build_stages``;
+* the data-driven planner (phase 12) — GBDT cost estimators fit on the
+  card: (a) a forest fit by the port on the host CPU, carried to the card
+  through its npz file, predicts bit-equal to the CPU and to the scalar
+  walk; (b) homogeneous and hetero forests at
+  ``benchmarks/estimator_quality.py``'s smoke budget fit on the card
+  twice (bit-equal) and on the CPU, with the share of equal trees, the
+  largest prediction gap and the held-out RMSE (within 1% of the CPU
+  fit's); (c) that benchmark's quality gates (``hetero_within_5pct``,
+  ``hetero_beats_hom``) on the device forests beside the committed
+  ``benchmarks/baselines/BENCH_estimator.json``; (d) the paper's 330K
+  traces and 120-tree forests, and the GBDT plan within 1.30x of the
+  analytic optimum; (e) the six solutions of ``baselines.all_solutions``
+  for phase 3's models on learned costs, each run through the local and
+  the mesh executor under phases 3 and 9's checks (a plan that cuts an FC
+  layer's columns prints its estimate and does not run: the reference
+  cannot run it either); (f) phase 11's loop for ResNet-18 on the GBDT
+  frontier.  One H100 driven by one host is not the paper's edge
+  cluster: the scores of (e) are not its Fig. 7/9.
 
 All four kernels' launch counters are zeroed just before each path's run
 and read just after: they must equal the launches the plan (or the case
@@ -1648,10 +1666,12 @@ def scheme_counts(plan) -> str:
             + f", {nt} NT")
 
 
-def phase_refine(dev, row, errs, card):
+def phase_refine(dev, row, errs, card, estimator=None, tag="phase 11"):
     """The throughput planner's loop on the card: ``refine_with_simulator``
     over the (compute, sync) frontier of one phase-3 model on phase 3's
-    4-node, 0.5 Gbps cluster, each plan it tries run on the mesh executor
+    4-node, 0.5 Gbps cluster (on ``estimator``'s costs, the analytic
+    cluster estimator's by default), each plan it tries run on the mesh
+    executor
     (``overlap=False``, ``instrument=True``: eager, capturing, replayed)
     and the replayed run's ``to_occupancy()`` fed back, plus the
     frontier's two extreme plans.  Every plan run is held to the mesh
@@ -1661,27 +1681,33 @@ def phase_refine(dev, row, errs, card):
     eager run within TOL of its plain version, and the measured stages
     equal to the port's own ``build_stages`` one for one.  A check that
     fails inside the loop stops the phase: a faulty sample never passes
-    as an untrusted step."""
+    as an untrusted step.  Returns the loop's outcome."""
     import torch
     from repro_torch import (AnalyticEstimator, ExecConfig, Session,
                              Testbed, plan_search)
     from repro_torch.cluster import (Objective, OnlineCalibrator,
                                      build_stages, cluster_pipeline_frontier,
-                                     homogeneous, refine_with_simulator)
+                                     cluster_plan_search, homogeneous,
+                                     refine_with_simulator)
     from repro_torch.runtime import engine, mesh_exec
 
     name = row["model"]
-    g, ws, x, plan3, _, _, ref, _ = row.pop("mesh_inputs")
+    g, ws, x, plan3, _, _, ref, _ = row["mesh_inputs"]
     t_phase = time.perf_counter()
     cl = homogeneous(NODES, bandwidth_gbps=0.5)
     tb = Testbed(nodes=NODES, bandwidth_gbps=0.5)
     check(cl.compat_testbed() == tb,
           f"{name}: compat_testbed {cl.compat_testbed()} != {tb}")
     t0 = time.perf_counter()
-    fr = cluster_pipeline_frontier(g, cl, prune_ub=False)
+    fr = cluster_pipeline_frontier(g, cl, prune_ub=False,
+                                   estimator=estimator)
     search_s = time.perf_counter() - t0
-    res = plan_search(g, AnalyticEstimator(), tb)
-    check(res.plan == plan3, f"{name}: plan_search differs from phase 3's")
+    if estimator is None:
+        res = plan_search(g, AnalyticEstimator(), tb)
+        check(res.plan == plan3,
+              f"{name}: plan_search differs from phase 3's")
+    else:
+        res = cluster_plan_search(g, cl, estimator=estimator)
     i_lat = fr.select(Objective.LATENCY)
     lat_plan = fr.plan(i_lat)
     lat_sum = float(fr.points[i_lat].sum())
@@ -1691,18 +1717,21 @@ def phase_refine(dev, row, errs, card):
           f"{name}: the frontier's latency point {lat_sum} != plan_search's "
           f"cost {res.cost}")
     n_diff = sum(1 for a, b in zip(lat_plan.steps, res.plan.steps) if a != b)
-    print(f"phase 11: {name}: frontier of {len(fr)} points built in "
+    print(f"{tag}: {name}: frontier of {len(fr)} points built in "
           f"{search_s:.3f} s (prune_ub=False, homogeneous({NODES}, 0.5 "
           f"Gbps) == phase 3's testbed); latency selection point {i_lat} "
           f"costs {lat_sum:.9g} s == plan_search's {res.cost:.9g} s, its "
-          f"plan " + ("identical to phase 3's" if not n_diff else
-                      f"a tie that differs from phase 3's in {n_diff} "
-                      f"steps") + f"; THROUGHPUT selection point "
+          f"plan " + ("identical to the latency search's" if not n_diff
+                      else f"a tie that differs from the latency search's "
+                           f"in {n_diff} steps")
+          + f"; THROUGHPUT selection point "
           f"{fr.select(Objective.THROUGHPUT)}", flush=True)
 
     tried = []
 
     def measure(plan):
+        check(not cuts_fc_columns(g, plan),
+              f"{name}: {tag} tried a plan that cuts an FC layer's columns")
         want = mesh_kernel_records(g, plan, NODES, False)
         want_counts = {"conv2d_shard": want[0], "matmul_tiled": want[1]}
         mesh_exec.clear_mesh_program_cache()
@@ -1757,7 +1786,7 @@ def phase_refine(dev, row, errs, card):
     check(rr.report is None and rr.steps, f"{name}: refine took no step")
     for k, st in enumerate(rr.steps):
         plan, occ, n_rec, e, same = tried[k]
-        print(f"phase 11: {name} step {k}: point {st.point_idx} "
+        print(f"{tag}: {name} step {k}: point {st.point_idx} "
               f"({scheme_counts(plan)}), analytic (compute, sync) "
               f"({st.compute_s * 1e3:.4f}, {st.sync_s * 1e3:.4f}) ms, "
               f"measured (dev, link, period) ({st.dev_occupancy_s * 1e3:.4f}"
@@ -1768,7 +1797,7 @@ def phase_refine(dev, row, errs, card):
               f"executor [{card}]", flush=True)
     beta, alpha = cal.axis_scales()
     last = cal.history[-1]
-    print(f"phase 11: {name}: converged={rr.converged} after "
+    print(f"{tag}: {name}: converged={rr.converged} after "
           f"{len(rr.steps)} steps; chosen plan ({scheme_counts(rr.plan)}) "
           f"against the latency plan ({scheme_counts(res.plan)}), "
           f"{'the same plan' if rr.plan == res.plan else 'another plan'}; "
@@ -1785,7 +1814,7 @@ def phase_refine(dev, row, errs, card):
         plan = fr.plan(i)
         occ = measure(plan)
         _, _, n_rec, e, same = tried[-1]
-        print(f"phase 11: {name} extreme {label} point {i} "
+        print(f"{tag}: {name} extreme {label} point {i} "
               f"({scheme_counts(plan)}), analytic ({fr.points[i, 0] * 1e3:.4f}"
               f", {fr.points[i, 1] * 1e3:.4f}) ms, measured (dev, link, "
               f"period) ({occ.dev_occupancy_s * 1e3:.4f}, "
@@ -1795,12 +1824,418 @@ def phase_refine(dev, row, errs, card):
     mesh_exec.clear_mesh_program_cache()
     engine.clear_segment_cache()
     n_plans = len({p.steps for p, *_ in tried})
-    print(f"phase 11: {name}: {len(tried)} plan runs ({n_plans} distinct "
+    print(f"{tag}: {name}: {len(tried)} plan runs ({n_plans} distinct "
           f"plans) each within {TOL:g} of the reference, bit-equal across "
           f"eager, capture and replay, ExecStats equal to the local run's, "
           f"failure_count 0, launches equal to mesh_kernel_records, every "
           f"kernel call within {TOL:g} of plain, stages equal to "
           f"build_stages; phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return dict(converged=rr.converged, steps=len(rr.steps), plan=rr.plan,
+                rps=rr.best_throughput_rps, frontier=len(fr),
+                points=[st.point_idx for st in rr.steps])
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the data-driven planner (GBDT estimators fit on the card)
+# ---------------------------------------------------------------------------
+
+#: benchmarks/estimator_quality.py SMOKE_BUDGET: (traces, trees, depth,
+#: hetero_fraction); its evaluation grid
+GBDT_BUDGET = (20_000, 60, 7, 0.7)
+QUALITY_PRESETS = ("mixed_fast_slow", "stepped")
+QUALITY_NODES = (4, 5, 6)
+QUALITY_RES = 96
+HELD_OUT = 2_000                # held-out traces, seed 99
+FRESH_ROWS = 20_000             # step a's fresh rows
+PAPER_SAMPLES = 330_000         # TraceConfig()'s default: the paper's 330K
+BENCH_ESTIMATOR = ROOT / "benchmarks" / "baselines" / "BENCH_estimator.json"
+
+
+def flat_equal(a, b) -> bool:
+    """Two forests equal bit for bit: bases and every tree's flat arrays."""
+    import numpy as np
+    return a.base_ == b.base_ and len(a.trees_) == len(b.trees_) and all(
+        np.array_equal(p, q) for ta, tb in zip(a.trees_, b.trees_)
+        for p, q in zip(ta.flat(), tb.flat()))
+
+
+def structure_share(a, b) -> float:
+    """Share of trees whose structure (features, thresholds, children,
+    leaves) is equal in two forests."""
+    import numpy as np
+    same = sum(all(np.array_equal(p, q) for p, q in
+                   zip(ta.flat()[:4] + ta.flat()[5:],
+                       tb.flat()[:4] + tb.flat()[5:]))
+               for ta, tb in zip(a.trees_, b.trees_))
+    return same / max(len(a.trees_), 1)
+
+
+class Stopwatch:
+    """Sums the wall seconds of calls to ``owner.attr`` while active."""
+
+    def __init__(self, owner, attr):
+        self.owner, self.attr, self.seconds = owner, attr, 0.0
+
+    def __enter__(self):
+        fn = getattr(self.owner, self.attr)
+
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                self.seconds += time.perf_counter() - t0
+        self._fn = fn
+        setattr(self.owner, self.attr, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.attr, self._fn)
+
+
+def cuts_fc_columns(graph, plan) -> bool:
+    """An INW or GRID2D step on an FC layer: its seq x 1 map cut into empty
+    columns, which the reference cannot run either (its reshape fails,
+    ROADMAP C)."""
+    from repro_torch.core import Scheme
+    from repro_torch.core.graph import ConvT
+    return any(s in (Scheme.INW, Scheme.GRID2D) and l.conv_t == ConvT.FC
+               for l, (s, _) in zip(graph.layers, plan.steps))
+
+
+def run_plan_checked(dev, name, g, ws, x, ref, plan, errs):
+    """Phases 3 and 9's contract for one plan: the local executor's
+    segment programs (eager, captured, replayed) and the mesh's stage
+    programs (``overlap=False``; eager run recorded, captured, replayed),
+    each within TOL of the unpartitioned reference, each executor's runs
+    bit-equal, launches equal to ``kernel_records`` /
+    ``mesh_kernel_records``, ``ExecStats`` equal across the executors, no
+    fault counted, every recorded kernel call within TOL of its plain
+    version; then the warm replayed local run's wall and device busy
+    time."""
+    import torch
+    from repro_torch import ExecConfig, Session
+    from repro_torch.runtime import engine, mesh_exec
+
+    engine.clear_segment_cache()
+    mesh_exec.clear_mesh_program_cache()
+    want = kernel_records(g, plan, NODES)
+    want_counts = {"conv2d_shard": want[0], "matmul_tiled": want[1]}
+    local = Session(g, ws, plan, NODES, ExecConfig(backend="cuda",
+                                                   device=dev.type))
+    outs = []
+    for run in ("eager", "capture", "replay"):
+        zero_counts()
+        o, st_l = local.run(x)
+        torch.cuda.synchronize()
+        check_counts(f"{name} local ({run} run)", read_counts(), want_counts)
+        check(st_l.failure_count == 0, f"{name}: faults counted locally")
+        outs.append(o)
+    check(all(torch.equal(o, outs[0]) for o in outs),
+          f"{name}: local eager, capture and replay runs differ")
+    check(bool(torch.isfinite(outs[0]).all()), f"{name}: non-finite output")
+    e_local = rel_err(outs[0], ref)
+    check(e_local < TOL, f"{name}: local vs reference {e_local}")
+
+    want_m = mesh_kernel_records(g, plan, NODES, False)
+    want_counts = {"conv2d_shard": want_m[0], "matmul_tiled": want_m[1]}
+    sess = Session(g, ws, plan, NODES, ExecConfig(
+        backend="cuda", executor="mesh", overlap=False, device=dev.type))
+    wrappers = engine.conv2d_shard, engine.matmul_tiled
+    calls = {"conv2d_shard": [], "matmul_tiled": []}
+    mouts = []
+    for run in ("eager", "capture", "replay"):
+        zero_counts()
+        if run == "eager":
+            engine.conv2d_shard, engine.matmul_tiled = recorders(calls)
+        try:
+            o, st = sess.run(x)
+        finally:
+            engine.conv2d_shard, engine.matmul_tiled = wrappers
+        torch.cuda.synchronize()
+        check_counts(f"{name} mesh ({run} run)", read_counts(), want_counts)
+        check(st == st_l, f"{name} mesh: {run} run ExecStats {st} != the "
+                          f"local executor's {st_l}")
+        check(st.failure_count == 0, f"{name} mesh: {run} run counted "
+                                     f"{st.failure_count} faults")
+        mouts.append(o)
+    check(all(torch.equal(o, mouts[0]) for o in mouts),
+          f"{name}: mesh eager, capture and replay runs differ")
+    e_mesh = rel_err(mouts[0], ref)
+    check(e_mesh < TOL, f"{name}: mesh vs reference {e_mesh}")
+    n_rec = (len(calls["conv2d_shard"]), len(calls["matmul_tiled"]))
+    check(n_rec == tuple(want_m),
+          f"{name}: recorded {n_rec} calls, the plan's records {want_m}")
+    check_recorded(name, calls["conv2d_shard"], calls["matmul_tiled"], errs)
+    del calls
+    wall = spread(wall_ms(lambda: local.run(x), SESSION_REPS))
+    prof = device_profile(lambda: local.run(x), 3)
+    engine.clear_segment_cache()
+    mesh_exec.clear_mesh_program_cache()
+    return dict(wall=wall, prof=prof, err=(e_local, e_mesh), local=want,
+                mesh=tuple(want_m))
+
+
+def phase_gbdt(dev, rows, errs, card):
+    """Phase 12, the data-driven planner: GBDT estimators fit on the card
+    (against the port's CPU fit and the reference's quality gates), the
+    paper's 330K-trace estimator, its Fig. 7/9 row of six plans per model
+    run on the card, and phase 11's loop on learned costs."""
+    import io
+    import numpy as np
+    import torch
+    from repro_torch import AnalyticEstimator, Testbed, plan_search
+    from repro_torch.cluster import (CLUSTER_PRESETS,
+                                     ClusterAnalyticEstimator,
+                                     ClusterGBDTEstimator,
+                                     cluster_plan_search, homogeneous)
+    from repro_torch.configs.edge_models import (EDGE_MODELS, mobilenet_v1,
+                                                 resnet18)
+    from repro_torch.core import GBDTEstimator, Scheme, baselines
+    from repro_torch.core.graph import ConvT
+    from repro_torch.core.plan import plan_cost
+    from repro_torch.gbdt import GBDTRegressor
+    from repro_torch.sim import trace
+
+    t_phase = time.perf_counter()
+    n_samples, trees, depth, fraction = GBDT_BUDGET
+    # train_estimators' settings at this budget
+    kw = dict(n_estimators=trees, learning_rate=0.15, max_depth=depth)
+    cfgs = {"hom": trace.TraceConfig(n_samples=n_samples, seed=0),
+            "het": trace.hetero_trace_config(n_samples=n_samples, seed=0,
+                                             hetero_fraction=fraction)}
+    held = {"hom": trace.TraceConfig(n_samples=HELD_OUT, seed=99),
+            "het": trace.hetero_trace_config(n_samples=HELD_OUT, seed=99,
+                                             hetero_fraction=fraction)}
+    data, cpu, cpu_s = {}, {}, {}
+    t0 = time.perf_counter()
+    for kind, cfg in cfgs.items():
+        data[(kind, "i")] = trace.generate_i_traces(cfg) + (cfg.seed,)
+        data[(kind, "s")] = trace.generate_s_traces(cfg) + (cfg.seed + 7,)
+    trace_s = time.perf_counter() - t0
+    for key, (x, y, seed) in data.items():
+        t0 = time.perf_counter()
+        cpu[key] = GBDTRegressor(**kw, seed=seed, device="cpu").fit(x, y)
+        cpu_s[key] = time.perf_counter() - t0
+
+    # a. a CPU forest carried to the card through its npz file
+    buf = io.BytesIO()
+    cpu[("het", "i")].save(buf)
+    buf.seek(0)
+    moved = GBDTRegressor.load(buf, device=dev)
+    fresh, _ = trace.generate_i_traces(trace.hetero_trace_config(
+        n_samples=FRESH_ROWS, seed=1, hetero_fraction=fraction))
+    p_cpu = cpu[("het", "i")].predict(fresh)
+    t0 = time.perf_counter()
+    p_dev = moved.predict(fresh)
+    torch.cuda.synchronize()
+    p_dev_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    p_ref = moved.predict_reference(fresh)
+    ref_s = time.perf_counter() - t0
+    check(np.array_equal(p_dev, p_cpu), "a: device predict != CPU predict")
+    check(np.array_equal(p_dev, p_ref), "a: device predict != "
+                                        "predict_reference")
+    est_cpu = GBDTEstimator(cpu[("het", "i")], cpu[("het", "s")])
+    buf = io.BytesIO()
+    cpu[("het", "s")].save(buf)
+    buf.seek(0)
+    est_moved = GBDTEstimator(moved, GBDTRegressor.load(buf, device=dev))
+    cl4 = homogeneous(NODES, bandwidth_gbps=0.5)
+    ce_cpu = ClusterGBDTEstimator(est_cpu, cl4)
+    ce_dev = ClusterGBDTEstimator(est_moved, cl4)
+    tb4 = cl4.compat_testbed()
+    rng = np.random.default_rng(3)
+    n_scalar = 0
+    for _ in range(64):
+        layer = trace._random_layer(rng)
+        nxt = trace._random_layer(rng)
+        p, q = Scheme(int(rng.integers(0, 4))), Scheme(int(rng.integers(0, 4)))
+        halo = int(rng.integers(0, 3)) if p.spatial else 0
+        a = ce_dev.i_cost(layer, p, tb4, extra_halo=halo)
+        check(a == ce_cpu.i_cost(layer, p, tb4, extra_halo=halo),
+              "a: scalar i_cost differs between device and CPU forests")
+        b = ce_dev.s_cost(layer, nxt, p, q, tb4)
+        check(b == ce_cpu.s_cost(layer, nxt, p, q, tb4),
+              "a: scalar s_cost differs between device and CPU forests")
+        n_scalar += 2
+    xs_fresh, _ = trace.generate_s_traces(trace.hetero_trace_config(
+        n_samples=FRESH_ROWS, seed=1, hetero_fraction=fraction))
+    check(np.array_equal(est_moved.i_cost_batch(fresh, tb4),
+                         est_cpu.i_cost_batch(fresh, tb4))
+          and np.array_equal(est_moved.s_cost_batch(xs_fresh, tb4),
+                             est_cpu.s_cost_batch(xs_fresh, tb4)),
+          "a: batched costs differ between device and CPU forests")
+    print(f"phase 12a: a CPU-fit hetero i-forest ({trees} trees, depth "
+          f"{depth}, {n_samples} traces) saved as npz and loaded on the "
+          f"{dev.type}: predict on {FRESH_ROWS} fresh rows bit-equal to the "
+          f"CPU predict and to predict_reference (the host's scalar walk, "
+          f"{ref_s:.1f} s); device predict {p_dev_ms:.2f} ms for "
+          f"{FRESH_ROWS} rows (first call, a copy each way); "
+          f"GBDTEstimator / ClusterGBDTEstimator batched costs of "
+          f"{FRESH_ROWS} i- and s-rows and {n_scalar} scalar calls equal "
+          f"on both devices [{card}]", flush=True)
+
+    # b. device fits against the CPU fits, twice each
+    dev_fit, dev_s = {}, {}
+    for key, (x, y, seed) in data.items():
+        fits = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fits.append(GBDTRegressor(**kw, seed=seed, device=dev).fit(x, y))
+            torch.cuda.synchronize()
+            dev_s.setdefault(key, []).append(time.perf_counter() - t0)
+        check(flat_equal(fits[0], fits[1]),
+              f"b: two device fits of {key} differ")
+        dev_fit[key] = fits[0]
+    for key, model in dev_fit.items():
+        kind, which = key
+        gen = trace.generate_i_traces if which == "i" else \
+            trace.generate_s_traces
+        xh, yh = gen(held[kind])
+        r_dev = float(np.sqrt(np.mean((model.predict(xh) - yh) ** 2)))
+        r_cpu = float(np.sqrt(np.mean((cpu[key].predict(xh) - yh) ** 2)))
+        x, y, _ = data[key]
+        gap = max(float(np.max(np.abs(model.predict(xh)
+                                      - cpu[key].predict(xh)))),
+                  float(np.max(np.abs(model.predict(x)
+                                      - cpu[key].predict(x)))))
+        check(abs(r_dev - r_cpu) <= 0.01 * r_cpu,
+              f"b: {key} held-out RMSE {r_dev} vs the CPU fit's {r_cpu}")
+        print(f"phase 12b: {kind} {which}-forest ({x.shape[1]} features, "
+              f"{n_samples} traces, {trees} trees, depth {depth}): trees of "
+              f"equal structure {structure_share(model, cpu[key]) * 100:.1f}"
+              f"%, forests bit-equal "
+              f"{flat_equal(model, cpu[key])}; largest prediction gap "
+              f"{gap:.3g} (training and held-out rows); held-out RMSE "
+              f"(log-seconds, seed 99) device {r_dev:.6f} CPU {r_cpu:.6f}; "
+              f"fit device {dev_s[key][0]:.2f} s and {dev_s[key][1]:.2f} s "
+              f"(two fits, bit-equal), CPU version {cpu_s[key]:.2f} s "
+              f"[{card}]", flush=True)
+    het = GBDTEstimator(dev_fit[("het", "i")], dev_fit[("het", "s")])
+    hom = GBDTEstimator(dev_fit[("hom", "i")], dev_fit[("hom", "s")])
+    print(f"phase 12b: traces {trace_s:.1f} s for 4 x {n_samples} on the "
+          f"host [{card}]", flush=True)
+
+    # c. benchmarks/estimator_quality.py's gates on the device forests
+    committed = json.loads(BENCH_ESTIMATOR.read_text())["presets"]
+    graphs = (("mobilenet", mobilenet_v1(QUALITY_RES)),
+              ("resnet18", resnet18(QUALITY_RES)))
+    for preset in QUALITY_PRESETS:
+        het_r, hom_r = [], []
+        for _, g in graphs:
+            for n in QUALITY_NODES:
+                cl = CLUSTER_PRESETS[preset](n)
+                tb = cl.compat_testbed()
+                oracle = cluster_plan_search(g, cl)
+                ae = ClusterAnalyticEstimator(cl)
+                ce = ClusterGBDTEstimator(het, cl)
+                het_r.append(plan_cost(g, cluster_plan_search(
+                    g, cl, estimator=ce).plan, ae, tb) / oracle.cost)
+                hom_r.append(plan_cost(g, plan_search(g, hom, tb).plan, ae,
+                                       tb) / oracle.cost)
+        h, m = float(np.mean(het_r)), float(np.mean(hom_r))
+        check(h <= 1.05, f"c: {preset}: hetero ratio {h} > 1.05")
+        check(h < m, f"c: {preset}: hetero ratio {h} !< hom ratio {m}")
+        c = committed[preset]
+        print(f"phase 12c: {preset}: mean plan-cost/oracle over "
+              f"{len(het_r)} cells: hetero-trained {h:.4f} (committed "
+              f"BENCH_estimator.json {c['hetero_oracle_ratio']:.4f}), "
+              f"homogeneous-trained {m:.4f} (committed "
+              f"{c['hom_oracle_ratio']:.4f}); hetero_within_5pct True, "
+              f"hetero_beats_hom True [{card}]", flush=True)
+
+    # d. the paper's scale
+    with Stopwatch(trace, "generate_i_traces") as ti, \
+            Stopwatch(trace, "generate_s_traces") as ts, \
+            Stopwatch(GBDTRegressor, "fit") as tf:
+        est = trace.train_estimators(trace.TraceConfig(
+            n_samples=PAPER_SAMPLES), device=dev)
+        torch.cuda.synchronize()
+    per_tree_row = (cpu_s[("hom", "i")] + cpu_s[("hom", "s")]) / \
+        (2 * trees * n_samples)
+    cpu_est = per_tree_row * 2 * 120 * PAPER_SAMPLES
+    ratios = {}
+    tb = Testbed(nodes=4, bandwidth_gbps=1.0)
+    for name in ("mobilenet", "resnet18", "bert"):
+        g = EDGE_MODELS[name]()
+        true = plan_cost(g, plan_search(g, est, tb).plan,
+                         AnalyticEstimator(), tb)
+        ratios[name] = true / plan_search(g, AnalyticEstimator(), tb).cost
+    check(ratios["mobilenet"] <= 1.30,
+          f"d: the 330K GBDT plan for MobileNet is {ratios['mobilenet']}x "
+          f"the analytic optimum")
+    print(f"phase 12d: train_estimators(TraceConfig()): {PAPER_SAMPLES} i- "
+          f"and s-traces in {ti.seconds + ts.seconds:.1f} s on the host, two "
+          f"forests (120 trees, lr 0.15, depth 7) fit on the {dev.type} in "
+          f"{tf.seconds:.1f} s; the CPU version's time per tree-row in b "
+          f"scaled to 2 x 120 trees x {PAPER_SAMPLES} rows estimates "
+          f"{cpu_est:.0f} s for the same fits (an estimate, not a run); "
+          f"GBDT plan priced by the analytic estimator over the analytic "
+          f"optimum on Testbed(4, 1.0 Gbps): mobilenet "
+          f"{ratios['mobilenet']:.4f} (<= 1.30), resnet18 "
+          f"{ratios['resnet18']:.4f}, bert {ratios['bert']:.4f} [{card}]",
+          flush=True)
+
+    # e. Fig. 7/9's row on the card: the six solutions of each model
+    tb = Testbed(nodes=NODES, bandwidth_gbps=0.5)
+    for row in rows:
+        name = row["model"]
+        g, ws, x, _, _, _, ref, _ = row["mesh_inputs"]
+        sols = baselines.all_solutions(g, est, tb)
+        est_t, ana_t, wall_t = {}, {}, {}
+        for col, (plan, cost) in sols.items():
+            est_t[col] = cost
+            ana_t[col] = plan_cost(g, plan, AnalyticEstimator(), tb)
+            what = (f"phase 12e: {name} {col} ({scheme_counts(plan)}): "
+                    f"GBDT estimate {cost * 1e3:.4f} ms, analytic "
+                    f"{ana_t[col] * 1e3:.4f} ms")
+            if cuts_fc_columns(g, plan):
+                print(f"{what}; not run: an INW or GRID2D step on an FC "
+                      f"layer, which the reference cannot execute (ROADMAP "
+                      f"C) [{card}]", flush=True)
+                continue
+            r = run_plan_checked(dev, f"{name} {col}", g, ws, x, ref, plan,
+                                 errs)
+            wall_t[col] = r["wall"][0]
+            n_dw = sum(1 for l, (s, _) in zip(g.layers, plan.steps)
+                       if s == Scheme.OUTC and l.conv_t == ConvT.DWCONV)
+            note = (f"; {n_dw} OutC depthwise layers run at {NODES}x their "
+                    f"work (ROADMAP B 12)" if n_dw else "")
+            print(f"{what}; launches local {r['local']} mesh {r['mesh']} == "
+                  f"kernel_records / mesh_kernel_records, err vs reference "
+                  f"local {r['err'][0]:.3g} mesh {r['err'][1]:.3g}, "
+                  f"ExecStats equal, no fault; warm replayed local "
+                  f"Session.run {r['wall'][0]:.3f} ms (range "
+                  f"{r['wall'][1]:.3f}-{r['wall'][2]:.3f}), "
+                  f"{profile_text(*r['prof'][:3], r['wall'][0])}{note} "
+                  f"[{card}]", flush=True)
+        scores = [("GBDT estimate", baselines.performance_scores(est_t)),
+                  ("analytic", baselines.performance_scores(ana_t)),
+                  ("card wall", baselines.performance_scores(wall_t))]
+        print(f"phase 12e: {name} performance_scores (min/t): " + "; ".join(
+            f"{label} " + ", ".join(f"{k} {v:.3f}" for k, v in sc.items())
+            for label, sc in scores) + f" [{card}]", flush=True)
+
+    # f. phase 11's loop on learned costs (ResNet-18)
+    row = next(r for r in rows if r["model"] == "resnet18")
+    ce = ClusterGBDTEstimator(het, homogeneous(NODES, bandwidth_gbps=0.5))
+    out = phase_refine(dev, row, errs, card, estimator=ce, tag="phase 12f")
+    ana = row.get("refine")
+    if ana is not None:
+        same = "the same plan" if out["plan"] == ana["plan"] else \
+            "another plan"
+        print(f"phase 12f: resnet18 refine on the GBDT frontier "
+              f"({out['frontier']} points, steps {out['points']}, "
+              f"converged={out['converged']}, {out['rps']:.1f} runs/s) "
+              f"beside the analytic frontier's ({ana['frontier']} points, "
+              f"steps {ana['points']}, converged={ana['converged']}, "
+              f"{ana['rps']:.1f} runs/s): {same} [{card}]", flush=True)
+    for r in rows:
+        r.pop("mesh_inputs")
+    print(f"phase 12: {time.perf_counter() - t_phase:.1f} s [{card}]",
           flush=True)
 
 
@@ -1852,7 +2287,8 @@ def run(dev) -> dict:
         phase_mesh(dev, row, errs, card)
     phase_mesh_decode(dev, dec, card)
     for row in rows:
-        phase_refine(dev, row, errs, card)
+        row["refine"] = phase_refine(dev, row, errs, card)
+    phase_gbdt(dev, rows, errs, card)
 
     meta = {
         "conv2d_shard": ("src/repro_torch/kernels/csrc/conv2d_shard.cu",

@@ -33,14 +33,24 @@ copies:
     out, stats = Session(graph, weights, res.plan, 4,
                          ExecConfig(executor="mesh")).run(x)
 
+The paper's data-driven loop — traces, GBDT estimators fit on the card,
+DPP on learned costs — and the §4 baselines it is compared against:
+
+    est = train_estimators(TraceConfig())         # 330K traces, 120 trees
+    res = plan_search(graph, est, Testbed(nodes=4))
+    rows = baselines.all_solutions(graph, est, Testbed(nodes=4))
+
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for ``device="cpu"``.  Deeper layers stay importable from the subpackages
-``repro_torch.core``, ``repro_torch.kernels``, ``repro_torch.runtime``,
+``repro_torch.core``, ``repro_torch.gbdt``, ``repro_torch.sim``,
+``repro_torch.cluster``, ``repro_torch.kernels``, ``repro_torch.runtime``,
 ``repro_torch.launch`` and ``repro_torch.configs``.
 """
-from repro_torch.core import (AnalyticEstimator, Mode, Plan, Scheme,
-                              Testbed, fixed_plan, plan_search)
+from repro_torch.core import (AnalyticEstimator, GBDTEstimator, Mode, Plan,
+                              Scheme, Testbed, baselines, exhaustive_search,
+                              fixed_plan, plan_search)
 from repro_torch.launch import make_nodes_mesh
+from repro_torch.sim import TraceConfig, train_estimators
 from repro_torch.runtime import (EXECUTORS, DecodeSession, ExecConfig,
                                  ExecStats, PagedKVCache, Session,
                                  TransformerSpec,
@@ -58,5 +68,6 @@ __all__ = [
     "TransformerSpec", "PagedKVCache", "decode_graph", "prefill_graph",
     "init_transformer", "transformer_weights_from_numpy",
     "reference_decode", "greedy_decode", "plan_decode", "EXECUTORS",
-    "make_nodes_mesh",
+    "make_nodes_mesh", "GBDTEstimator", "exhaustive_search", "baselines",
+    "TraceConfig", "train_estimators",
 ]

@@ -26,10 +26,13 @@ Throughput planning refined on the mesh executor's measured occupancy::
     rr = refine_with_simulator(graph, cl, occupancy_fn=measure,
                                calibrator=OnlineCalibrator(cl))
 
+Planning on learned costs: ``estimator=ClusterGBDTEstimator(est, cl)``
+with ``est`` from ``repro_torch.sim.train_estimators(
+hetero_trace_config())``.
+
 A trimmed copy of the JAX package's ``repro.cluster``: the elastic
-planner and the churn scenarios (``elastic.py``, ``churn.py``), the
-learned ``ClusterGBDTEstimator`` and the simulator's trace export are
-left out.
+planner and the churn scenarios (``elastic.py``, ``churn.py``) and the
+simulator's trace export are left out.
 """
 from __future__ import annotations
 
@@ -42,7 +45,7 @@ from repro_torch.core.partition import ALL_SCHEMES, Scheme
 
 from .calibrate import (CalibrationSample, OnlineCalibrator,
                         fold_queueing_delay)
-from .estimator import ClusterAnalyticEstimator
+from .estimator import ClusterAnalyticEstimator, ClusterGBDTEstimator
 from .refine import (RefineOscillationError, RefineResult, RefineStep,
                      refine_with_simulator)
 from .serving import (DecodeServingReport, ServingPoint, choose_batch,
@@ -68,8 +71,10 @@ def cluster_plan_search(graph: ModelGraph, cluster: ClusterSpec,
     fractions on the same silicon — the homogeneous-assumption baseline.
     ``objective`` selects the serving objective (single-shot latency,
     pipelined throughput, or p99-bounded throughput).  ``estimator``
-    overrides the analytic cluster estimator (it must be bound to the same
-    cluster; the testbed check enforces the projection)."""
+    overrides the analytic cluster estimator — pass a
+    :class:`ClusterGBDTEstimator` bound to this cluster to plan on
+    learned costs (it must be bound to the same cluster; the testbed
+    check enforces the projection)."""
     est = estimator if estimator is not None else \
         ClusterAnalyticEstimator(cluster, weighted=weighted)
     return plan_search(graph, est, cluster.compat_testbed(), schemes=schemes,
@@ -90,8 +95,8 @@ def cluster_pipeline_frontier(graph: ModelGraph, cluster: ClusterSpec,
     loop refinement.  Pass ``prune_ub=False`` when the frontier will be
     re-weighted (``refine_with_simulator``), ``ub_cost`` to reuse an
     already-computed latency optimum (see ``core.pipeline_frontier``),
-    ``estimator`` to build the frontier on another batched estimator bound
-    to this cluster."""
+    ``estimator`` to build the frontier on learned costs
+    (:class:`ClusterGBDTEstimator`) instead of the analytic model."""
     est = estimator if estimator is not None else \
         ClusterAnalyticEstimator(cluster, weighted=weighted)
     return pipeline_frontier(graph, est, cluster.compat_testbed(),
@@ -102,8 +107,9 @@ def cluster_pipeline_frontier(graph: ModelGraph, cluster: ClusterSpec,
 
 __all__ = [
     "CLUSTER_PRESETS", "CalibrationSample", "ClusterAnalyticEstimator",
-    "ClusterSpec", "DecodeServingReport", "DeviceSpec", "LinkSpec",
-    "Objective", "OnlineCalibrator", "PlanFrontier",
+    "ClusterGBDTEstimator", "ClusterSpec", "DecodeServingReport",
+    "DeviceSpec", "LinkSpec", "Objective", "OnlineCalibrator",
+    "PlanFrontier",
     "RefineOscillationError", "RefineResult", "RefineStep", "ServingPoint",
     "SimReport", "Stage", "asym_uplink", "build_stages", "choose_batch",
     "cluster_pipeline_frontier", "cluster_plan_search",

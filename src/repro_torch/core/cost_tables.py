@@ -8,8 +8,14 @@ the scalar protocol would have returned (the estimator guarantees bit-parity
 between its scalar and batched paths), so any search driven from them
 reproduces the scalar reference bit for bit.
 
-A trimmed copy of the JAX package's ``core/cost_tables.py``: the metrics
-pushes and dedup counters and ``PrefetchedEstimator`` are left out.
+Two consumers: ``repro_torch.core.dpp`` (the chain DP over the ``seg``
+tensor, per-branch tables for DAG composition, the frontier DP) and
+:class:`PrefetchedEstimator`, a ``CostEstimator`` view for code that walks
+plans scalar-wise (the exhaustive oracle, the fixed-plan baselines).
+
+A trimmed copy of the JAX package's ``core/cost_tables.py``: the
+``repro.obs`` metrics pushes and the dedup counters wait for the port of
+``repro.obs`` (ROADMAP A 6.2).
 """
 from __future__ import annotations
 
@@ -20,10 +26,23 @@ import numpy as np
 
 from .cost import Testbed
 from .estimator import CostEstimator, i_features, s_features
-from .graph import LayerSpec, halo_growth
-from .partition import Scheme, min_shard_extent
+from .graph import LayerSpec, ModelGraph, halo_growth
+from .partition import ALL_SCHEMES, Scheme, min_shard_extent
 
 _INF = float("inf")
+
+
+def _i_key(layer: LayerSpec, scheme: Scheme, halo: int) -> tuple:
+    """Cache key of one scalar i-query (shared by prefetch fill + lookup)."""
+    return (layer, scheme, halo)
+
+
+def _s_key(layer: LayerSpec, nxt: Optional[LayerSpec], src: Scheme,
+           dst: Optional[Scheme]) -> tuple:
+    """Cache key of one scalar s-query: ``nxt`` enters only through
+    ``(k, fan_in, conv_t)`` — all the feature expression reads from it."""
+    return (layer, None if nxt is None else (nxt.k, nxt.fan_in, nxt.conv_t),
+            src, dst)
 
 
 class CostTableBuilder:
@@ -303,3 +322,127 @@ def plan_chain_tables(ls: Sequence[LayerSpec], registry: CostTableBuilder,
         return ChainTables(tuple(schemes), seg, sbound, s_final, halo_cuts)
 
     return finalize
+
+
+def build_chain_tables(ls: Sequence[LayerSpec], est: CostEstimator,
+                       tb: Testbed, schemes: Sequence[Scheme],
+                       max_segment: int, allow_fusion: bool,
+                       with_final: bool = True
+                       ) -> Tuple[ChainTables, int, int]:
+    """One-chain convenience wrapper: returns ``(tables, i_rows, s_rows)``
+    evaluated in a single pair of batched estimator calls."""
+    builder = CostTableBuilder(est, tb)
+    fin = plan_chain_tables(ls, builder, schemes, max_segment, allow_fusion,
+                            tb.nodes, with_final)
+    ivals, svals = builder.evaluate()
+    return fin(ivals, svals), builder.i_entries, builder.s_entries
+
+
+class PrefetchedEstimator:
+    """``CostEstimator`` view that answers scalar queries from one batched
+    prefetch over everything a plan on ``graph`` could ask.
+
+    Used by consumers that still walk plans one cost at a time — the
+    exhaustive oracle scoring thousands of candidate plans, and the
+    fixed-plan baselines — so their per-query cost drops to a dict lookup.
+    Unknown queries fall back to the wrapped estimator (and are cached), so
+    the view is always exact.
+    """
+
+    def __init__(self, est: CostEstimator, tb: Testbed):
+        self._est = est
+        self._i: Dict[tuple, float] = {}
+        self._s: Dict[tuple, float] = {}
+        # plain-int hit/miss counters (the scalar path is called in the
+        # oracle's innermost loop; read them via cache_info())
+        self.hits = 0
+        self.misses = 0
+
+    @classmethod
+    def for_graph(cls, graph: ModelGraph, est: CostEstimator, tb: Testbed,
+                  schemes: Sequence[Scheme] = ALL_SCHEMES,
+                  allow_fusion: bool = True) -> CostEstimator:
+        """Prefetch every i/s query reachable by a feasible plan: all
+        non-degenerate segments of every branch, all internal boundaries,
+        every junction delivery, and the final gather.  Estimators without
+        the batched protocol are returned unwrapped (scalar semantics may
+        depend on more than the feature expression, e.g. layer names)."""
+        if not hasattr(est, "i_cost_batch"):
+            return est
+        self = cls(est, tb)
+        builder = CostTableBuilder(est, tb)
+        layers = graph.layers
+        i_keys: List[Tuple[tuple, int]] = []
+        s_keys: List[Tuple[tuple, int]] = []
+
+        def reg_s(layer, nxt, src, dst):
+            s_keys.append((_s_key(layer, nxt, src, dst),
+                           builder.s_index(layer, nxt, src, dst)))
+
+        for br in graph.linearize():
+            ls = [layers[i] for i in br.ids]
+            n = len(ls)
+            cap = n if allow_fusion else 1
+            for _, pi, queries, _ in admissible_segments(ls, schemes,
+                                                         tb.nodes, cap):
+                p = schemes[pi]
+                for q in queries:
+                    for m, halo in q:
+                        i_keys.append((_i_key(ls[m], p, halo),
+                                       builder.i_index(ls[m], p, halo)))
+            for b in range(n - 1):
+                for p in schemes:
+                    for q in schemes:
+                        reg_s(ls[b], ls[b + 1], p, q)
+            tail = ls[-1]
+            consumers = graph.consumer_ids[br.ids[-1]]
+            if not consumers:
+                for p in schemes:
+                    reg_s(tail, None, p, None)
+            for c in consumers:
+                for p in schemes:
+                    for q in schemes:
+                        reg_s(tail, layers[c], p, q)
+
+        ivals, svals = builder.evaluate()
+        for key, idx in i_keys:
+            self._i[key] = float(ivals[idx])
+        for key, idx in s_keys:
+            self._s[key] = float(svals[idx])
+        return self
+
+    # ---- CostEstimator protocol ------------------------------------------
+    def i_cost(self, layer: LayerSpec, scheme: Scheme, tb: Testbed,
+               extra_halo: int = 0) -> float:
+        key = _i_key(layer, scheme, extra_halo)
+        hit = self._i.get(key)
+        if hit is None:
+            self.misses += 1
+            hit = self._est.i_cost(layer, scheme, tb, extra_halo=extra_halo)
+            self._i[key] = hit
+        else:
+            self.hits += 1
+        return hit
+
+    def s_cost(self, layer: LayerSpec, nxt: Optional[LayerSpec], src: Scheme,
+               dst: Optional[Scheme], tb: Testbed) -> float:
+        key = _s_key(layer, nxt, src, dst)
+        hit = self._s.get(key)
+        if hit is None:
+            self.misses += 1
+            hit = self._est.s_cost(layer, nxt, src, dst, tb)
+            self._s[key] = hit
+        else:
+            self.hits += 1
+        return hit
+
+    def cache_info(self) -> Tuple[int, int]:
+        """(hits, misses) of the scalar lookup path."""
+        return (self.hits, self.misses)
+
+    def i_cost_batch(self, X: np.ndarray, tb: Testbed,
+                     flop_factor: Optional[np.ndarray] = None) -> np.ndarray:
+        return self._est.i_cost_batch(X, tb, flop_factor)
+
+    def s_cost_batch(self, X: np.ndarray, tb: Testbed) -> np.ndarray:
+        return self._est.s_cost_batch(X, tb)

@@ -26,19 +26,25 @@ consecutive fork/merge points, which covers residual blocks and
 Inception-style modules; arbitrary multi-source or nested-fork DAGs raise
 ``ValueError``.
 
-Every i-/s-cost the DP can touch is precomputed through ``core.cost_tables``
-in one batched ``i_cost_batch`` + one ``s_cost_batch`` estimator call, and
-the chain DP runs as numpy reductions over the scheme axis.  The batched DP
-replicates the scalar tie-breaking (first minimum wins in ``b`` then ``q``
-order), so it returns the JAX package's plans and costs bit for bit.
+Two drivers share that search structure:
+
+* :func:`plan_search` — the production path.  Every i-/s-cost the DP can
+  touch is precomputed through ``core.cost_tables`` in one batched
+  ``i_cost_batch`` + one ``s_cost_batch`` estimator call, and the chain DP
+  runs as numpy reductions over the scheme axis.
+* :func:`plan_search_reference` — the scalar-call implementation, kept as
+  the parity oracle and the path of scalar-only estimators.  The batched
+  DP replicates the scalar tie-breaking (first minimum wins in ``b`` then
+  ``q`` order), so both return the JAX package's plans and costs bit for
+  bit.
 
 The throughput objectives (``THROUGHPUT``, ``P99_BOUNDED``) run an exact
 Pareto-frontier DP over (compute, sync) occupancy pairs from the same tables
-(:func:`pipeline_frontier`).
+(:func:`pipeline_frontier`), or from scalar-call providers for scalar-only
+estimators.
 
-A trimmed copy of the JAX package's ``core/dpp.py``: the scalar reference
-search, the scalar-call providers and the tracing spans are left out, so
-every search needs a batched estimator.
+A copy of the JAX package's ``core/dpp.py``; its ``repro.obs`` tracing
+spans wait for the port of ``repro.obs`` (ROADMAP A 6.2).
 """
 from __future__ import annotations
 
@@ -53,8 +59,8 @@ from .cost import Testbed
 from .cost_tables import (CostTableBuilder, pareto_front_2d, pareto_front_nd,
                           plan_chain_tables)
 from .estimator import CostEstimator
-from .graph import ModelGraph
-from .partition import ALL_SCHEMES, Mode, Scheme
+from .graph import ModelGraph, halo_growth
+from .partition import ALL_SCHEMES, Mode, Scheme, min_shard_extent
 from .plan import Plan, PipelineCost
 
 _INF = float("inf")
@@ -82,8 +88,8 @@ def pipeline_objective_key(compute_s: float, sync_s: float,
                            objective: "Objective",
                            latency_bound_s: Optional[float] = None) -> tuple:
     """Total order over (compute, sync) cost pairs for one objective —
-    shared by the DP's frontier selection and the JAX package's
-    exhaustive oracle, so both break ties identically.
+    shared by the DP's frontier selection and the exhaustive oracle, so
+    both sides break ties identically.
 
     ``P99_BOUNDED`` sorts feasible plans (latency within the bound) before
     infeasible ones; when no plan is feasible both sides therefore degrade
@@ -121,13 +127,6 @@ class SearchResult:
     pipeline: Optional[PipelineCost] = None
 
 
-def _require_batched(est: CostEstimator) -> None:
-    if not hasattr(est, "i_cost_batch"):
-        raise TypeError(
-            f"{type(est).__name__} lacks i_cost_batch/s_cost_batch; the "
-            f"port's planner runs only batched estimators")
-
-
 def plan_search(graph: ModelGraph, est: CostEstimator, tb: Testbed,
                 schemes: Sequence[Scheme] = ALL_SCHEMES,
                 max_segment: int = 32,
@@ -138,21 +137,25 @@ def plan_search(graph: ModelGraph, est: CostEstimator, tb: Testbed,
     restricts to all-T plans (the layerwise baseline); ``schemes``
     restricted to one scheme with fusion on gives the fused-layer baseline.
     Dispatches to the per-branch DAG composition when the graph is not a
-    chain.
+    chain.  Under the default objective, returns the same plan and cost as
+    :func:`plan_search_reference`, bit for bit.
 
     Throughput objectives (``THROUGHPUT``, ``P99_BOUNDED``) run the exact
     Pareto-frontier DP over (compute, sync) occupancy pairs from the same
     tables (see :func:`pipeline_frontier`); ``cost`` is then the pipeline
     bottleneck time and ``latency_bound_s`` feeds the P99 constraint.
 
-    The estimator must implement the batched protocol
-    (``BatchedCostEstimator``); the tables assume its costs are determined
-    by the feature expression."""
-    _require_batched(est)
+    The batched tables assume the estimator is determined by the feature
+    expression (the ``i_cost_batch`` contract).  Estimators that only
+    implement the scalar protocol — e.g. oracles keyed on layer *names* —
+    run scalar-call providers with identical search semantics."""
     if objective != Objective.LATENCY:
         fr = pipeline_frontier(graph, est, tb, schemes, max_segment,
                                allow_fusion)
         return fr.search_result(objective, latency_bound_s)
+    if not hasattr(est, "i_cost_batch"):
+        return plan_search_reference(graph, est, tb, schemes, max_segment,
+                                     allow_fusion)
     if not graph.is_chain:
         return _dag_plan_search_batched(graph, est, tb, tuple(schemes),
                                         max_segment, allow_fusion)
@@ -237,7 +240,8 @@ def _threshold_prunes(seg: np.ndarray, S: np.ndarray) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Per-branch chain DP with pinned boundary layouts (the DAG search's unit).
+# Shared per-branch chain DP with pinned boundary layouts (used by both the
+# batched and reference DAG drivers — only the cost lookups differ).
 # ---------------------------------------------------------------------------
 
 def _pinned_chain_dp(n: int, schemes: Tuple[Scheme, ...],
@@ -295,6 +299,62 @@ def _pinned_chain_dp(n: int, schemes: Tuple[Scheme, ...],
                     cp = qi
             tables[(pi, ti)] = (S[0][pi], tuple(steps))
     return tables
+
+
+def _scalar_chain_tables(ls, icost, scost, schemes, max_segment,
+                         allow_fusion, head_solo, nodes, stats):
+    """Reference (scalar-call) segment/boundary providers + pinned DP."""
+    seg_costs, bound_cost = _scalar_chain_providers(
+        ls, icost, scost, schemes, max_segment, allow_fusion, head_solo,
+        nodes, stats)
+    return _pinned_chain_dp(len(ls), schemes, seg_costs, bound_cost, stats)
+
+
+def _scalar_chain_providers(ls, icost, scost, schemes, max_segment,
+                            allow_fusion, head_solo, nodes, stats):
+    """Scalar-call ``(seg_costs, bound_cost)`` providers of one chain —
+    the per-query counterpart of :class:`ChainTables` (same admissibility
+    rules, same scalar accumulation order), shared by the reference DP and
+    the scalar-estimator frontier paths."""
+    n = len(ls)
+
+    # Segment and boundary costs are identical across the k tail pins, so
+    # compute each once (lazily) and share them between the per-tail DPs.
+    seg_cache: Dict[Tuple[int, int], List[Tuple[int, float]]] = {}
+    bound_cache: Dict[Tuple[int, int, int], float] = {}
+
+    def seg_costs(i: int, pi: int) -> List[Tuple[int, float]]:
+        hit = seg_cache.get((i, pi))
+        if hit is not None:
+            return hit
+        p = schemes[pi]
+        out: List[Tuple[int, float]] = []
+        seg_hi = min(i + max_segment, n) if allow_fusion else i + 1
+        if head_solo and i == 0:
+            seg_hi = i + 1
+        for b in range(i, seg_hi):
+            if b > i and not p.spatial:
+                break
+            halos = halo_growth(ls[i:b + 1], b - i)
+            if b > i and 2 * halos[0] >= min_shard_extent(ls[i], p, nodes):
+                stats.pruned_halo += 1
+                break
+            segcost = 0.0
+            for off, m in enumerate(range(i, b + 1)):
+                segcost += icost(ls[m], p, halos[off] if b > i else 0)
+            out.append((b, segcost))
+        seg_cache[(i, pi)] = out
+        return out
+
+    def bound_cost(b: int, pi: int, qi: int) -> float:
+        key = (b, pi, qi)
+        hit = bound_cache.get(key)
+        if hit is None:
+            hit = scost(ls[b], ls[b + 1], schemes[pi], schemes[qi])
+            bound_cache[key] = hit
+        return hit
+
+    return seg_costs, bound_cost
 
 
 # ---------------------------------------------------------------------------
@@ -611,6 +671,113 @@ def _dag_plan_search_batched(graph: ModelGraph, est: CostEstimator,
     def jscost(prod: int, cons: Optional[int], pi: int,
                qi: Optional[int]) -> float:
         return float(svals[jidx[(prod, cons, pi, qi)]])
+
+    return _dag_compose(graph, schemes, btable, jscost, stats)
+
+
+# ---------------------------------------------------------------------------
+# Reference (scalar-call) driver — kept as the parity/benchmark oracle.
+# ---------------------------------------------------------------------------
+
+def plan_search_reference(graph: ModelGraph, est: CostEstimator, tb: Testbed,
+                          schemes: Sequence[Scheme] = ALL_SCHEMES,
+                          max_segment: int = 32,
+                          allow_fusion: bool = True) -> SearchResult:
+    """Scalar-call DPP: one ``est.i_cost``/``est.s_cost`` invocation per
+    sample.  Semantically identical to :func:`plan_search`; retained as the
+    exactness oracle and the benchmark baseline."""
+    if not graph.is_chain:
+        return _dag_plan_search_reference(graph, est, tb, tuple(schemes),
+                                          max_segment, allow_fusion)
+    layers = graph.layers
+    n = len(layers)
+    k = len(schemes)
+    stats = SearchStats()
+
+    S: List[List[float]] = [[_INF] * k for _ in range(n + 1)]
+    # choice[i][pi] = (segment_end_b, next_scheme_index or -1)
+    choice: List[List[Tuple[int, int]]] = [[(-1, -1)] * k for _ in range(n + 1)]
+
+    for i in range(n - 1, -1, -1):
+        for pi, p in enumerate(schemes):
+            best, best_choice = _INF, (-1, -1)
+            stats.states += 1
+            seg_hi = min(i + max_segment, n) if allow_fusion else i + 1
+            for b in range(i, seg_hi):
+                if b > i and not p.spatial:
+                    break  # OutC cannot fuse (NT undefined)
+                halos = halo_growth(layers[i:b + 1], b - i)
+                if b > i and 2 * halos[0] >= min_shard_extent(
+                        layers[i], p, tb.nodes):
+                    stats.pruned_halo += 1
+                    break  # halo degenerated into replication
+                segcost = 0.0
+                for off, m in enumerate(range(i, b + 1)):
+                    segcost += est.i_cost(layers[m], p, tb,
+                                          extra_halo=halos[off] if b > i else 0)
+                    stats.i_calls += 1
+                if segcost >= best:
+                    stats.pruned_threshold += 1
+                    break  # dynamic threshold: monotone in b
+                if b == n - 1:
+                    stats.s_calls += 1
+                    c = segcost + est.s_cost(layers[b], None, p, None, tb)
+                    if c < best:
+                        best, best_choice = c, (b, -1)
+                else:
+                    for qi, q in enumerate(schemes):
+                        if S[b + 1][qi] == _INF:
+                            continue
+                        stats.s_calls += 1
+                        c = (segcost
+                             + est.s_cost(layers[b], layers[b + 1], p, q, tb)
+                             + S[b + 1][qi])
+                        if c < best:
+                            best, best_choice = c, (b, qi)
+            S[i][pi] = best
+            choice[i][pi] = best_choice
+
+    pi = min(range(k), key=lambda j: S[0][j])
+    total = S[0][pi]
+    steps: List[Tuple[Scheme, Mode]] = []
+    i = 0
+    while i < n:
+        b, qi = choice[i][pi]
+        p = schemes[pi]
+        for m in range(i, b + 1):
+            steps.append((p, Mode.NT if m < b else Mode.T))
+        i = b + 1
+        if qi >= 0:
+            pi = qi
+    return SearchResult(plan=Plan(tuple(steps)), cost=total, stats=stats)
+
+
+def _dag_plan_search_reference(graph: ModelGraph, est: CostEstimator,
+                               tb: Testbed, schemes: Tuple[Scheme, ...],
+                               max_segment: int,
+                               allow_fusion: bool) -> SearchResult:
+    stats = SearchStats()
+    layers = graph.layers
+
+    def icost(l, p, halo=0):
+        stats.i_calls += 1
+        return est.i_cost(l, p, tb, extra_halo=halo)
+
+    def scost(l, nxt, s, d):
+        stats.s_calls += 1
+        return est.s_cost(l, nxt, s, d, tb)
+
+    branches = graph.linearize()
+
+    def btable(t: int, head_solo: bool):
+        ls = [layers[i] for i in branches[t].ids]
+        return _scalar_chain_tables(ls, icost, scost, schemes, max_segment,
+                                    allow_fusion, head_solo, tb.nodes, stats)
+
+    def jscost(prod: int, cons: Optional[int], pi: int,
+               qi: Optional[int]) -> float:
+        return scost(layers[prod], None if cons is None else layers[cons],
+                     schemes[pi], None if qi is None else schemes[qi])
 
     return _dag_compose(graph, schemes, btable, jscost, stats)
 
@@ -1264,9 +1431,9 @@ def pipeline_frontier(graph: ModelGraph, est: CostEstimator, tb: Testbed,
                       prune_ub: bool = True) -> PlanFrontier:
     """Exact (compute, sync) Pareto frontier of all valid plans.
 
-    The estimator must implement the batched protocol: it evaluates
-    through one ``i_cost_batch`` + ``s_cost_batch`` table build (the
-    latency DP's tables, reused).
+    Batched estimators evaluate through one ``i_cost_batch`` +
+    ``s_cost_batch`` table build (the latency DP's tables, reused);
+    scalar-only estimators run the same search from per-query providers.
 
     ``prune_ub=True`` trims partial pairs against the latency optimum —
     exact for the unscaled objectives and what ``plan_search`` uses; pass
@@ -1276,8 +1443,9 @@ def pipeline_frontier(graph: ModelGraph, est: CostEstimator, tb: Testbed,
     keeps the complete nondominated set (no pre-search at all) — needed
     when ``select`` will re-weight the axes (see ``cluster.refine``).
     """
-    _require_batched(est)
     schemes_t = tuple(schemes)
+    k = len(schemes_t)
+    stats = SearchStats()
     if not prune_ub:
         ub = _INF
     else:
@@ -1287,8 +1455,97 @@ def pipeline_frontier(graph: ModelGraph, est: CostEstimator, tb: Testbed,
             ub_cost = plan_search(graph, est, tb, schemes_t, max_segment,
                                   allow_fusion).cost
         ub = ub_cost * (1.0 + 1e-12)
-    # the registration/evaluation/DP split (one fresh instance here; an
-    # incremental replanner holds onto one across cluster events)
-    ft = FrontierTables.register(graph, est, tb, schemes_t, max_segment,
-                                 allow_fusion)
-    return ft.frontier(*ft.evaluate(), ub=ub)
+    if hasattr(est, "i_cost_batch"):
+        # batched estimators route through the registration/evaluation/DP
+        # split (one fresh instance here; an incremental replanner holds
+        # onto one across cluster events for incremental rebuilds)
+        ft = FrontierTables.register(graph, est, tb, schemes_t, max_segment,
+                                     allow_fusion)
+        return ft.frontier(*ft.evaluate(), ub=ub)
+
+    if graph.is_chain:
+        n = len(graph)
+        ls = list(graph.layers)
+
+        def icost(l, p, halo=0):
+            stats.i_calls += 1
+            return est.i_cost(l, p, tb, extra_halo=halo)
+
+        def scost(l, nxt, s, d):
+            stats.s_calls += 1
+            return est.s_cost(l, nxt, s, d, tb)
+
+        seg_options, bound = _scalar_chain_providers(
+            ls, icost, scost, schemes_t, max_segment, allow_fusion,
+            False, tb.nodes, stats)
+        fin_cache: Dict[int, float] = {}
+
+        def final(pi: int) -> float:
+            hit = fin_cache.get(pi)
+            if hit is None:
+                hit = scost(ls[-1], None, schemes_t[pi], None)
+                fin_cache[pi] = hit
+            return hit
+
+        F = _chain_frontier(n, k, seg_options, bound, final, ub, stats)
+        roots = []
+        As, Bs = [], []
+        for pi in range(k):
+            if F[0][pi] is None:
+                continue
+            fs = F[0][pi]
+            for j in range(len(fs.a)):
+                As.append(float(fs.a[j]))
+                Bs.append(float(fs.b[j]))
+                roots.append((pi, j))
+        if not roots:
+            raise RuntimeError(f"{graph.name}: no feasible plan found")
+        a = np.asarray(As)
+        b = np.asarray(Bs)
+        keep = pareto_front_2d(a, b, ub)
+        points = np.stack([a[keep], b[keep]], axis=1)
+        kept = [roots[int(j)] for j in keep]
+
+        def build(idx: int) -> Plan:
+            pi, j = kept[idx]
+            return _chain_plan_from(F, schemes_t, pi, j)
+
+        return PlanFrontier(schemes_t, points, stats, build)
+
+    # ---- DAG (scalar-only estimators) -------------------------------------
+    layers = graph.layers
+    branches = graph.linearize()
+
+    def icost(l, p, halo=0):
+        stats.i_calls += 1
+        return est.i_cost(l, p, tb, extra_halo=halo)
+
+    def scost(l, nxt, s, d):
+        stats.s_calls += 1
+        return est.s_cost(l, nxt, s, d, tb)
+
+    ptab_memo2: Dict[Tuple[int, bool], Dict] = {}
+
+    def ptable(t: int, head_solo: bool):
+        hit = ptab_memo2.get((t, head_solo))
+        if hit is not None:
+            return hit
+        ls = [layers[i] for i in branches[t].ids]
+        seg_costs, bound_cost = _scalar_chain_providers(
+            ls, icost, scost, schemes_t, max_segment, allow_fusion,
+            head_solo, tb.nodes, stats)
+        out = _pinned_pareto_tables(len(ls), schemes_t, seg_costs,
+                                    bound_cost, ub, stats)
+        ptab_memo2[(t, head_solo)] = out
+        return out
+
+    def jscost(prod: int, cons: Optional[int], pi: int,
+               qi: Optional[int]) -> float:
+        return scost(layers[prod],
+                     None if cons is None else layers[cons],
+                     schemes_t[pi],
+                     None if qi is None else schemes_t[qi])
+
+    points, build = _dag_pipeline_frontier(graph, schemes_t, ptable, jscost,
+                                           ub, stats)
+    return PlanFrontier(schemes_t, points, stats, build)

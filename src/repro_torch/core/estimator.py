@@ -13,12 +13,19 @@ src, dst, next_K, next_fan_in, next_conv_t`` for s-.  Rows may append
 the :data:`HETERO_FEATURE_NAMES` per-cluster capability summary after the
 exact homogeneous prefix.
 
-A trimmed copy of the JAX package's ``core/estimator.py``: the data-driven
-``GBDTEstimator`` and its prediction caches are left out.
+:class:`GBDTEstimator` is the paper's data-driven estimator: two GBDT
+regressors (``repro_torch.gbdt``, forests on the card unless fit or loaded
+with ``device="cpu"``) trained on traces from ``repro_torch.sim.trace``;
+they predict log-seconds, and the estimator takes ``np.exp`` on the host
+after one copy back, so its costs equal the JAX package's whenever the
+forests' predictions do.
+
+A copy of the JAX package's ``core/estimator.py``.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Protocol, Sequence
+from collections import OrderedDict
+from typing import List, Optional, Protocol, Sequence, Tuple
 
 import numpy as np
 
@@ -31,8 +38,10 @@ from .partition import Scheme
 class CostEstimator(Protocol):
     """Scalar estimator protocol — the minimum every estimator provides.
 
-    The planner additionally needs the batched entry points of
-    :class:`BatchedCostEstimator`."""
+    Estimators may additionally implement :class:`BatchedCostEstimator`;
+    consumers feature-test with ``hasattr(est, "i_cost_batch")`` and fall
+    back to scalar-call paths otherwise (scalar-only estimators may depend
+    on information outside the feature expression, e.g. layer names)."""
 
     def i_cost(self, layer: LayerSpec, scheme: Scheme, tb: Testbed,
                extra_halo: int = 0) -> float: ...
@@ -89,7 +98,7 @@ class AnalyticEstimator:
 def i_features(layer: LayerSpec, scheme: Scheme, tb: Testbed,
                extra_halo: int,
                hetero: Optional[Sequence[float]] = None) -> List[float]:
-    """17-column i-feature row; ``hetero`` (a :func:`testbed_summary`-style
+    """17-column i-feature row; ``hetero`` (a :func:`hetero_summary`
     list) appends the per-cluster capability columns after the exact
     homogeneous prefix."""
     row = [*layer.feature_vector(), tb.bandwidth_gbps, float(tb.topology),
@@ -123,6 +132,9 @@ S_FEATURE_NAMES = ["InH", "InW", "InC", "OutH", "OutW", "OutC", "K", "S", "P",
 #: per-cluster capability summary appended by the hetero-aware expression
 HETERO_FEATURE_NAMES = ["CapMin", "CapMean", "CapMax", "LinkRatio",
                         "LatClass"]
+N_HETERO_FEATURES = len(HETERO_FEATURE_NAMES)
+I_FEATURE_NAMES_HETERO = I_FEATURE_NAMES + HETERO_FEATURE_NAMES
+S_FEATURE_NAMES_HETERO = S_FEATURE_NAMES + HETERO_FEATURE_NAMES
 
 
 def latency_class(latency_us: float) -> float:
@@ -137,9 +149,129 @@ def latency_class(latency_us: float) -> float:
     return 2.0
 
 
+def hetero_summary(capability_weights: Sequence[float],
+                   link_bandwidths_gbps: Sequence[float],
+                   max_latency_us: float) -> List[float]:
+    """Per-cluster capability summary columns (:data:`HETERO_FEATURE_NAMES`).
+
+    ``capability_weights`` is ``gflops * eff_derate`` per device
+    (``ClusterSpec.capability_weights``) — the summary carries each
+    device's *share* of the total, so the columns are scale-free:
+    a uniform cluster reads ``(1/n, 1/n, 1/n, 1.0, class)``.  Plain
+    sequences keep ``core`` import-cycle free of ``repro_torch.cluster``.
+    """
+    w = np.asarray(capability_weights, np.float64)
+    if w.size == 0 or np.any(w <= 0.0):
+        raise ValueError("capability weights must be positive")
+    shares = w / w.sum()
+    bws = np.asarray(link_bandwidths_gbps, np.float64)
+    ratio = float(bws.min() / bws.max()) if bws.size else 1.0
+    return [float(shares.min()), float(shares.mean()), float(shares.max()),
+            ratio, latency_class(max_latency_us)]
+
+
 def testbed_summary(tb: Testbed) -> List[float]:
-    """Capability summary (:data:`HETERO_FEATURE_NAMES`) of the uniform
-    cluster a ``Testbed`` describes — what homogeneous trace rows carry in
-    a hetero-width matrix."""
+    """:func:`hetero_summary` of the uniform cluster a ``Testbed``
+    describes — what homogeneous trace rows carry in a hetero-width
+    matrix."""
     share = 1.0 / tb.nodes
     return [share, share, share, 1.0, latency_class(tb.link_latency_us)]
+
+
+class _LRUCache:
+    """Bounded scalar-prediction cache (plain LRU on an ``OrderedDict``).
+
+    The scalar estimator paths key on ``(layer, scheme, tb, ...)`` tuples;
+    a long-lived serving process sees an unbounded stream of distinct
+    testbeds/layers, so the cache must evict."""
+
+    __slots__ = ("maxsize", "hits", "misses", "_data")
+
+    def __init__(self, maxsize: int):
+        if maxsize < 1:
+            raise ValueError(f"cache maxsize must be >= 1, got {maxsize}")
+        self.maxsize = maxsize
+        self.hits = 0
+        self.misses = 0
+        self._data: "OrderedDict" = OrderedDict()
+
+    def __len__(self) -> int:
+        return len(self._data)
+
+    def get(self, key) -> Optional[float]:
+        hit = self._data.get(key)
+        if hit is None:
+            self.misses += 1
+            return None
+        self._data.move_to_end(key)
+        self.hits += 1
+        return hit
+
+    def put(self, key, value: float) -> None:
+        self._data[key] = value
+        if len(self._data) > self.maxsize:
+            self._data.popitem(last=False)
+
+    def clear(self) -> None:
+        self._data.clear()
+
+
+class GBDTEstimator:
+    """Data-driven CE backed by two trained GBDT regressors (log-seconds).
+
+    The scalar protocol memoizes per-query predictions in LRU caches
+    bounded at ``cache_size`` entries each (the batched protocol never
+    touches them); ``cache_info()`` mirrors
+    ``cost_tables.PrefetchedEstimator``.  A scalar call walks the forest
+    for one row (a few dozen small launches on a device forest): the
+    planner's tables and the oracles' prefetch use the batched calls."""
+
+    def __init__(self, i_model, s_model, cache_size: int = 4096):
+        self.i_model = i_model
+        self.s_model = s_model
+        self._i_cache = _LRUCache(cache_size)
+        self._s_cache = _LRUCache(cache_size)
+
+    def cache_info(self) -> Tuple[int, int]:
+        """(hits, misses) of the scalar lookup paths, both caches."""
+        return (self._i_cache.hits + self._s_cache.hits,
+                self._i_cache.misses + self._s_cache.misses)
+
+    def clear_cache(self) -> None:
+        self._i_cache.clear()
+        self._s_cache.clear()
+
+    def i_cost(self, layer: LayerSpec, scheme: Scheme, tb: Testbed,
+               extra_halo: int = 0) -> float:
+        key = (layer, scheme, tb, extra_halo)
+        hit = self._i_cache.get(key)
+        if hit is None:
+            x = np.asarray([i_features(layer, scheme, tb, extra_halo)],
+                           dtype=np.float64)
+            hit = float(np.exp(self.i_model.predict(x)[0]))
+            self._i_cache.put(key, hit)
+        return hit
+
+    def s_cost(self, layer: LayerSpec, nxt: Optional[LayerSpec], src: Scheme,
+               dst: Optional[Scheme], tb: Testbed) -> float:
+        key = (layer,
+               None if nxt is None else (nxt.k, nxt.fan_in, nxt.conv_t),
+               src, dst, tb)
+        hit = self._s_cache.get(key)
+        if hit is None:
+            x = np.asarray([s_features(layer, nxt, src, dst, tb)],
+                           dtype=np.float64)
+            hit = float(np.exp(self.s_model.predict(x)[0]))
+            self._s_cache.put(key, hit)
+        return hit
+
+    def i_cost_batch(self, X: np.ndarray, tb: Testbed,
+                     flop_factor: Optional[np.ndarray] = None
+                     ) -> np.ndarray:
+        """One forest pass for the whole matrix (``flop_factor`` is not part
+        of the learned feature expression and is ignored, exactly as the
+        scalar path ignores it)."""
+        return np.exp(self.i_model.predict(np.asarray(X, np.float64)))
+
+    def s_cost_batch(self, X: np.ndarray, tb: Testbed) -> np.ndarray:
+        return np.exp(self.s_model.predict(np.asarray(X, np.float64)))

@@ -129,14 +129,26 @@ def test_searched_plan_feasibility_matches(name):
             j_plan_feasible(gj, pj, nodes)
 
 
-def test_plan_search_rejects_scalar_only_estimator():
-    class ScalarOnly:
-        def i_cost(self, *a, **k):
-            return 1.0
+def test_plan_search_runs_a_scalar_only_estimator_as_the_reference():
+    """An estimator with only ``i_cost``/``s_cost`` takes the scalar
+    search, ``plan_search_reference``: the JAX package's plan, cost and
+    call counts on the chain and the DAG models."""
+    from repro.core.dpp import plan_search_reference as j_reference
 
-        def s_cost(self, *a, **k):
-            return 1.0
+    def scalar(base):
+        class ScalarOnly:
+            def i_cost(self, *a, **k):
+                return base.i_cost(*a, **k)
 
-    g = T_MODELS["bert"](**MODEL_TEST_KW["bert"])
-    with pytest.raises(TypeError, match="i_cost_batch"):
-        plan_search(g, ScalarOnly(), TorchTestbed(nodes=2))
+            def s_cost(self, *a, **k):
+                return base.s_cost(*a, **k)
+        return ScalarOnly()
+
+    for name in ("bert", "mobilenet", "inception"):
+        gj, gt = _graphs(name, "test")
+        res = plan_search(gt, scalar(AnalyticEstimator()),
+                          TorchTestbed(nodes=2))
+        ref = j_reference(gj, scalar(JEstimator()), JTestbed(nodes=2))
+        assert _steps(res.plan) == _steps(ref.plan)
+        assert res.cost == ref.cost
+        assert vars(res.stats) == vars(ref.stats)

@@ -90,21 +90,45 @@ def test_frontier_tables_split_matches():
             ft.evaluate(svals=sv[:-1])
 
 
-def test_frontier_refuses_a_scalar_only_estimator():
-    class Scalar:
-        def i_cost(self, *a, **k):
-            return 1.0
+def test_frontier_of_a_scalar_only_estimator_matches_the_reference():
+    """An estimator with only ``i_cost``/``s_cost`` takes the scalar
+    providers: its frontier (pruned and full) and its throughput search
+    are the JAX package's scalar frontier and search, and equal the
+    batched estimator's; P99_BOUNDED still needs its bound."""
+    from repro.core import AnalyticEstimator as JEstimator
+    from repro.core import Testbed as JTestbed
+    from repro.core.dpp import Objective as JObjective
+    from repro.core.dpp import pipeline_frontier as j_pipeline_frontier
+    from repro.core.dpp import plan_search as j_plan_search
 
-        def s_cost(self, *a, **k):
-            return 1.0
+    def scalar(base):
+        class Scalar:
+            def i_cost(self, *a, **k):
+                return base.i_cost(*a, **k)
 
+            def s_cost(self, *a, **k):
+                return base.s_cost(*a, **k)
+        return Scalar()
+
+    for name in ("mobilenet", "inception"):
+        gj, g = graphs(name, "test")
+        tb, jtb = TorchTestbed(nodes=2), JTestbed(nodes=2)
+        for kw in (dict(prune_ub=True), dict(prune_ub=False)):
+            fr = pipeline_frontier(g, scalar(AnalyticEstimator()), tb, **kw)
+            jfr = j_pipeline_frontier(gj, scalar(JEstimator()), jtb, **kw)
+            batched = pipeline_frontier(g, AnalyticEstimator(), tb, **kw)
+            assert np.array_equal(fr.points, jfr.points)
+            assert np.allclose(fr.points, batched.points, rtol=1e-12,
+                               atol=0)
+            assert [steps(fr.plan(i)) for i in range(len(fr))] == \
+                [steps(jfr.plan(i)) for i in range(len(jfr))]
+        res = plan_search(g, scalar(AnalyticEstimator()), tb,
+                          objective=Objective.THROUGHPUT)
+        jres = j_plan_search(gj, scalar(JEstimator()), jtb,
+                             objective=JObjective.THROUGHPUT)
+        assert steps(res.plan) == steps(jres.plan) and res.cost == jres.cost
     g = graphs("mobilenet", "test")[1]
     tb = TorchTestbed(nodes=2)
-    for kw in (dict(prune_ub=True), dict(prune_ub=False)):
-        with pytest.raises(TypeError, match="batched estimators"):
-            pipeline_frontier(g, Scalar(), tb, **kw)
-    with pytest.raises(TypeError, match="batched estimators"):
-        plan_search(g, Scalar(), tb, objective=Objective.THROUGHPUT)
     with pytest.raises(ValueError, match="latency_bound_s"):
         plan_search(g, AnalyticEstimator(), tb,
                     objective=Objective.P99_BOUNDED)

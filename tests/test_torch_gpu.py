@@ -1221,3 +1221,116 @@ def test_refine_on_measured_card_occupancy(cuda, name):
     for scales in (dict(compute_scale=1e6), dict(sync_scale=1e6)):
         measure(fr.plan(fr.select(Objective.THROUGHPUT, **scales)))
     clear_mesh_program_cache()
+
+
+# ---------------------------------------------------------------------------
+# the GBDT cost estimator on the card
+# ---------------------------------------------------------------------------
+
+def _gbdt_toy(n, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-2, 2, size=(n, 5))
+    y = (np.sin(x[:, 0]) + 0.5 * x[:, 1] ** 2 + (x[:, 2] > 0) * x[:, 3]
+         + 0.05 * rng.normal(size=n))
+    return x, y
+
+
+def _flat_equal(a, b) -> bool:
+    return a.base_ == b.base_ and len(a.trees_) == len(b.trees_) and all(
+        np.array_equal(p, q) for ta, tb in zip(a.trees_, b.trees_)
+        for p, q in zip(ta.flat(), tb.flat()))
+
+
+def test_gbdt_device_predict_bit_equals_cpu_predict(cuda):
+    from repro_torch.gbdt import GBDTRegressor
+    x, y = _gbdt_toy(3000, 0)
+    cpu = GBDTRegressor(n_estimators=30, max_depth=7, device="cpu").fit(x, y)
+    dev = GBDTRegressor.from_arrays(cpu.base_, cpu.learning_rate,
+                                    [t.flat() for t in cpu.trees_],
+                                    cpu.n_features_, device=cuda)
+    xt, _ = _gbdt_toy(5000, 1)
+    want = cpu.predict(xt)
+    assert np.array_equal(dev.predict(xt), want)
+    assert np.array_equal(dev.predict_reference(xt), want)
+    assert np.array_equal(dev.predict(xt[:1]), want[:1])
+    assert dev.predict(xt[:0]).shape == (0,)
+    t = dev.predict(torch.from_numpy(xt).to(cuda))
+    assert t.device.type == cuda.type
+    assert np.array_equal(t.cpu().numpy(), want)
+    for tree_c, tree_d in zip(cpu.trees_, dev.trees_):
+        got = tree_d.predict(torch.from_numpy(xt).to(cuda)).cpu().numpy()
+        assert np.array_equal(got, tree_c.predict(torch.from_numpy(xt))
+                              .numpy())
+
+
+def test_gbdt_device_fits_are_deterministic(cuda):
+    """Two fits of the same data on the card give the same forest bit for
+    bit (the histograms reduce by sort and segment, no atomics), its
+    held-out error is the CPU fit's within 1%, and numpy-order node sums
+    are the CPU's to the bit."""
+    from repro_torch.gbdt import GBDTRegressor
+    from repro_torch.gbdt.tree import segment_sums
+    x, y = _gbdt_toy(20000, 2)
+    kw = dict(n_estimators=20, max_depth=7, seed=3)
+    a = GBDTRegressor(device=cuda, **kw).fit(x, y)
+    b = GBDTRegressor(device=cuda, **kw).fit(x, y)
+    assert _flat_equal(a, b)
+    cpu = GBDTRegressor(device="cpu", **kw).fit(x, y)
+    xt, yt = _gbdt_toy(4000, 4)
+    rmse = [float(np.sqrt(np.mean((m.predict(xt) - yt) ** 2)))
+            for m in (a, cpu)]
+    assert abs(rmse[0] - rmse[1]) <= 0.01 * rmse[1], rmse
+    v = torch.from_numpy(np.random.default_rng(5).normal(size=(40000, 2)))
+    counts = [1, 7, 129, 8192, 8193, 20000, 3478]
+    assert torch.equal(segment_sums(v.to(cuda), counts).cpu(),
+                       segment_sums(v, counts))
+
+
+def test_gbdt_default_device_is_the_card(cuda):
+    from repro_torch.gbdt import GBDTRegressor, RegressionTree
+    from repro_torch.sim import TraceConfig, train_estimators
+    assert GBDTRegressor().device.type == "cuda"
+    assert RegressionTree().device.type == "cuda"
+    est = train_estimators(TraceConfig(n_samples=1500, seed=1),
+                           gbdt_kwargs=dict(n_estimators=4, max_depth=4))
+    for m in (est.i_model, est.s_model):
+        assert m.device.type == "cuda"
+        assert all(a.device.type == "cuda" for t in m.trees_
+                   for a in t.arrays)
+
+
+def test_gbdt_estimator_refuses_nothing_on_device_forests(cuda):
+    """Scalar and batched calls, the batched and the scalar searches, the
+    cluster estimator and the baselines all run on forests on the card
+    and price exactly as the same forests on the CPU."""
+    from repro_torch.cluster import (ClusterGBDTEstimator,
+                                     cluster_plan_search, mixed_fast_slow)
+    from repro_torch.core import (GBDTEstimator, baselines,
+                                  plan_search_reference)
+    from repro_torch.gbdt import GBDTRegressor
+    from repro_torch.sim import hetero_trace_config, train_estimators
+    est = train_estimators(hetero_trace_config(n_samples=3000, seed=0),
+                           gbdt_kwargs=dict(n_estimators=12, max_depth=6))
+
+    def on_cpu(m):
+        return GBDTRegressor.from_arrays(m.base_, m.learning_rate,
+                                         [t.flat() for t in m.trees_],
+                                         m.n_features_, device="cpu")
+
+    cpu = GBDTEstimator(on_cpu(est.i_model), on_cpu(est.s_model))
+    cl = mixed_fast_slow(4)
+    ce, ce_cpu = ClusterGBDTEstimator(est, cl), ClusterGBDTEstimator(cpu, cl)
+    g = EDGE_MODELS["mobilenet"](**SMALL["mobilenet"])
+    tb = cl.compat_testbed()
+    for a, b in ((cluster_plan_search(g, cl, estimator=ce),
+                  cluster_plan_search(g, cl, estimator=ce_cpu)),
+                 (plan_search_reference(g, ce, tb),
+                  plan_search_reference(g, ce_cpu, tb))):
+        assert a.plan == b.plan and a.cost == b.cost
+    layer = g.layers[1]
+    assert ce.i_cost(layer, Scheme.INH, tb) == ce_cpu.i_cost(layer,
+                                                             Scheme.INH, tb)
+    sols = baselines.all_solutions(g, ce, tb)
+    sols_cpu = baselines.all_solutions(g, ce_cpu, tb)
+    assert {k: v[1] for k, v in sols.items()} == \
+        {k: v[1] for k, v in sols_cpu.items()}
