@@ -67,7 +67,27 @@ seeds:
   layer's columns prints its estimate and does not run: the reference
   cannot run it either); (f) phase 11's loop for ResNet-18 on the GBDT
   frontier.  One H100 driven by one host is not the paper's edge
-  cluster: the scores of (e) are not its Fig. 7/9.
+  cluster: the scores of (e) are not its Fig. 7/9;
+* observability and the elastic planner (phase 13) — (a) phase 3's
+  models, plans and weights on the mesh with ``instrument=True``, overlap
+  on and off, under a ``repro_torch.obs`` tracer: the control-track stage
+  spans one to one with ``ExecStats.stage_times`` and a device span per
+  node completion, the traced eager, capturing and replaying runs (and a
+  traced replay of programs captured untraced) bit-equal to the untraced
+  ones; the Perfetto JSON and metrics snapshot written to
+  ``build/traces/`` and loaded back, the plan's simulated timeline
+  (``simsched.simulate_trace``) diffed against the measured one, the
+  measured-over-simulated skew per stage kind, where the run's host time
+  goes, and the warm run with tracing off and on in turns; (b) a fault
+  that one retry absorbs and a watchdog far below one stage's wall on the
+  card (the ``stage_retry`` record and ``retry:`` instant; exactly one
+  timeout postmortem), each followed by an ordinary run under phase 9's
+  contract; (c) MobileNet's planner spans and cost-table dedup counters,
+  and phase 11's ``refine.*`` gauges; (d) ``compare_strategies`` on
+  MobileNet-224 over the reference churn benchmark's gated presets and
+  scenarios (seed 0) with the reference's structural claims, and every
+  distinct plan the incremental and scratch strategies adopt run on the
+  mesh at its live node count under phases 3 and 9's contract.
 
 All four kernels' launch counters are zeroed just before each path's run
 and read just after: they must equal the launches the plan (or the case
@@ -1904,25 +1924,26 @@ def cuts_fc_columns(graph, plan) -> bool:
                for l, (s, _) in zip(graph.layers, plan.steps))
 
 
-def run_plan_checked(dev, name, g, ws, x, ref, plan, errs):
-    """Phases 3 and 9's contract for one plan: the local executor's
-    segment programs (eager, captured, replayed) and the mesh's stage
-    programs (``overlap=False``; eager run recorded, captured, replayed),
-    each within TOL of the unpartitioned reference, each executor's runs
-    bit-equal, launches equal to ``kernel_records`` /
+def run_plan_checked(dev, name, g, ws, x, ref, plan, errs, nodes=NODES,
+                     timed=True):
+    """Phases 3 and 9's contract for one plan on ``nodes`` nodes: the
+    local executor's segment programs (eager, captured, replayed) and the
+    mesh's stage programs (``overlap=False``; eager run recorded,
+    captured, replayed), each within TOL of the unpartitioned reference,
+    each executor's runs bit-equal, launches equal to ``kernel_records`` /
     ``mesh_kernel_records``, ``ExecStats`` equal across the executors, no
     fault counted, every recorded kernel call within TOL of its plain
-    version; then the warm replayed local run's wall and device busy
-    time."""
+    version; then, if ``timed``, the warm replayed local run's wall and
+    device busy time."""
     import torch
     from repro_torch import ExecConfig, Session
     from repro_torch.runtime import engine, mesh_exec
 
     engine.clear_segment_cache()
     mesh_exec.clear_mesh_program_cache()
-    want = kernel_records(g, plan, NODES)
+    want = kernel_records(g, plan, nodes)
     want_counts = {"conv2d_shard": want[0], "matmul_tiled": want[1]}
-    local = Session(g, ws, plan, NODES, ExecConfig(backend="cuda",
+    local = Session(g, ws, plan, nodes, ExecConfig(backend="cuda",
                                                    device=dev.type))
     outs = []
     for run in ("eager", "capture", "replay"):
@@ -1938,9 +1959,9 @@ def run_plan_checked(dev, name, g, ws, x, ref, plan, errs):
     e_local = rel_err(outs[0], ref)
     check(e_local < TOL, f"{name}: local vs reference {e_local}")
 
-    want_m = mesh_kernel_records(g, plan, NODES, False)
+    want_m = mesh_kernel_records(g, plan, nodes, False)
     want_counts = {"conv2d_shard": want_m[0], "matmul_tiled": want_m[1]}
-    sess = Session(g, ws, plan, NODES, ExecConfig(
+    sess = Session(g, ws, plan, nodes, ExecConfig(
         backend="cuda", executor="mesh", overlap=False, device=dev.type))
     wrappers = engine.conv2d_shard, engine.matmul_tiled
     calls = {"conv2d_shard": [], "matmul_tiled": []}
@@ -1969,8 +1990,10 @@ def run_plan_checked(dev, name, g, ws, x, ref, plan, errs):
           f"{name}: recorded {n_rec} calls, the plan's records {want_m}")
     check_recorded(name, calls["conv2d_shard"], calls["matmul_tiled"], errs)
     del calls
-    wall = spread(wall_ms(lambda: local.run(x), SESSION_REPS))
-    prof = device_profile(lambda: local.run(x), 3)
+    wall = prof = None
+    if timed:
+        wall = spread(wall_ms(lambda: local.run(x), SESSION_REPS))
+        prof = device_profile(lambda: local.run(x), 3)
     engine.clear_segment_cache()
     mesh_exec.clear_mesh_program_cache()
     return dict(wall=wall, prof=prof, err=(e_local, e_mesh), local=want,
@@ -2233,14 +2256,618 @@ def phase_gbdt(dev, rows, errs, card):
               f"beside the analytic frontier's ({ana['frontier']} points, "
               f"steps {ana['points']}, converged={ana['converged']}, "
               f"{ana['rps']:.1f} runs/s): {same} [{card}]", flush=True)
-    for r in rows:
-        r.pop("mesh_inputs")
     print(f"phase 12: {time.perf_counter() - t_phase:.1f} s [{card}]",
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: observability on the card, and the elastic planner under churn
+# ---------------------------------------------------------------------------
+
+#: where phase 13 writes its Perfetto traces and metrics snapshots
+#: (git-ignored, under /build/)
+TRACE_DIR = ROOT / "build" / "traces"
+#: the reference's churn benchmark's gated presets and scenarios
+#: (benchmarks/churn_bench.py GATED_PRESETS, GATED_SCENARIOS, SEED)
+CHURN_PRESETS = ("stepped", "mixed_fast_slow")
+CHURN_SCENARIOS = ("mixed", "flap")
+CHURN_SEED = 0
+
+
+def check_trace(what, tracer, st, nodes) -> int:
+    """The control-track ``stage`` spans of ``tracer`` mirror
+    ``st.stage_times`` one to one (count, labels, kinds, order, walls) and
+    its ``device`` spans are as many as the stages' node completions, on
+    the nodes' tracks; returns the number of device spans."""
+    from repro_torch import obs
+    spans = tracer.spans(cat=obs.STAGE_CAT, track=obs.CONTROL_TRACK)
+    check(len(spans) == len(st.stage_times) > 0,
+          f"{what}: {len(spans)} stage spans for {len(st.stage_times)} "
+          f"measured stages")
+    check([(s["name"], s["args"]["kind"], s["dur"]) for s in spans]
+          == [(t.label, t.kind, t.wall_s * 1e6) for t in st.stage_times],
+          f"{what}: the stage spans differ from ExecStats.stage_times")
+    dev = tracer.spans(cat="device")
+    n_done = sum(len(t.device_done_s) for t in st.stage_times)
+    check(len(dev) == n_done and {s["track"] for s in dev}
+          <= {obs.device_track(d) for d in range(nodes)},
+          f"{what}: {len(dev)} device spans for {n_done} node completions")
+    return len(dev)
+
+
+def host_split(tracer, st):
+    """Where a traced run's host time goes, from its stage spans (ms):
+    the card's work inside the stages (each compute stage's last node
+    done; a sync stage has none), the rest of the stage walls (launch or
+    replay, copies, the synchronise of ``instrument``), the host between
+    stages, and the run's wall."""
+    from repro_torch import obs
+    spans = tracer.spans(cat=obs.STAGE_CAT, track=obs.CONTROL_TRACK)
+    walls = sum(t.wall_s for t in st.stage_times) * 1e3
+    done = sum(max(t.device_done_s) for t in st.stage_times
+               if t.device_done_s) * 1e3
+    gaps = sum(max(0.0, b["ts"] - a["ts"] - a["dur"])
+               for a, b in zip(spans, spans[1:])) / 1e3
+    return dict(stages=walls, device=done, in_stage=walls - done,
+                between=gaps, wall=st.wall_s * 1e3, n=len(spans))
+
+
+def mesh_runs(dev, what, sess, x, want, ref, st_local, errs, traced):
+    """The eager (kernel calls recorded and held against plain), capturing
+    and replaying runs of a mesh session, each under a tracer of its own
+    if ``traced``: launches equal ``want``, within TOL of ``ref``,
+    ``ExecStats`` equal the local run's, no fault, and with a tracer the
+    spans one to one.  Returns the outputs, stats and tracers."""
+    import torch
+    from repro_torch import obs
+    from repro_torch.runtime import engine
+    wrappers = engine.conv2d_shard, engine.matmul_tiled
+    want_counts = {"conv2d_shard": want[0], "matmul_tiled": want[1]}
+    calls = {"conv2d_shard": [], "matmul_tiled": []}
+    outs, stats, tracers = [], [], []
+    for run in ("eager", "capture", "replay"):
+        w = f"{what} ({'traced' if traced else 'untraced'} {run} run)"
+        tr = obs.set_tracer(obs.Tracer()) if traced else None
+        zero_counts()
+        if run == "eager":
+            engine.conv2d_shard, engine.matmul_tiled = recorders(calls)
+        try:
+            o, st = sess.run(x)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+        finally:
+            engine.conv2d_shard, engine.matmul_tiled = wrappers
+            obs.set_tracer(None)
+        check_counts(w, read_counts(), want_counts)
+        check(st == st_local, f"{w}: ExecStats {st} != the local run's")
+        check(st.failure_count == 0, f"{w}: {st.failure_count} faults")
+        e = rel_err(o, ref)
+        check(e < TOL, f"{w}: vs reference {e}")
+        if traced:
+            check_trace(w, tr, st, sess.nodes)
+        outs.append(o)
+        stats.append(st)
+        tracers.append(tr)
+    n_rec = (len(calls["conv2d_shard"]), len(calls["matmul_tiled"]))
+    check(n_rec == tuple(want), f"{what}: recorded {n_rec} calls, the "
+                                f"plan's records {want}")
+    check_recorded(what, calls["conv2d_shard"], calls["matmul_tiled"], errs)
+    return outs, stats, tracers
+
+
+def sim_structure(graph, loaded, validated):
+    """Whether the measured (pid 1) and simulated (pid 2) stage spans of
+    one loaded trace match (``obs.diff_traces``).  On a DAG they may
+    differ only by the two equivalences ``validate_stage_decomposition``
+    applies (the measured ``reshard`` stages, the simulator's ``bound@``
+    stages a merge subsumes) and by order where the simulator runs
+    parallel branches at once and the mesh one after another."""
+    from repro_torch import obs
+    d = obs.diff_traces(loaded, loaded, measured_pid=1, simulated_pid=2)
+    if d["structure_match"]:
+        return d, "structure_match"
+    if graph.is_chain:
+        return d, "mismatch"
+    subsumed = {label for _, label in validated["subsumed"]}
+    same = (validated["structure_match"]
+            and set(d["only_measured"]) <= {"reshard"}
+            and set(d["only_simulated"]) <= subsumed)
+    return d, ("the same stages up to reshard, the subsumed merges and "
+               "the order of parallel branches" if same else "mismatch")
+
+
+def phase_traced_mesh(dev, row, errs, card):
+    """13a: one phase-3 model's plan on the mesh with ``instrument=True``,
+    overlap on and off: untraced eager, capturing and replaying runs, one
+    traced replay of the programs captured untraced, then traced eager,
+    capturing and replaying runs after clearing the programs: all six
+    outputs bit-equal, ``ExecStats`` equal to the local run's, no fault,
+    launches equal to ``mesh_kernel_records``, every eager kernel call
+    within TOL of plain, every traced run's spans one to one with its
+    ``stage_times``.  Writes the traced replay (with the plan's simulated
+    timeline for overlap off) to TRACE_DIR, loads it back, diffs the two
+    timelines, prints the measured-over-simulated skew per kind, where the
+    host time goes, and the warm run with tracing off and on in turns."""
+    import torch
+    from repro_torch import (AnalyticEstimator, ExecConfig, Session,
+                             Testbed, obs, plan_search)
+    from repro_torch.cluster import build_stages, homogeneous, simulate_trace
+    from repro_torch.runtime import mesh_exec
+
+    name = row["model"]
+    g, ws, x, plan, _, st_local, ref, _ = row["mesh_inputs"]
+    cl = homogeneous(NODES, bandwidth_gbps=0.5)
+    # what a user does first: plan, here under a tracer and metrics
+    tr_plan = obs.set_tracer(obs.Tracer())
+    mx = obs.set_metrics(obs.Metrics())
+    try:
+        res = plan_search(g, AnalyticEstimator(),
+                          Testbed(nodes=NODES, bandwidth_gbps=0.5))
+    finally:
+        obs.set_tracer(None)
+        obs.set_metrics(None)
+    check(res.plan == plan, f"{name}: plan_search differs from phase 3's")
+    mx.export(str(TRACE_DIR / f"{name}.metrics.json"))
+    out = {}
+    for overlap in (True, False):
+        what = f"{name} mesh overlap={overlap} instrument=True"
+        want = mesh_kernel_records(g, plan, NODES, overlap)
+        sess = Session(g, ws, plan, NODES, ExecConfig(
+            backend="cuda", executor="mesh", overlap=overlap,
+            instrument=True, device=dev.type))
+        mesh_exec.clear_mesh_program_cache()
+        outs, stats, _ = mesh_runs(dev, what, sess, x, want, ref, st_local,
+                                   errs, traced=False)
+        # the programs were captured untraced: a traced replay of them
+        # still records every stage (the spans are host work around it)
+        tr = obs.set_tracer(obs.Tracer())
+        zero_counts()
+        try:
+            o, st = sess.run(x)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+        finally:
+            obs.set_tracer(None)
+        w = f"{what} (traced replay of untraced captures)"
+        check_counts(w, read_counts(), {"conv2d_shard": want[0],
+                                        "matmul_tiled": want[1]})
+        check(st == st_local and st.failure_count == 0,
+              f"{w}: ExecStats {st} or faults {st.failure_count}")
+        n_dev = check_trace(w, tr, st, NODES)
+        outs.append(o)
+        replay_tr, replay_st = tr, st
+        mesh_exec.clear_mesh_program_cache()
+        t_outs, t_stats, _ = mesh_runs(dev, what, sess, x, want, ref,
+                                       st_local, errs, traced=True)
+        outs += t_outs
+        check(all(torch.equal(o, outs[0]) for o in outs),
+              f"{what}: the traced and untraced runs differ")
+        path = TRACE_DIR / f"{name}-overlap{int(overlap)}.trace.json"
+        sim_note = ""
+        if overlap:
+            obs.write_trace(str(path), replay_tr)
+        else:
+            _, sim_tr = simulate_trace(g, plan, cl, n_requests=1)
+            obs.write_trace(str(path), replay_tr, sim_tr)
+            v = mesh_exec.validate_stage_decomposition(
+                replay_st, build_stages(g, plan, cl))
+            check(v["structure_match"], f"{what}: stages missing "
+                                        f"{v['missing']}, extra {v['extra']}")
+        loaded = obs.load_trace(str(path))
+        names = [e["name"] for e in obs.span_events(
+            loaded, cat=obs.STAGE_CAT, pid=1, track=obs.CONTROL_TRACK)]
+        check(names == [t.label for t in replay_st.stage_times],
+              f"{what}: the written trace's stage spans differ")
+        if not overlap:
+            d, verdict = sim_structure(g, loaded, v)
+            check(verdict != "mismatch",
+                  f"{what}: measured and simulated timelines differ: only "
+                  f"measured {d['only_measured']}, only simulated "
+                  f"{d['only_simulated']}")
+            skew = obs.stage_skew(v["stages"])
+            kinds = {}
+            for p in skew["per_stage"]:
+                if p["ratio"] is not None:
+                    kinds.setdefault(p["kind"], []).append(p["ratio"])
+            by_kind = ", ".join(
+                f"{k} {sorted(r)[len(r) // 2]:.4g} over {len(r)} stages "
+                f"({min(r):.4g}-{max(r):.4g})"
+                for k, r in sorted(kinds.items()))
+            sim_note = (f"; the plan's simulated timeline "
+                        f"(simulate_trace, homogeneous({NODES}, 0.5 Gbps)) in "
+                        f"the same file: diff_traces {verdict}, "
+                        f"{len(d['pairs'])} paired stages; stage_skew "
+                        f"(measured over simulated, replayed stages): "
+                        f"median {skew['median_ratio']:.4g}, max |log2| "
+                        f"{skew['max_abs_log2']:.4g}; by kind: {by_kind}")
+            out["skew"] = skew
+        hs = host_split(replay_tr, replay_st)
+        print(f"phase 13a: {what}: 3 untraced, 1 traced replay of the "
+              f"untraced captures and 3 traced runs (eager, capture, "
+              f"replay) bit-equal, each within {TOL:g} of the reference, "
+              f"ExecStats equal to the local run's, failure_count 0, "
+              f"launches {tuple(want)} == mesh_kernel_records; {hs['n']} "
+              f"control-track stage spans == stage_times one to one, "
+              f"{n_dev} device spans == the node completions; wrote "
+              f"{path.relative_to(ROOT)} and loaded it back{sim_note} "
+              f"[{card}]", flush=True)
+        print(f"phase 13a: {what}: where the traced replay's "
+              f"{hs['wall']:.3f} ms go ({hs['n']} stages, each synchronised "
+              f"by instrument): the card's work inside the stages (each "
+              f"compute stage's last node done) {hs['device']:.3f} ms, the "
+              f"rest of the stage walls (replay launch, copies, the "
+              f"synchronise) {hs['in_stage']:.3f} ms, the host between "
+              f"stages {hs['between']:.3f} ms, before the first and after "
+              f"the last stage {hs['wall'] - hs['stages'] - hs['between']:.3f}"
+              f" ms [{card}]", flush=True)
+        # tracing off and on, the replayed instrumented run, in turns
+        walls = {"off": [], "on": []}
+        tr = obs.Tracer()
+        for _ in range(SESSION_REPS):
+            walls["off"] += wall_ms(lambda: sess.run(x), 1)
+            obs.set_tracer(tr)
+            try:
+                walls["on"] += wall_ms(lambda: sess.run(x), 1)
+            finally:
+                obs.set_tracer(None)
+        (fm, flo, fhi), (nm, nlo, nhi) = (spread(walls["off"]),
+                                          spread(walls["on"]))
+        print(f"phase 13a: {what}: warm Session.run (replayed stages) "
+              f"tracing off {fm:.3f} ms (range {flo:.3f}-{fhi:.3f}), on "
+              f"{nm:.3f} ms (range {nlo:.3f}-{nhi:.3f}); medians of "
+              f"{SESSION_REPS} synchronised runs each, in turns; host "
+              f"clocks move up to 2x, so this is evidence, not a limit "
+              f"[{card}]", flush=True)
+        out[overlap] = dict(off=fm, on=nm, host=hs, out=outs[0],
+                            stages=replay_st.stage_times)
+        mesh_exec.clear_mesh_program_cache()
+        del sess
+    return out
+
+
+def ordinary_run(dev, what, g, ws, x, plan, want, ref, st_local, clean):
+    """After a fault: the next ordinary mesh run (overlap on) meets phase
+    9's contract: launches, the clean run's bits, ExecStats, no fault."""
+    import torch
+    from repro_torch import ExecConfig, Session
+    zero_counts()
+    o, st = Session(g, ws, plan, NODES, ExecConfig(
+        backend="cuda", executor="mesh", device=dev.type)).run(x)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    check_counts(f"{what}: the next ordinary run", read_counts(),
+                 {"conv2d_shard": want[0], "matmul_tiled": want[1]})
+    check(torch.equal(o, clean) and rel_err(o, ref) < TOL,
+          f"{what}: the next ordinary run's output differs")
+    check(st == st_local and st.failure_count == 0,
+          f"{what}: the next ordinary run's ExecStats {st}, faults "
+          f"{st.failure_count}")
+
+
+def phase_mesh_faults(dev, row, traced, card):
+    """13b: faults on the card.  A fault injected once before one stage's
+    dispatch with ``stage_retries=1``: one retry counted, a
+    ``stage_retry`` record in the flight ring, a ``retry:`` instant on the
+    control track, the clean run's bits, launches and ExecStats.  A
+    ``stage_timeout_s`` far below one stage's measured wall raises
+    ``StageTimeoutError`` and leaves exactly one postmortem whose ring
+    holds that stage's dispatch and its timeout.  After each, the next
+    ordinary run meets phase 9's contract."""
+    import json as _json
+    import tempfile
+    import threading
+    import torch
+    from repro_torch import obs
+    from repro_torch.runtime import mesh_exec
+    from repro_torch.runtime.mesh_exec import (StageTimeoutError,
+                                               run_partitioned_mesh)
+
+    name = row["model"]
+    g, ws, x, plan, _, st_local, ref, _ = row["mesh_inputs"]
+    want = mesh_kernel_records(g, plan, NODES, True)
+    clean = traced[True]["out"]
+
+    # a fault that one retry absorbs
+    seen = []
+
+    def hook(kind, label, attempt):
+        seen.append((kind, label, attempt))
+        if len(seen) == 2:
+            raise OSError(f"injected fault before {label}")
+
+    mesh_exec.clear_mesh_program_cache()
+    obs.get_flight().clear()
+    tr = obs.set_tracer(obs.Tracer())
+    zero_counts()
+    try:
+        o, st = run_partitioned_mesh(g, ws, x, plan, NODES, stage_retries=1,
+                                     fault_hook=hook, fallback="raise")
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+    finally:
+        obs.set_tracer(None)
+    label = seen[1][1]
+    ring = [(e["kind"], e.get("label")) for e in obs.get_flight().events()]
+    instants = [r["name"] for r in tr._records if r["ph"] == "i"]
+    what = f"{name} retry"
+    check(st.retries == 1 and st.timeouts == 0 and st.fallbacks == 0,
+          f"{what}: counted retries {st.retries}, timeouts {st.timeouts}, "
+          f"fallbacks {st.fallbacks}")
+    check(("stage_retry", label) in ring and instants == [f"retry:{label}"],
+          f"{what}: ring {ring[-4:]}, instants {instants}")
+    check_counts(what, read_counts(), {"conv2d_shard": want[0],
+                                       "matmul_tiled": want[1]})
+    check(torch.equal(o, clean) and st == st_local,
+          f"{what}: output or ExecStats differ from the clean run's")
+    ordinary_run(dev, what, g, ws, x, plan, want, ref, st_local, clean)
+    print(f"phase 13b: {name}: a fault injected before stage {label!r} "
+          f"with stage_retries=1: retries 1, a stage_retry record in the "
+          f"flight ring ({len(ring)} records), the instant "
+          f"{instants[0]!r} on the control track, the clean run's bits, "
+          f"launches {tuple(want)} and ExecStats; the next ordinary run "
+          f"meets phase 9's contract [{card}]", flush=True)
+
+    # a watchdog far below one stage's wall
+    wall = min(t.wall_s for t in traced[False]["stages"])
+    timeout = wall * 1e-3
+    mesh_exec.clear_mesh_program_cache()
+    obs.get_flight().clear()
+    with tempfile.TemporaryDirectory(dir=TRACE_DIR) as d:
+        obs.set_postmortem_dir(d)
+        raised = None
+        try:
+            run_partitioned_mesh(g, ws, x, plan, NODES,
+                                 stage_timeout_s=timeout, fallback="raise")
+        except StageTimeoutError as exc:
+            raised = exc
+        finally:
+            obs.set_postmortem_dir(None)
+        for th in threading.enumerate():
+            if th.name.startswith("mesh-stage:"):
+                th.join(120)
+                check(not th.is_alive(), f"stage worker {th.name} still "
+                                         f"runs 120 s after its timeout")
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        check(raised is not None, f"{name}: stage_timeout_s={timeout:g} "
+                                  f"raised no StageTimeoutError")
+        dumps = sorted(Path(d).glob("postmortem-*-stage_timeout.json"))
+        check(len(dumps) == 1, f"{name}: {len(dumps)} timeout postmortems")
+        doc = _json.loads(dumps[0].read_text())
+    ctx = doc["context"]
+    kinds = [(e["kind"], e.get("label")) for e in doc["events"]]
+    check(doc["reason"] == "stage_timeout" and ctx["timeout_s"] == timeout
+          and ("stage_dispatch", ctx["label"]) in kinds
+          and ("stage_timeout", ctx["label"]) in kinds,
+          f"{name}: the postmortem {ctx}, ring {kinds}")
+    ordinary_run(dev, f"{name} timeout", g, ws, x, plan, want, ref,
+                 st_local, clean)
+    print(f"phase 13b: {name}: stage_timeout_s={timeout:.3g} s (1e-3 of "
+          f"the shortest measured stage, {wall * 1e3:.4f} ms) raised "
+          f"StageTimeoutError at stage {ctx['label']!r} and left exactly "
+          f"one postmortem-*-stage_timeout.json, its ring {kinds}; the "
+          f"abandoned worker joined, the next ordinary run meets phase 9's "
+          f"contract [{card}]", flush=True)
+
+
+def phase_planner_traced(row, card):
+    """13c: ``plan_search`` and ``cluster_pipeline_frontier`` for one
+    model under a tracer and metrics: the planner spans and the cost
+    tables' dedup counters; and phase 11's loop's ``refine.*`` gauges
+    (phase 11 ran that model's loop with metrics on)."""
+    from repro_torch import AnalyticEstimator, Testbed, obs, plan_search
+    from repro_torch.cluster import cluster_pipeline_frontier, homogeneous
+
+    name = row["model"]
+    g = row["mesh_inputs"][0]
+    tr = obs.set_tracer(obs.Tracer())
+    mx = obs.set_metrics(obs.Metrics())
+    try:
+        plan_search(g, AnalyticEstimator(),
+                    Testbed(nodes=NODES, bandwidth_gbps=0.5))
+        fr = cluster_pipeline_frontier(g, homogeneous(NODES, 0.5),
+                                       prune_ub=False)
+    finally:
+        obs.set_tracer(None)
+        obs.set_metrics(None)
+    spans = tr.spans()
+    names = [s["name"] for s in spans]
+    check(names == ["plan_search.table_build", "plan_search.dp_sweep",
+                    "plan_search.reconstruct", "frontier.register",
+                    "frontier.evaluate", "frontier.dp"],
+          f"{name}: planner spans {names}")
+    check(spans[-1]["args"]["points"] == len(fr),
+          f"{name}: frontier.dp says {spans[-1]['args']['points']} points")
+    counters = mx.snapshot()["counters"]
+    check(counters.get('cost_tables.dedup_hits{table="i"}', 0) > 0,
+          f"{name}: no dedup hit counted: {counters}")
+    obs.write_trace(str(TRACE_DIR / f"{name}-planner.trace.json"), tr)
+    mx.export(str(TRACE_DIR / f"{name}-planner.metrics.json"))
+
+    def args(sp):
+        return ", ".join(f"{k}={v}" for k, v in sp["args"].items()
+                         if k != "graph")
+    print(f"phase 13c: {name} planner spans (ms; arguments): " + "; ".join(
+        f"{sp['name']} {sp['dur'] / 1e3:.3f} ({args(sp)})" for sp in spans)
+        + "; cost-table dedup counters " + ", ".join(
+            f"{k} {v:g}" for k, v in sorted(counters.items()))
+        + f" [{card}]", flush=True)
+    snap = row.get("refine_metrics")
+    check(snap is not None and snap["gauges"],
+          f"{name}: phase 11 recorded no refine gauges")
+    print(f"phase 13c: {name} phase 11 loop with metrics on: " + ", ".join(
+        f"{k} {v:.6g}" for k, v in sorted(snap["gauges"].items()))
+        + "; " + ", ".join(f"{k} {v:g}" for k, v in
+                           sorted(snap["counters"].items())
+                           if k.startswith("refine."))
+        + "; " + ", ".join(
+            f"{k} count {h['count']} sum {h['sum']:.6g}"
+            for k, h in sorted(snap["histograms"].items()))
+        + f" [{card}]", flush=True)
+
+
+class ReplanLog:
+    """Records every ``ElasticPlanner.replan`` decision made while active,
+    with the cluster it planned for and the strategy of the churn replay
+    that made it (``run_churn`` wrapped to name its strategy)."""
+
+    def __enter__(self):
+        from repro_torch.cluster import churn, elastic
+        self.decisions = []
+        self._saved = churn.run_churn, elastic.ElasticPlanner.replan
+        run, replan = self._saved
+        current = {}
+
+        def tagged(graph, cluster, scenario, strategy, **kw):
+            current["strategy"] = strategy
+            return run(graph, cluster, scenario, strategy, **kw)
+
+        def recorded(planner, cluster, *a, **kw):
+            dec = replan(planner, cluster, *a, **kw)
+            self.decisions.append((current.get("strategy"), cluster, dec))
+            return dec
+        churn.run_churn = tagged
+        elastic.ElasticPlanner.replan = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.cluster import churn, elastic
+        churn.run_churn, elastic.ElasticPlanner.replan = self._saved
+
+
+def phase_churn(dev, row, errs, card):
+    """13d: the elastic planner under churn for one model: the reference
+    churn benchmark's gated presets (4 devices) and scenarios, seed 0,
+    ``compare_strategies``; the reference's structural claims
+    (``tests/test_churn.py``); then every distinct plan the incremental
+    strategy adopts, and the plan scratch picks at the same states, run
+    on the mesh at its live node count under phases 3 and 9's contract
+    (a plan that cuts an FC layer's columns is printed, not run)."""
+    from repro_torch import obs
+    from repro_torch.cluster import (CHURN_SCENARIOS as SCENARIOS,
+                                     CLUSTER_PRESETS, compare_strategies)
+
+    name = row["model"]
+    g, ws, x, _, _, _, ref, _ = row["mesh_inputs"]
+    adopted = {}                 # (nodes, steps) -> (strategies, plan)
+    walls = {"scratch": [], "incremental": []}
+    for preset in CHURN_PRESETS:
+        cluster = CLUSTER_PRESETS[preset](NODES)
+        for sname in CHURN_SCENARIOS:
+            scen = SCENARIOS[sname](cluster, seed=CHURN_SEED)
+            tr = obs.set_tracer(obs.Tracer())
+            mx = obs.set_metrics(obs.Metrics())
+            try:
+                with ReplanLog() as log:
+                    res = compare_strategies(g, cluster, scen)
+            finally:
+                obs.set_tracer(None)
+                obs.set_metrics(None)
+            nev, scr, inc = (res["never"], res["scratch"],
+                             res["incremental"])
+            what = f"{name} {preset}({NODES}) {scen.name}"
+            # tests/test_churn.py's structural claims
+            check(nev.n_replans == 0 and inc.goodput_rps > nev.goodput_rps,
+                  f"{what}: never replanned or incremental's goodput "
+                  f"{inc.goodput_rps} <= never's {nev.goodput_rps}")
+            check(inc.n_keeps + inc.n_migrations == inc.n_replans
+                  and scr.n_keeps == 0 and scr.n_migrations == scr.n_replans,
+                  f"{what}: replans do not split into keeps and migrations")
+            check(sum(inc.reuse_counts.values()) > 0,
+                  f"{what}: incremental reused nothing")
+            if sname == "mixed":
+                check(scr.goodput_rps > nev.goodput_rps
+                      and scr.stall_total_s > 0.0
+                      and len(nev.recoveries_s) == len(inc.recoveries_s) > 0
+                      and inc.mean_recovery_s < nev.mean_recovery_s,
+                      f"{what}: scratch or recovery claims fail")
+            else:
+                check(inc.reuse_counts.get("frontier_cache", 0) >= 2,
+                      f"{what}: flapping hit the frontier cache "
+                      f"{inc.reuse_counts.get('frontier_cache', 0)} times")
+            detects = [r for r in tr._records
+                       if r["ph"] == "i" and r["name"] == "detect"]
+            check(len(detects) == scr.n_replans + inc.n_replans,
+                  f"{what}: {len(detects)} detect instants")
+            for s, r in res.items():
+                print(f"phase 13d: {what} {s}: goodput "
+                      f"{r.goodput_rps:.3f} rps, mean recovery "
+                      f"{r.mean_recovery_s:.4f} s over "
+                      f"{len(r.recoveries_s)} faults, {r.n_replans} replans"
+                      f" ({r.n_keeps} kept, {r.n_migrations} migrated), "
+                      f"plan wall {r.plan_wall_total_s * 1e3:.3f} ms in all"
+                      f", stall {r.stall_total_s:.4f} s, reuse "
+                      + " ".join(f"{k}={v}" for k, v in
+                                 r.reuse_counts.items() if v)
+                      + f" [{card}]", flush=True)
+            for s, cl, dec in log.decisions:
+                if s in walls and dec is not None:
+                    walls[s].append(dec.plan_wall_s)
+                if s in ("incremental", "scratch"):
+                    key = (cl.n, dec.plan.steps)
+                    who, _ = adopted.get(key, (set(), None))
+                    adopted[key] = (who | {s}, dec.plan)
+            spans = {}
+            for sp in tr.spans(cat="planner"):
+                spans.setdefault(sp["name"], []).append(sp["dur"] / 1e3)
+            print(f"phase 13d: {what}: replan spans (count, total ms): "
+                  + ", ".join(f"{k} {len(v)} {sum(v):.3f}"
+                              for k, v in sorted(spans.items()))
+                  + "; counters " + ", ".join(
+                      f"{k} {v:g}" for k, v in
+                      sorted(mx.snapshot()["counters"].items())
+                      if k.startswith("replan."))
+                  + f" [{card}]", flush=True)
+    for s, w in walls.items():
+        w = sorted(w)
+        print(f"phase 13d: {name} {s}: {len(w)} replans on this host, plan "
+              f"wall median {w[len(w) // 2] * 1e3:.3f} ms (range "
+              f"{w[0] * 1e3:.3f}-{w[-1] * 1e3:.3f}), total "
+              f"{sum(w) * 1e3:.3f} ms [{card}]", flush=True)
+    ran = 0
+    for (n, _), (who, plan) in sorted(adopted.items(),
+                                      key=lambda kv: (-kv[0][0],
+                                                      str(kv[0][1]))):
+        label = f"{name} churn plan nodes={n} ({'+'.join(sorted(who))})"
+        if cuts_fc_columns(g, plan):
+            print(f"phase 13d: {label} ({scheme_counts(plan)}): not run, "
+                  f"an INW or GRID2D step on an FC layer (ROADMAP C) "
+                  f"[{card}]", flush=True)
+            continue
+        r = run_plan_checked(dev, label, g, ws, x, ref, plan, errs, nodes=n,
+                             timed=False)
+        ran += 1
+        print(f"phase 13d: {label} ({scheme_counts(plan)}): launches local "
+              f"{r['local']} mesh {r['mesh']} == kernel_records / "
+              f"mesh_kernel_records, err vs reference local "
+              f"{r['err'][0]:.3g} mesh {r['err'][1]:.3g}, ExecStats equal, "
+              f"no fault [{card}]", flush=True)
+    check(ran > 0, f"{name}: no churn plan ran on the mesh")
+    return dict(plans=len(adopted), ran=ran)
+
+
+def phase_observe(dev, rows, errs, card):
+    """Phase 13: traced mesh runs (13a) and faults (13b) on the card, the
+    planner traced (13c), the elastic planner's plans under churn run on
+    the mesh (13d)."""
+    t_phase = time.perf_counter()
+    TRACE_DIR.mkdir(parents=True, exist_ok=True)
+    traced = {row["model"]: phase_traced_mesh(dev, row, errs, card)
+              for row in rows}
+    mobilenet = next(r for r in rows if r["model"] == "mobilenet")
+    phase_mesh_faults(dev, mobilenet, traced["mobilenet"], card)
+    phase_planner_traced(mobilenet, card)
+    churn = phase_churn(dev, mobilenet, errs, card)
+    print(f"phase 13: traces and metrics in "
+          f"{TRACE_DIR.relative_to(ROOT)}/; {churn['ran']} of "
+          f"{churn['plans']} distinct churn plans run on the mesh; "
+          f"{time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    return traced
+
+
 def run(dev) -> dict:
     import torch
+    from repro_torch import obs
     from repro_torch.kernels import build
 
     smi = subprocess.run(
@@ -2287,8 +2914,19 @@ def run(dev) -> dict:
         phase_mesh(dev, row, errs, card)
     phase_mesh_decode(dev, dec, card)
     for row in rows:
-        row["refine"] = phase_refine(dev, row, errs, card)
+        # MobileNet's loop with metrics on: phase 13c prints its gauges
+        mx = obs.set_metrics(obs.Metrics()) \
+            if row["model"] == "mobilenet" else None
+        try:
+            row["refine"] = phase_refine(dev, row, errs, card)
+        finally:
+            obs.set_metrics(None)
+        if mx is not None:
+            row["refine_metrics"] = mx.snapshot()
     phase_gbdt(dev, rows, errs, card)
+    phase_observe(dev, rows, errs, card)
+    for r in rows:
+        r.pop("mesh_inputs")
 
     meta = {
         "conv2d_shard": ("src/repro_torch/kernels/csrc/conv2d_shard.cu",

@@ -1,5 +1,6 @@
 """Heterogeneous cluster subsystem: specs, weighted costing, simulator,
-refinement on measured occupancy, serving objectives.
+refinement on measured occupancy, serving objectives, elastic replanning
+under churn.
 
 Quick start::
 
@@ -30,9 +31,12 @@ Planning on learned costs: ``estimator=ClusterGBDTEstimator(est, cl)``
 with ``est`` from ``repro_torch.sim.train_estimators(
 hetero_trace_config())``.
 
-A trimmed copy of the JAX package's ``repro.cluster``: the elastic
-planner and the churn scenarios (``elastic.py``, ``churn.py``) and the
-simulator's trace export are left out.
+Elastic clusters: ``ElasticPlanner(graph).replan(registry.cluster(), ...)``
+on a ``DeviceRegistry``; ``compare_strategies(graph, cluster,
+scenario_mixed(cluster))`` replays churn under the three strategies.
+
+The port of the JAX package's ``repro.cluster``; it exports the same
+names.
 """
 from __future__ import annotations
 
@@ -43,6 +47,13 @@ from repro_torch.core.dpp import (Objective, PlanFrontier, SearchResult,
 from repro_torch.core.graph import ModelGraph
 from repro_torch.core.partition import ALL_SCHEMES, Scheme
 
+from .churn import (CHURN_SCENARIOS, STRATEGIES, ChurnEvent, ChurnRunResult,
+                    ChurnScenario, compare_strategies, random_scenario,
+                    run_churn)
+from .elastic import (CapacityError, DeviceRegistry, DeviceState,
+                      ElasticPlanner, Member, MembershipError, MigrationCost,
+                      ReplanDecision, migration_cost_s, plan_device_bytes,
+                      plan_memory_ok)
 from .calibrate import (CalibrationSample, OnlineCalibrator,
                         fold_queueing_delay)
 from .estimator import ClusterAnalyticEstimator, ClusterGBDTEstimator
@@ -51,7 +62,8 @@ from .refine import (RefineOscillationError, RefineResult, RefineStep,
 from .serving import (DecodeServingReport, ServingPoint, choose_batch,
                       max_goodput, plan_decode_serving, serve_decode,
                       serve_point, sweep_serving)
-from .simsched import SimReport, Stage, build_stages, simulate
+from .simsched import (SimReport, Stage, build_stages, export_sim_trace,
+                       simulate, simulate_trace)
 from .spec import (CLUSTER_PRESETS, ClusterSpec, DeviceSpec, LinkSpec,
                    asym_uplink, homogeneous, mixed_fast_slow, stepped,
                    topology_edges)
@@ -106,14 +118,22 @@ def cluster_pipeline_frontier(graph: ModelGraph, cluster: ClusterSpec,
 
 
 __all__ = [
-    "CLUSTER_PRESETS", "CalibrationSample", "ClusterAnalyticEstimator",
-    "ClusterGBDTEstimator", "ClusterSpec", "DecodeServingReport",
-    "DeviceSpec", "LinkSpec", "Objective", "OnlineCalibrator",
+    "CHURN_SCENARIOS", "CLUSTER_PRESETS", "CalibrationSample",
+    "CapacityError", "ChurnEvent", "ChurnRunResult", "ChurnScenario",
+    "ClusterAnalyticEstimator", "ClusterGBDTEstimator", "ClusterSpec",
+    "DeviceRegistry",
+    "DeviceSpec", "DeviceState", "ElasticPlanner", "LinkSpec", "Member",
+    "MembershipError", "MigrationCost", "Objective", "OnlineCalibrator",
     "PlanFrontier",
-    "RefineOscillationError", "RefineResult", "RefineStep", "ServingPoint",
-    "SimReport", "Stage", "asym_uplink", "build_stages", "choose_batch",
+    "RefineOscillationError", "RefineResult", "RefineStep",
+    "ReplanDecision", "STRATEGIES", "ServingPoint", "SimReport", "Stage",
+    "asym_uplink", "build_stages", "choose_batch",
     "cluster_pipeline_frontier", "cluster_plan_search",
-    "fold_queueing_delay", "homogeneous", "max_goodput", "mixed_fast_slow",
-    "plan_decode_serving", "refine_with_simulator", "serve_decode",
-    "serve_point", "simulate", "stepped", "sweep_serving", "topology_edges",
+    "compare_strategies", "export_sim_trace", "fold_queueing_delay",
+    "homogeneous",
+    "max_goodput", "migration_cost_s", "mixed_fast_slow",
+    "DecodeServingReport", "plan_decode_serving", "serve_decode",
+    "plan_device_bytes", "plan_memory_ok", "random_scenario",
+    "refine_with_simulator", "run_churn", "serve_point", "simulate",
+    "simulate_trace", "stepped", "sweep_serving", "topology_edges",
 ]

@@ -27,9 +27,10 @@ selection):
    until the selected point stops moving (a fixed point) or a selection
    repeats (a cycle — keep the simulator-best iterate).
 
-A copy of the JAX package's ``cluster/refine.py`` without its tracing
-hooks (metric gauges, flight-ring records and the oscillation postmortem
-dump), which wait for the port's tracing package.
+A copy of the JAX package's ``cluster/refine.py``, its hooks included:
+per-step gauges, histogram and counter in the installed
+``repro_torch.obs`` metrics registry, one flight-ring record a step, and a
+postmortem when the loop oscillates.
 """
 from __future__ import annotations
 
@@ -40,6 +41,8 @@ from repro_torch.core.dpp import Objective, PlanFrontier, pipeline_frontier
 from repro_torch.core.graph import ModelGraph
 from repro_torch.core.partition import ALL_SCHEMES, Scheme
 from repro_torch.core.plan import Plan
+from repro_torch.obs import flight as _obs_flight
+from repro_torch.obs import metrics as _obs_metrics
 
 from .estimator import ClusterAnalyticEstimator
 from .simsched import SimReport, simulate
@@ -166,6 +169,13 @@ def refine_with_simulator(graph: ModelGraph, cluster: ClusterSpec,
             converged = fixed_point and not last_failed
             if not fixed_point and on_oscillation == "raise":
                 cycle = [s.point_idx for s in steps] + [idx]
+                _obs_flight.get_flight().record(
+                    "refine_oscillation", graph=graph.name, cycle=cycle)
+                _obs_flight.dump_postmortem(
+                    "refine_oscillation",
+                    context={"graph": graph.name, "cycle": cycle,
+                             "beta": beta, "alpha": alpha,
+                             "iters": len(steps)})
                 raise RefineOscillationError(
                     f"refinement cycles over frontier points {cycle} "
                     f"without reaching a fixed point; pass "
@@ -209,6 +219,18 @@ def refine_with_simulator(graph: ModelGraph, cluster: ClusterSpec,
             point_idx=idx, compute_s=a, sync_s=b, beta=beta, alpha=alpha,
             sim_throughput_rps=rps, sim_period_s=period,
             dev_occupancy_s=dev_occ, link_occupancy_s=link_occ))
+        # per-iteration convergence gauges (no-ops unless a metrics
+        # registry is installed — see obs.metrics)
+        it = len(steps) - 1
+        _obs_metrics.gauge("refine.beta", beta, graph=graph.name)
+        _obs_metrics.gauge("refine.alpha", alpha, graph=graph.name)
+        _obs_metrics.gauge("refine.period_s", period, graph=graph.name)
+        _obs_metrics.observe("refine.throughput_rps", rps,
+                             graph=graph.name)
+        _obs_metrics.inc("refine.iterations", graph=graph.name)
+        _obs_flight.get_flight().record(
+            "refine_step", graph=graph.name, iter=it, point_idx=idx,
+            beta=beta, alpha=alpha, period_s=period, untrusted=failed)
         # an untrusted sample may only seed best (the assert below needs
         # one iterate) — it never displaces a trusted one
         if best is None or (not failed and rps > best[0]):

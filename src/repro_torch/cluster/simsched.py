@@ -28,9 +28,9 @@ cost (up to float summation order, ~1e-12 relative — tested); heterogeneous
 or multi-request runs are the independent check the analytic model cannot
 provide.
 
-A trimmed copy of the JAX package's ``cluster/simsched.py``: the trace
-export (``export_sim_trace``, ``simulate_trace``) waits for the port's
-tracing package.
+A copy of the JAX package's ``cluster/simsched.py``; its trace export
+(:func:`export_sim_trace`, :func:`simulate_trace`) writes the schema of
+``repro_torch.obs``, the one the mesh executor's traces use.
 """
 from __future__ import annotations
 
@@ -72,7 +72,8 @@ class SimReport:
     link_busy_s: Tuple[float, ...]
     #: with ``record_timeline=True``: per-task ``(resource, request,
     #: stage_idx, t_start_s, t_end_s)`` intervals (resource < n_dev is a
-    #: device, the rest are links) — the raw material for a trace export
+    #: device, the rest are links) — the raw material for
+    #: :func:`export_sim_trace`
     timeline: Optional[Tuple[Tuple[int, int, int, float, float], ...]] \
         = dataclasses.field(default=None, compare=False)
 
@@ -319,3 +320,41 @@ def simulate(graph: ModelGraph, plan: Plan, cluster: ClusterSpec,
         link_busy_s=tuple(busy_total[n_dev:]),
         timeline=tuple(timeline) if record_timeline else None,
     )
+
+
+def export_sim_trace(stages: List[Stage],
+                     timeline: Tuple[Tuple[int, int, int, float, float],
+                                     ...],
+                     n_dev: int, process: str = "simulated",
+                     pid: int = 2):
+    """Render a recorded simulator timeline as an ``obs.trace.Tracer``
+    in the **same schema the mesh executor emits**: one track per
+    device (``dev0..``) plus one per link (``link0..``), every task a
+    complete span named by its stage label with ``cat="stage"`` —
+    so the predicted timeline and a measured mesh trace land in one
+    Perfetto file and diff structurally (``obs.skew.diff_traces``)."""
+    from repro_torch.obs.trace import STAGE_CAT, Tracer, device_track, \
+        link_track
+    tracer = Tracer(process=process, pid=pid)
+    for d in range(n_dev):
+        tracer.ensure_track(device_track(d))
+    for res, r, si, t0, t1 in timeline:
+        track = device_track(res) if res < n_dev \
+            else link_track(res - n_dev)
+        st = stages[si]
+        tracer.add_complete(track, st.label, t0 * 1e6,
+                            (t1 - t0) * 1e6, cat=STAGE_CAT,
+                            args={"kind": st.kind, "request": r})
+    return tracer
+
+
+def simulate_trace(graph: ModelGraph, plan: Plan, cluster: ClusterSpec,
+                   n_requests: int = 1, **kwargs):
+    """Simulate and export the predicted timeline in one call:
+    returns ``(SimReport, Tracer)`` (see :func:`export_sim_trace`)."""
+    stages = build_stages(graph, plan, cluster,
+                          weighted=kwargs.get("weighted", True),
+                          batch_size=kwargs.get("batch_size", 1))
+    rep = simulate(graph, plan, cluster, n_requests=n_requests,
+                   record_timeline=True, **kwargs)
+    return rep, export_sim_trace(stages, rep.timeline, cluster.n)

@@ -13,9 +13,9 @@ tensor, per-branch tables for DAG composition, the frontier DP) and
 :class:`PrefetchedEstimator`, a ``CostEstimator`` view for code that walks
 plans scalar-wise (the exhaustive oracle, the fixed-plan baselines).
 
-A trimmed copy of the JAX package's ``core/cost_tables.py``: the
-``repro.obs`` metrics pushes and the dedup counters wait for the port of
-``repro.obs`` (ROADMAP A 6.2).
+A copy of the JAX package's ``core/cost_tables.py``: the dedup counters of
+:class:`CostTableBuilder` and the prefetch counters are pushed to the
+installed ``repro_torch.obs`` metrics registry (a no-op without one).
 """
 from __future__ import annotations
 
@@ -23,6 +23,8 @@ import dataclasses
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from repro_torch.obs import metrics as _obs_metrics
 
 from .cost import Testbed
 from .estimator import CostEstimator, i_features, s_features
@@ -62,6 +64,15 @@ class CostTableBuilder:
         self._i_factors: List[float] = []
         self._s_keys: Dict[tuple, int] = {}
         self._s_rows: List[List[float]] = []
+        # dedup accounting: a hit is a registered query that collapsed
+        # onto an existing row (plain ints here; pushed to the metrics
+        # registry in one batch by evaluate() — see obs.metrics)
+        self.i_hits = 0
+        self.i_misses = 0
+        self.s_hits = 0
+        self.s_misses = 0
+        self._pushed = {"i_hits": 0, "i_misses": 0,
+                        "s_hits": 0, "s_misses": 0}
         # geometric identity per layer *object* (pinned so ids stay unique):
         # the estimator reads only feature_vector() (+ extra_flop_factor),
         # so name-blind keys make repeated blocks share one row
@@ -83,10 +94,13 @@ class CostTableBuilder:
         key = (self.layer_key(layer), scheme, halo)
         idx = self._i_keys.get(key)
         if idx is None:
+            self.i_misses += 1
             idx = len(self._i_rows)
             self._i_keys[key] = idx
             self._i_rows.append(i_features(layer, scheme, self._tb, halo))
             self._i_factors.append(layer.extra_flop_factor)
+        else:
+            self.i_hits += 1
         return idx
 
     def s_index(self, layer: LayerSpec, nxt, src: Scheme, dst) -> int:
@@ -95,9 +109,12 @@ class CostTableBuilder:
                src, dst)
         idx = self._s_keys.get(key)
         if idx is None:
+            self.s_misses += 1
             idx = len(self._s_rows)
             self._s_keys[key] = idx
             self._s_rows.append(s_features(layer, nxt, src, dst, self._tb))
+        else:
+            self.s_hits += 1
         return idx
 
     @property
@@ -136,6 +153,17 @@ class CostTableBuilder:
         elif len(svals) != len(self._s_rows):
             raise ValueError(f"cached svals cover {len(svals)} rows, "
                              f"builder has {len(self._s_rows)}")
+        # push dedup deltas since the previous evaluate() in one batch
+        # (re-evaluations of a long-lived builder don't double count)
+        for attr, name, table in (
+                ("i_hits", "cost_tables.dedup_hits", "i"),
+                ("i_misses", "cost_tables.dedup_misses", "i"),
+                ("s_hits", "cost_tables.dedup_hits", "s"),
+                ("s_misses", "cost_tables.dedup_misses", "s")):
+            delta = getattr(self, attr) - self._pushed[attr]
+            if delta:
+                _obs_metrics.inc(name, delta, table=table)
+                self._pushed[attr] = getattr(self, attr)
         return np.asarray(ivals, np.float64), np.asarray(svals, np.float64)
 
 
@@ -354,7 +382,8 @@ class PrefetchedEstimator:
         self._i: Dict[tuple, float] = {}
         self._s: Dict[tuple, float] = {}
         # plain-int hit/miss counters (the scalar path is called in the
-        # oracle's innermost loop; read them via cache_info())
+        # oracle's innermost loop — no registry indirection here; read
+        # them via cache_info() or push_metrics())
         self.hits = 0
         self.misses = 0
 
@@ -439,6 +468,12 @@ class PrefetchedEstimator:
     def cache_info(self) -> Tuple[int, int]:
         """(hits, misses) of the scalar lookup path."""
         return (self.hits, self.misses)
+
+    def push_metrics(self) -> None:
+        """Batch the counters into the installed metrics registry (a
+        no-op without one)."""
+        _obs_metrics.inc("prefetch.hits", self.hits)
+        _obs_metrics.inc("prefetch.misses", self.misses)
 
     def i_cost_batch(self, X: np.ndarray, tb: Testbed,
                      flop_factor: Optional[np.ndarray] = None) -> np.ndarray:

@@ -43,8 +43,10 @@ Pareto-frontier DP over (compute, sync) occupancy pairs from the same tables
 (:func:`pipeline_frontier`), or from scalar-call providers for scalar-only
 estimators.
 
-A copy of the JAX package's ``core/dpp.py``; its ``repro.obs`` tracing
-spans wait for the port of ``repro.obs`` (ROADMAP A 6.2).
+A copy of the JAX package's ``core/dpp.py``, its tracing spans included:
+with a tracer installed (``repro_torch.obs``) the search's table build, DP
+sweep and reconstruction, and the frontier's register / evaluate / DP
+phases, are ``cat="planner"`` spans on the planner track.
 """
 from __future__ import annotations
 
@@ -54,6 +56,8 @@ import enum
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from repro_torch.obs import trace as _obs_trace
 
 from .cost import Testbed
 from .cost_tables import (CostTableBuilder, pareto_front_2d, pareto_front_nd,
@@ -176,50 +180,60 @@ def _chain_plan_search_batched(graph: ModelGraph, est: CostEstimator,
     k = len(schemes)
 
     registry = CostTableBuilder(est, tb)
-    fin = plan_chain_tables(layers, registry, schemes, max_segment,
-                            allow_fusion, tb.nodes, with_final=True)
-    tbl = fin(*registry.evaluate())
+    with _obs_trace.span(_obs_trace.PLANNER_TRACK,
+                         "plan_search.table_build", cat="planner",
+                         graph=graph.name, layers=n) as _sp:
+        fin = plan_chain_tables(layers, registry, schemes, max_segment,
+                                allow_fusion, tb.nodes, with_final=True)
+        tbl = fin(*registry.evaluate())
+        _sp.set(i_rows=registry.i_entries, s_rows=registry.s_entries)
     seg = tbl.seg                        # (n, k, cap), +inf = inadmissible
     cap = seg.shape[2]
 
-    S = np.full((n + 1, k), _INF)
-    choice_b = np.full((n, k), -1, np.int64)
-    choice_q = np.full((n, k), -1, np.int64)
-    ks = np.arange(k)
-    for i in range(n - 1, -1, -1):
-        m = min(cap, n - i)
-        # cand[p, L, q] = (seg + boundary s-cost) + suffix — the same
-        # float association as the scalar reference, so costs stay
-        # bit-identical
-        cand = np.full((k, m, k), _INF)
-        Lf = n - 1 - i                  # L index of a final segment
-        if Lf < m:
-            cand[:, Lf, 0] = seg[i, :, Lf] + tbl.s_final
-        mn = min(m, Lf)                 # segments with a next layer
-        if mn > 0:
-            sb = tbl.sbound[i:i + mn].transpose(1, 0, 2)  # (p, L, q)
-            cand[:, :mn, :] = (seg[i, :, :mn, None] + sb) \
-                + S[i + 1:i + 1 + mn][None, :, :]
-        flat = cand.reshape(k, m * k)
-        fi = np.argmin(flat, axis=1)    # first min: b-major, q-minor
-        S[i] = flat[ks, fi]             # — the scalar scan order
-        Lb = fi // k
-        choice_b[i] = i + Lb
-        choice_q[i] = np.where(Lb == Lf, -1, fi % k)
+    with _obs_trace.span(_obs_trace.PLANNER_TRACK,
+                         "plan_search.dp_sweep", cat="planner",
+                         graph=graph.name):
+        S = np.full((n + 1, k), _INF)
+        choice_b = np.full((n, k), -1, np.int64)
+        choice_q = np.full((n, k), -1, np.int64)
+        ks = np.arange(k)
+        for i in range(n - 1, -1, -1):
+            m = min(cap, n - i)
+            # cand[p, L, q] = (seg + boundary s-cost) + suffix — the
+            # same float association as the scalar reference, so costs
+            # stay bit-identical
+            cand = np.full((k, m, k), _INF)
+            Lf = n - 1 - i                  # L index of a final segment
+            if Lf < m:
+                cand[:, Lf, 0] = seg[i, :, Lf] + tbl.s_final
+            mn = min(m, Lf)                 # segments with a next layer
+            if mn > 0:
+                sb = tbl.sbound[i:i + mn].transpose(1, 0, 2)  # (p, L, q)
+                cand[:, :mn, :] = (seg[i, :, :mn, None] + sb) \
+                    + S[i + 1:i + 1 + mn][None, :, :]
+            flat = cand.reshape(k, m * k)
+            fi = np.argmin(flat, axis=1)    # first min: b-major, q-minor
+            S[i] = flat[ks, fi]             # — the scalar scan order
+            Lb = fi // k
+            choice_b[i] = i + Lb
+            choice_q[i] = np.where(Lb == Lf, -1, fi % k)
 
-    pi = int(np.argmin(S[0]))
-    total = float(S[0][pi])
+        pi = int(np.argmin(S[0]))
+        total = float(S[0][pi])
 
-    steps: List[Tuple[Scheme, Mode]] = []
-    i = 0
-    while i < n:
-        b, qi = int(choice_b[i][pi]), int(choice_q[i][pi])
-        p = schemes[pi]
-        for m2 in range(i, b + 1):
-            steps.append((p, Mode.NT if m2 < b else Mode.T))
-        i = b + 1
-        if qi >= 0:
-            pi = qi
+    with _obs_trace.span(_obs_trace.PLANNER_TRACK,
+                         "plan_search.reconstruct", cat="planner",
+                         graph=graph.name):
+        steps: List[Tuple[Scheme, Mode]] = []
+        i = 0
+        while i < n:
+            b, qi = int(choice_b[i][pi]), int(choice_q[i][pi])
+            p = schemes[pi]
+            for m2 in range(i, b + 1):
+                steps.append((p, Mode.NT if m2 < b else Mode.T))
+            i = b + 1
+            if qi >= 0:
+                pi = qi
 
     stats = SearchStats(
         i_calls=registry.i_entries, s_calls=registry.s_entries,
@@ -1200,8 +1214,8 @@ class FrontierTables:
     """Reusable registration artifacts of one ``pipeline_frontier`` problem.
 
     Splits the batched frontier build into its three phases so incremental
-    replanning (the JAX package's ``cluster.elastic``, not ported yet) can
-    redo only what a cluster event invalidated:
+    replanning (``cluster.elastic``) can redo only what a cluster event
+    invalidated:
 
     1. **register** — enumerate/dedup every admissible segment, boundary
        and junction query (the Python-heavy phase).  Depends only on graph
@@ -1250,6 +1264,17 @@ class FrontierTables:
         """Phase 1: build the query registration for ``graph`` on ``tb``.
         ``est`` must implement the batched protocol; it is only stored as
         the default evaluator (registration never calls it)."""
+        with _obs_trace.span(_obs_trace.PLANNER_TRACK,
+                             "frontier.register", cat="planner",
+                             graph=graph.name):
+            return cls._register(graph, est, tb, schemes, max_segment,
+                                 allow_fusion)
+
+    @classmethod
+    def _register(cls, graph: ModelGraph, est: CostEstimator, tb: Testbed,
+                  schemes: Sequence[Scheme] = ALL_SCHEMES,
+                  max_segment: int = 32,
+                  allow_fusion: bool = True) -> "FrontierTables":
         if not hasattr(est, "i_cost_batch"):
             raise TypeError("FrontierTables requires the batched estimator "
                             "protocol (est.i_cost_batch)")
@@ -1297,7 +1322,13 @@ class FrontierTables:
                  ) -> Tuple[np.ndarray, np.ndarray]:
         """Phase 2: resolve the registered rows (see
         :meth:`CostTableBuilder.evaluate` for the reuse semantics)."""
-        return self.builder.evaluate(est=est, ivals=ivals, svals=svals)
+        with _obs_trace.span(_obs_trace.PLANNER_TRACK,
+                             "frontier.evaluate", cat="planner",
+                             graph=self.graph.name,
+                             reuse_ivals=ivals is not None,
+                             reuse_svals=svals is not None):
+            return self.builder.evaluate(est=est, ivals=ivals,
+                                         svals=svals)
 
     # -- phase 3 ------------------------------------------------------------
 
@@ -1328,9 +1359,15 @@ class FrontierTables:
         is always bit-identical to a scratch build)."""
         stats = SearchStats(i_calls=self.builder.i_entries,
                             s_calls=self.builder.s_entries)
-        if self._chain_fin is not None:
-            return self._frontier_chain(ivals, svals, ub, warm, stats)
-        return self._frontier_dag(ivals, svals, ub, warm, stats)
+        with _obs_trace.span(_obs_trace.PLANNER_TRACK, "frontier.dp",
+                             cat="planner", graph=self.graph.name,
+                             warm=warm) as sp:
+            if self._chain_fin is not None:
+                fr = self._frontier_chain(ivals, svals, ub, warm, stats)
+            else:
+                fr = self._frontier_dag(ivals, svals, ub, warm, stats)
+            sp.set(points=len(fr.points), **self.last_reuse)
+            return fr
 
     def _frontier_chain(self, ivals, svals, ub, warm, stats):
         schemes_t = self.schemes
@@ -1457,8 +1494,8 @@ def pipeline_frontier(graph: ModelGraph, est: CostEstimator, tb: Testbed,
         ub = ub_cost * (1.0 + 1e-12)
     if hasattr(est, "i_cost_batch"):
         # batched estimators route through the registration/evaluation/DP
-        # split (one fresh instance here; an incremental replanner holds
-        # onto one across cluster events for incremental rebuilds)
+        # split (one fresh instance here; cluster.elastic holds onto one
+        # across cluster events for incremental rebuilds)
         ft = FrontierTables.register(graph, est, tb, schemes_t, max_segment,
                                      allow_fusion)
         return ft.frontier(*ft.evaluate(), ub=ub)

@@ -98,6 +98,12 @@ class ShardWork:
     def straggler_flops(self) -> float:
         return max(self.flops_per_node)
 
+    @property
+    def imbalance(self) -> float:
+        mx = max(self.flops_per_node)
+        avg = sum(self.flops_per_node) / len(self.flops_per_node)
+        return mx / max(avg, 1.0)
+
 
 DTYPE_BYTES = 4.0  # fp32 feature maps (TMS320C6678 is a float DSP)
 

@@ -16,8 +16,9 @@ fused multiply-add would round differently — so ``predict`` equals
 
 The forest reads and writes the reference's npz layout (:meth:`save`,
 :meth:`load`) and takes its node arrays (:meth:`from_arrays`).
-``fit(verbose_every=...)`` logs through ``repro.obs`` in the reference;
-that waits for the port of ``repro.obs`` (ROADMAP A 6.2).
+``fit(verbose_every=...)`` logs ``gbdt.fit`` lines through
+``repro_torch.obs.log`` (``REPRO_LOG``), the RMSEs computed on the host as
+the reference computes them.
 """
 from __future__ import annotations
 
@@ -77,10 +78,6 @@ class GBDTRegressor:
     # ---- fit / predict ----------------------------------------------------
     def fit(self, x, y, eval_set=None,
             verbose_every: int = 0) -> "GBDTRegressor":
-        if verbose_every:
-            raise NotImplementedError(
-                "fit(verbose_every=...) logs through repro.obs, which the "
-                "port does not have yet (ROADMAP A 6.2)")
         x = self._host(x)
         y = self._host(y)
         dev = self.device
@@ -95,7 +92,7 @@ class GBDTRegressor:
         self.trees_ = []
         self._forest = None
         hess = torch.ones_like(yd)
-        for _ in range(self.n_estimators):
+        for t in range(self.n_estimators):
             grad = pred - yd
             tree = RegressionTree(self.max_depth, self.min_child_weight,
                                   self.reg_lambda, device=dev)
@@ -108,6 +105,17 @@ class GBDTRegressor:
             upd = tree.predict(xd)
             pred += self.learning_rate * upd
             self.trees_.append(tree)
+            if verbose_every and (t + 1) % verbose_every == 0:
+                from repro_torch.obs.log import log
+                p = pred.cpu().numpy()
+                fields = {"tree": t + 1,
+                          "train_rmse": float(np.sqrt(np.mean((p - y)**2)))}
+                if eval_set is not None:
+                    ex, ey = eval_set
+                    ep = self._host(self.predict(ex))
+                    fields["eval_rmse"] = float(
+                        np.sqrt(np.mean((ep - self._host(ey))**2)))
+                log("gbdt.fit", **fields)
         return self
 
     # ---- batched forest inference -----------------------------------------

@@ -57,7 +57,14 @@ the local executor's backward-chained rects and equals it; measured
 ``instrument=True`` times each stage: its wall on the host clock, and each
 node's completion from timing events that the stage program records on
 the node streams.  They are external events, so the captured graph keeps
-them and every replay times itself.
+them and every replay times itself.  With a tracer installed
+(``repro_torch.obs.set_tracer``) each timed stage also becomes one
+control-track ``cat="stage"`` span, one to one with
+``ExecStats.stage_times``, and each node's completion a ``cat="device"``
+span on its track; the flight ring records every dispatch, retry and
+failure, and a terminal failure dumps a postmortem.  All of it happens on
+the host around the stage program, never inside a capture, so a replayed
+program records its spans on every run.
 
 A 1-node plan degenerates to plain programs on the device: no streams are
 forked and nothing is copied between nodes.
@@ -76,6 +83,8 @@ from repro_torch.core.graph import LayerSpec, ModelGraph
 from repro_torch.core.partition import DTYPE_BYTES, Scheme
 from repro_torch.core.plan import Plan, steps_segments
 from repro_torch.launch.mesh import NodesMesh, check_mesh, make_nodes_mesh
+from repro_torch.obs import flight as _obs_flight
+from repro_torch.obs import trace as _obs_trace
 from repro_torch.runtime.engine import (BACKENDS, ExecStats, Rect,
                                         SegmentCacheInfo, StageTime,
                                         _merge_comm_bytes, _rect_elems,
@@ -398,6 +407,12 @@ class _MeshRun:
         self.stage_retries = stage_retries
         self.fault_hook = fault_hook
         self.seen: collections.Counter = collections.Counter()
+        # observability: the tracer is cached once a run (None = tracing
+        # off, the zero-overhead default); the flight ring is always on —
+        # host-side appends never touch the numbers, so runs stay
+        # bit-identical
+        self.tracer = _obs_trace.get_tracer()
+        self.flight = _obs_flight.get_flight()
         #: the worker of a stage that timed out, which may still be
         #: running it
         self.abandoned: Optional[threading.Thread] = None
@@ -435,8 +450,14 @@ class _MeshRun:
         to ``stage_retries`` times (each counted) before
         :class:`StageDispatchError`.  ``fault_hook`` is a test seam called
         as ``(kind, label, attempt)`` before every attempt — raising from
-        it injects a deterministic fault."""
+        it injects a deterministic fault.
+
+        Every dispatch rides the flight ring; terminal failures dump a
+        postmortem artifact (``obs.flight.dump_postmortem`` — a no-op
+        unless a postmortem directory is configured)."""
         attempt = 0
+        self.flight.record("stage_dispatch", stage_kind=kind,
+                           label=label)
         while True:
             try:
                 if self.fault_hook is not None:
@@ -444,17 +465,49 @@ class _MeshRun:
                 return self._execute(kind, label, call, prog)
             except StageTimeoutError:
                 self.stats.timeouts += 1
+                self.flight.record("stage_timeout", stage_kind=kind,
+                                   label=label,
+                                   timeout_s=self.stage_timeout_s)
+                _obs_flight.dump_postmortem(
+                    "stage_timeout",
+                    context={"kind": kind, "label": label,
+                             "timeout_s": self.stage_timeout_s,
+                             "nodes": self.n, "attempt": attempt})
                 raise
-            except StageFailure:
+            except StageFailure as exc:
+                self.flight.record("stage_failure", stage_kind=kind,
+                                   label=label)
+                _obs_flight.dump_postmortem(
+                    "stage_failure",
+                    context={"kind": kind, "label": label,
+                             "nodes": self.n, "attempt": attempt,
+                             "error": repr(exc)})
                 raise
             except Exception as exc:
                 if attempt >= self.stage_retries:
+                    self.flight.record("stage_dispatch_error",
+                                       stage_kind=kind,
+                                       label=label, attempts=attempt + 1)
+                    _obs_flight.dump_postmortem(
+                        "stage_dispatch_error",
+                        context={"kind": kind, "label": label,
+                                 "nodes": self.n,
+                                 "attempts": attempt + 1,
+                                 "stage_retries": self.stage_retries,
+                                 "error": repr(exc)})
                     raise StageDispatchError(
                         f"mesh stage {label!r} failed after "
                         f"{attempt + 1} attempt(s) "
                         f"(stage_retries={self.stage_retries}): "
                         f"{exc!r}") from exc
                 self.stats.retries += 1
+                self.flight.record("stage_retry", stage_kind=kind,
+                                   label=label,
+                                   attempt=attempt)
+                if self.tracer is not None:
+                    self.tracer.instant(_obs_trace.CONTROL_TRACK,
+                                        f"retry:{label}", cat="retry",
+                                        attempt=attempt)
                 attempt += 1
 
     def _sync(self) -> None:
@@ -539,7 +592,9 @@ class _MeshRun:
             # node's branch ends, the nodes running one after another
             n = self.n
             done: List[Optional[float]] = [None] * n
+            tr = self.tracer
             t0 = time.perf_counter()
+            t0_us = tr.now_us() if tr is not None else 0.0
 
             def marks(nd):
                 done[nd] = time.perf_counter() - t0
@@ -553,6 +608,17 @@ class _MeshRun:
                     wall if d is None else d for d in done)
             self.stats.stage_times.append(
                 StageTime(kind, label, wall, dev_done))
+            if tr is not None:
+                # one control-track stage span per StageTime row (the
+                # 1:1 contract), plus a per-node span bounded by each
+                # node's completion time
+                tr.add_complete(_obs_trace.CONTROL_TRACK, label, t0_us,
+                                wall * 1e6, cat=_obs_trace.STAGE_CAT,
+                                args={"kind": kind})
+                for d, done_s in enumerate(dev_done):
+                    tr.add_complete(_obs_trace.device_track(d), label,
+                                    t0_us, done_s * 1e6, cat="device",
+                                    args={"kind": kind})
             return out
         return self._watched(label, body) if timed else body()
 
@@ -815,6 +881,8 @@ def _run_degraded(graph: ModelGraph, weights, x, plan: Plan, nodes: int,
     executor on the same device and carry the mesh run's failure counters
     over, so that ``ExecStats.failure_count`` (and through it
     ``MeasuredOccupancy.failures``) records the degradation."""
+    _obs_flight.get_flight().record("fallback_local",
+                                    graph=graph.name, nodes=nodes)
     out, local_stats = _run_partitioned_local(graph, weights, x, plan,
                                               nodes, backend=backend)
     local_stats.retries = stats.retries

@@ -260,8 +260,8 @@ def train_estimators(cfg: Optional[TraceConfig] = None,
                      gbdt_kwargs: Optional[dict] = None,
                      verbose: bool = False, device="cuda") -> GBDTEstimator:
     """End-to-end: sample traces from the simulator, fit both GBDTs on
-    ``device``.  ``verbose`` logs through ``repro.obs`` in the reference,
-    which the port does not have yet (``GBDTRegressor.fit`` raises)."""
+    ``device``; ``verbose`` logs each fit's progress every 40 trees
+    through ``repro_torch.obs.log`` (``REPRO_LOG``)."""
     cfg = cfg or TraceConfig()
     kw = dict(n_estimators=120, learning_rate=0.15, max_depth=7)
     kw.update(gbdt_kwargs or {})

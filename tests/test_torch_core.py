@@ -129,6 +129,33 @@ def test_searched_plan_feasibility_matches(name):
             j_plan_feasible(gj, pj, nodes)
 
 
+@pytest.mark.parametrize("name", sorted(J_MODELS))
+def test_shard_work_and_its_imbalance_match(name):
+    """``shard_work`` / ``hetero_shard_work`` of every layer under every
+    scheme, the straggler and ``imbalance`` included, equal the
+    reference's at even and uneven node counts and capability weights."""
+    from repro.core.partition import hetero_shard_work as j_hetero
+    from repro.core.partition import shard_work as j_shard_work
+    from repro_torch.core.partition import hetero_shard_work, shard_work
+    gj, gt = _graphs(name, "test")
+    for lj, lt in zip(gj.layers, gt.layers):
+        for scheme in Scheme:
+            js = JScheme(int(scheme))
+            for nodes, halo in ((1, 0), (3, 0), (4, 2), (6, 1)):
+                if halo and scheme == Scheme.OUTC:
+                    continue        # NT halo is undefined for OutC
+                wt = shard_work(lt, scheme, nodes, halo)
+                wj = j_shard_work(lj, js, nodes, halo)
+                assert dataclasses.astuple(wt) == dataclasses.astuple(wj)
+                assert wt.straggler_flops == wj.straggler_flops
+                assert wt.imbalance == wj.imbalance
+            for caps in ((1.0, 1.0, 2.0), (4.0, 1.0, 1.0, 0.5)):
+                wt = hetero_shard_work(lt, scheme, caps)
+                wj = j_hetero(lj, js, caps)
+                assert dataclasses.astuple(wt) == dataclasses.astuple(wj)
+                assert wt.imbalance == wj.imbalance
+
+
 def test_plan_search_runs_a_scalar_only_estimator_as_the_reference():
     """An estimator with only ``i_cost``/``s_cost`` takes the scalar
     search, ``plan_search_reference``: the JAX package's plan, cost and

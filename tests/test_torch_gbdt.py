@@ -137,10 +137,18 @@ def test_forest_predict_exact_after_save_load(tmp_path):
     assert np.array_equal(m2.predict(xt), m2.predict_reference(xt))
 
 
-def test_verbose_fit_waits_for_the_obs_port():
+def test_verbose_fit_waits_for_the_obs_port(monkeypatch, capsys):
+    """Since the port of ``repro.obs``: ``fit(verbose_every=...)`` logs
+    the reference's ``gbdt.fit`` lines under ``REPRO_LOG`` (on stderr)."""
     x, y = _toy(200)
-    with pytest.raises(NotImplementedError, match="A 6.2"):
-        _gbdt(n_estimators=2).fit(x, y, verbose_every=1)
+    monkeypatch.setenv("REPRO_LOG", "1")
+    JGBDT(n_estimators=2).fit(x, y, eval_set=(x, y), verbose_every=1)
+    want = capsys.readouterr()
+    _gbdt(n_estimators=2).fit(x, y, eval_set=(x, y), verbose_every=1)
+    got = capsys.readouterr()
+    assert got.out == want.out == ""
+    assert got.err == want.err
+    assert got.err.count("[gbdt.fit] tree=") == 2
 
 
 # ---------------------------------------------------------------------------

@@ -104,10 +104,17 @@ def test_train_estimators_equals_the_reference(trained, ref_trained):
         assert _same_forest(ref.s_model, port.s_model)
 
 
-def test_verbose_training_waits_for_the_obs_port():
-    with pytest.raises(NotImplementedError, match="A 6.2"):
-        train_estimators(TraceConfig(n_samples=100), verbose=True,
-                         gbdt_kwargs=dict(n_estimators=2), device="cpu")
+def test_verbose_training_waits_for_the_obs_port(monkeypatch, capsys):
+    """Since the port of ``repro.obs``: ``train_estimators(verbose=True)``
+    logs the reference's lines (every 40 trees of each fit)."""
+    monkeypatch.setenv("REPRO_LOG", "json")
+    j_train(JTraceConfig(n_samples=100), verbose=True,
+            gbdt_kwargs=dict(n_estimators=40))
+    want = capsys.readouterr().err
+    train_estimators(TraceConfig(n_samples=100), verbose=True,
+                     gbdt_kwargs=dict(n_estimators=40), device="cpu")
+    got = capsys.readouterr().err
+    assert got == want and len(got.splitlines()) == 2
 
 
 # ---------------------------------------------------------------------------

@@ -28,6 +28,7 @@ from repro_torch import (AnalyticEstimator, DecodeSession, ExecConfig, Mode,
                          plan_decode, plan_search, reference_decode,
                          run_reference)
 from repro_torch import Testbed as TorchTestbed
+from repro_torch import obs
 from repro_torch.configs.edge_models import EDGE_MODELS, resnet18
 from repro_torch.core.graph import (ConvT, LayerSpec, chain, conv_geometries,
                                     shard_halo_pads)
@@ -1120,6 +1121,84 @@ def test_mesh_timeout_during_a_capture_falls_back_after_the_worker(
     local, _ = Session(g, ws, plan, 4, ExecConfig()).run(x)
     assert torch.equal(out, local)
     assert _rel_err(out, run_reference(g, ws, x)) < 1e-4
+    clear_mesh_program_cache()
+
+
+@pytest.mark.parametrize("overlap", [True, False])
+def test_traced_replayed_mesh_run_is_bit_equal_with_spans_one_to_one(
+        cuda, overlap):
+    """Stage programs captured with tracing off, then replayed under a
+    tracer: the replay's output and ExecStats equal the untraced
+    replay's, and the control-track stage spans mirror its stage_times
+    one to one, each compute stage with a device span per node (the
+    spans are recorded on the host around the replay, not in the
+    graph)."""
+    g, plan, ws, x = _mesh_case("mobilenet_prefix", cuda)
+    clear_mesh_program_cache()
+    sess = Session(g, ws, plan, 4, ExecConfig(executor="mesh",
+                                              instrument=True,
+                                              overlap=overlap))
+    for _ in range(3):                  # eager, capture, replay
+        ref, st_ref = sess.run(x)
+    torch.cuda.synchronize()
+    assert all(p.graph.graph is not None
+               for p in mesh_exec._PROGRAMS.values() if p.graph is not None)
+    tr = obs.set_tracer(obs.Tracer())
+    try:
+        out, st = sess.run(x)
+        torch.cuda.synchronize()
+    finally:
+        obs.set_tracer(None)
+    assert torch.equal(out, ref)
+    assert st == st_ref and st.failure_count == 0
+    spans = tr.spans(cat=obs.STAGE_CAT, track=obs.CONTROL_TRACK)
+    assert [(s["name"], s["args"]["kind"]) for s in spans] == \
+        [(t.label, t.kind) for t in st.stage_times]
+    for s, t in zip(spans, st.stage_times):
+        assert s["dur"] == pytest.approx(t.wall_s * 1e6)
+    dev = tr.spans(cat="device")
+    assert len(dev) == sum(len(t.device_done_s) for t in st.stage_times)
+    assert {s["track"] for s in dev} == {obs.device_track(d)
+                                         for d in range(4)}
+    assert _rel_err(out, run_reference(g, ws, x)) < 1e-4
+    clear_mesh_program_cache()
+
+
+def test_mesh_retry_on_the_card(cuda):
+    """A fault injected once before one stage's dispatch, with
+    stage_retries=1: one retry counted, a stage_retry record in the
+    flight ring and a retry instant on the control track, and the output
+    the clean run's bits."""
+    from repro_torch.runtime.mesh_exec import run_partitioned_mesh
+    g, plan, ws, x = _mesh_case("rn_rep", cuda)
+    clear_mesh_program_cache()
+    ref, st_ref = run_partitioned_mesh(g, ws, x, plan, 4)
+    torch.cuda.synchronize()
+    seen = []
+
+    def hook(kind, label, attempt):
+        seen.append((kind, label, attempt))
+        if len(seen) == 2:
+            raise OSError(f"injected fault at {label}")
+
+    obs.get_flight().clear()
+    tr = obs.set_tracer(obs.Tracer())
+    try:
+        out, st = run_partitioned_mesh(g, ws, x, plan, 4, stage_retries=1,
+                                       fault_hook=hook)
+        torch.cuda.synchronize()
+    finally:
+        obs.set_tracer(None)
+    label = seen[1][1]
+    assert seen[2] == (seen[1][0], label, 1)
+    assert st.retries == 1 and st.timeouts == 0 and st.fallbacks == 0
+    assert st == st_ref
+    assert torch.equal(out, ref)
+    ring = [(e["kind"], e.get("label")) for e in obs.get_flight().events()]
+    assert ("stage_retry", label) in ring
+    assert [r["name"] for r in tr._records if r["ph"] == "i"] == \
+        [f"retry:{label}"]
+    obs.get_flight().clear()
     clear_mesh_program_cache()
 
 

@@ -53,7 +53,11 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
                 "repro_torch.cluster.spec", "repro_torch.cluster.estimator",
                 "repro_torch.cluster.simsched",
                 "repro_torch.cluster.calibrate", "repro_torch.cluster.refine",
-                "repro_torch.cluster.serving"}
+                "repro_torch.cluster.serving", "repro_torch.cluster.elastic",
+                "repro_torch.cluster.churn", "repro_torch.obs",
+                "repro_torch.obs.trace", "repro_torch.obs.metrics",
+                "repro_torch.obs.flight", "repro_torch.obs.log",
+                "repro_torch.obs.skew"}
     assert expected <= set(out["mods"])
 
 

@@ -4,6 +4,7 @@ cluster, graph and plan built in both packages, and field-by-field
 comparisons of their results.  The reference side of these modules is
 numpy only, so nothing here compiles a kernel."""
 import dataclasses
+import enum
 import math
 
 import numpy as np
@@ -88,11 +89,18 @@ def to_jplan(plan) -> JPlan:
 
 def plain(x):
     """A comparable form of a result: enums by value, dataclasses and
-    tuples field by field, numpy arrays as lists, NaN as a marker."""
+    tuples field by field (a frontier by its points, stats and every
+    point's plan), numpy arrays as lists, NaN as a marker."""
     if isinstance(x, (Scheme, Mode, JScheme, JMode)):
         return int(x)
+    if isinstance(x, enum.Enum):
+        return plain(x.value)
     if isinstance(x, (Plan, JPlan)):
         return steps(x)
+    if isinstance(x, (tcl.PlanFrontier, jcl.PlanFrontier)):
+        return {"schemes": plain(x.schemes), "points": plain(x.points),
+                "stats": plain(x.stats),
+                "plans": [steps(x.plan(i)) for i in range(len(x))]}
     if dataclasses.is_dataclass(x) and not isinstance(x, type):
         return {f.name: plain(getattr(x, f.name))
                 for f in dataclasses.fields(x)}
