@@ -87,7 +87,22 @@ seeds:
   MobileNet-224 over the reference churn benchmark's gated presets and
   scenarios (seed 0) with the reference's structural claims, and every
   distinct plan the incremental and scratch strategies adopt run on the
-  mesh at its live node count under phases 3 and 9's contract.
+  mesh at its live node count under phases 3 and 9's contract;
+* the LM substrate's serving path (phase 14) — (b) llama3-8b as the
+  registry gives it (bf16, 32 layers, d 4096, 32 heads over 8 KV heads,
+  d_ff 14336, vocab 128256; ~8.03 B parameters made on the card from
+  seed 0) through ``repro_torch.launch.serve.main`` (4 x 16 prompt
+  tokens fed through ``decode_step``, 16 generated greedily), each decode
+  attention through ``flash_decode_paged`` (bf16, grouped heads) on the
+  cache read in place, then ``prefill`` of the served 4 x 32 tokens and
+  of 1 x 4096 through ``flash_attention_bh``: every step's logits within
+  5e-2 of scale of the forward's, greedy tokens equal where the margin
+  is clear, every kernel call of the eager runs held against its plain
+  version; (c) all ten registry archs reduced in f32 on the card (decode
+  equal to the forward, the same weights on the CPU, the window-4 ring
+  buffer, 2 and 1 KV heads); (d) walls, and both attention kernels at
+  the LM's shapes beside plain, library (gather + SDPA with
+  ``enable_gqa``; SDPA) and bound, on the kernels line as ``lm_*``.
 
 All four kernels' launch counters are zeroed just before each path's run
 and read just after: they must equal the launches the plan (or the case
@@ -899,21 +914,25 @@ def phase_decode_grid(dev, errs):
           flush=True)
 
 
-def decode_launch_shape(kp, vp, n_logical) -> dict:
+def decode_launch_shape(kp, vp, n_logical, groups=1) -> dict:
     """The split-KV launch of a paged decode call on pools ``kp``/``vp``
-    behind a table of ``n_logical`` pages: splits (the cluster size),
-    warps a block, blocks, the clusters the card holds at once and the
-    waves the grid takes."""
+    behind a table of ``n_logical`` pages, ``groups`` query rows a pool
+    row: splits (the cluster size), warps a block, blocks, the clusters
+    the card holds at once and the waves the grid takes."""
     import ctypes
     import importlib
+    import torch
     from repro_torch.kernels import build
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
-    bh, _, ps, hd = kp.shape
+    rows, _, ps, hd = kp.shape
+    bh = rows * groups
     splits = fa.decode_splits(bh, n_logical)
     warps = fa.decode_warps(n_logical, ps, splits)
     info = (ctypes.c_int * 4)()
-    rc = build.load("flash_decode_paged").flash_decode_paged_occupancy(
-        bh, hd, int(fa.decode_vec(hd, kp, vp)), splits, warps, info)
+    lib = build.load("flash_decode_paged")
+    fn = (lib.flash_decode_paged_occupancy if kp.dtype == torch.float32
+          else lib.flash_decode_paged_occupancy_bf16)
+    rc = fn(bh, hd, int(fa.decode_vec(hd, kp, vp)), splits, warps, info)
     check(rc == 0, f"flash_decode_paged_occupancy failed: cudaError {rc}")
     threads, smem, clusters, rows = info
     return dict(splits=splits, warps=warps, blocks=bh * splits,
@@ -2865,6 +2884,474 @@ def phase_observe(dev, rows, errs, card):
     return traced
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the LM substrate's serving path (llama3-8b at full width, bf16)
+# ---------------------------------------------------------------------------
+
+#: the reference launcher's defaults at the registry's full llama3-8b
+LM_SERVE = ("--arch", "llama3-8b", "--batch", "4", "--prompt-len", "16",
+            "--gen", "16")
+LM_STEP_TOL = 5e-2              # bf16 decode step vs forward, of scale
+LM_LONG = 4096                  # the B = 1 prefill (the chunked range)
+LM_DECODE_KEYS = 4096           # the long-context decode kernel case
+LM_DECODE_TOL = 1e-3            # the reference's decode == forward (f32)
+LM_WALL_REPS = 5
+
+
+class LMRecorder:
+    """Stand-ins for the models' two attention kernels
+    (``repro_torch.models.attention``'s ``flash_attention_kernel`` and
+    ``flash_decode_paged``) that call the wrappers (so launches count as
+    before) and hold each call at once against its plain version on the
+    card: bf16 within BF16_TOL of scale, f32 within TOL.  Installed with
+    ``with``; ``calls`` and ``err`` per kernel."""
+
+    def __init__(self):
+        self.calls = {"flash_attention_bh": 0, "flash_decode_paged": 0}
+        self.err = {"flash_attention_bh": 0.0, "flash_decode_paged": 0.0}
+        self.abs = dict(self.err)
+
+    def _hold(self, kname, out, plain):
+        import torch
+        e = rel_err(out, plain)
+        tol = BF16_TOL if out.dtype == torch.bfloat16 else TOL
+        check(e < tol, f"{kname} call {self.calls[kname]} {out.dtype} "
+              f"{tuple(out.shape)}: error {e} against plain")
+        self.calls[kname] += 1
+        self.err[kname] = max(self.err[kname], e)
+        self.abs[kname] = max(self.abs[kname], abs_err(out, plain))
+
+    def __enter__(self):
+        import repro_torch.models.attention as lm_attn
+        from repro_torch.kernels.ref import flash_decode_paged_ref
+        self.mod = lm_attn
+        self.saved = (lm_attn.flash_attention_kernel,
+                      lm_attn.flash_decode_paged)
+        flash, decode = self.saved
+
+        def rec_flash(q, k, v, *, causal, window, scale):
+            out = flash(q, k, v, causal=causal, window=window, scale=scale)
+            self._hold("flash_attention_bh", out,
+                       plain_attention(q, k, v, causal, window))
+            return out
+
+        def rec_decode(q, kp, vp, table, kv_len, **kw):
+            out = decode(q, kp, vp, table, kv_len, **kw)
+            self._hold("flash_decode_paged", out, flash_decode_paged_ref(
+                q, kp, vp, table, kv_len, **kw))
+            return out
+        lm_attn.flash_attention_kernel = rec_flash
+        lm_attn.flash_decode_paged = rec_decode
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.flash_attention_kernel, self.mod.flash_decode_paged = \
+            self.saved
+        return False
+
+
+def top2_margin(logits):
+    """The gap between the largest and second-largest logit of each row."""
+    top = logits.float().topk(2, dim=-1).values
+    return top[..., 0] - top[..., 1]
+
+
+def lm_decode_work(rows, groups, hd, kv_len, esize, ps):
+    """(bytes, flops) of one grouped paged decode call: the live K and V
+    rows of every pool row read once, q and out, the live table
+    entries."""
+    pages = -(-kv_len // ps)
+    nbytes = esize * (2 * rows * kv_len * hd + 2 * rows * groups * hd) \
+        + 4.0 * pages
+    return float(nbytes), 4.0 * rows * groups * kv_len * hd
+
+
+def library_lm_decode(q, k, v, kv_len, groups):
+    """One library call for the grouped decode over a contiguous cache:
+    the live keys then SDPA with ``enable_gqa``."""
+    import torch.nn.functional as F
+    B, KV, _, hd = k.shape
+    return F.scaled_dot_product_attention(
+        q.view(B, KV * groups, 1, hd), k[:, :, :kv_len], v[:, :, :kv_len],
+        enable_gqa=True)
+
+
+def phase_lm_kernels(dev, cfg, served, card):
+    """Phase 14d: each attention kernel at the LM's shapes, replayed as a
+    CUDA graph, beside its plain version, one library call and its bound;
+    returns the kernels line's lm_* figures."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (attention,
+                                                     flash_decode_paged)
+    from repro_torch.kernels.ref import flash_decode_paged_ref
+    from repro_torch.models.attention import page_size, page_table
+
+    B, P, G = served["batch"], served["prompt"], served["gen"]
+    H, KV, hd = cfg.n_heads, cfg.n_kv, cfg.hd
+    groups = H // KV
+    gen = torch.Generator(device=dev).manual_seed(14)
+    bf = torch.bfloat16
+    out = {}
+    # decode: the served pass (kv_len 1 .. P + G on a cache of P + G keys,
+    # once a layer) and one call at LM_DECODE_KEYS keys, pools rotated past
+    # the L2
+    for name, cap, lens, layers in (
+            ("served", P + G, list(range(1, P + G + 1)), cfg.n_layers),
+            (f"{LM_DECODE_KEYS} keys", LM_DECODE_KEYS, [LM_DECODE_KEYS], 1)):
+        ps = page_size(cap)
+        table = page_table(cap, dev)
+        pair = 2 * B * KV * cap * hd * 2
+        copies = max(1, -(-LONG_DECODE_BYTES // pair)) if cap > 1024 else 1
+        caches = [(torch.randn((B, KV, cap, hd), generator=gen,
+                               device=dev).to(bf),
+                   torch.randn((B, KV, cap, hd), generator=gen,
+                               device=dev).to(bf)) for _ in range(copies)]
+        q = torch.randn((B * H, hd), generator=gen, device=dev).to(bf)
+        pools = [tuple(t.view(B * KV, cap // ps, ps, hd) for t in c)
+                 for c in caches]
+
+        def kern():
+            return [flash_decode_paged(q, kp, vp, table, n, groups=groups)
+                    for kp, vp in pools for n in lens]
+
+        def plain():
+            return [flash_decode_paged_ref(q, kp, vp, table, n,
+                                           groups=groups)
+                    for kp, vp in pools for n in lens]
+
+        def library():
+            return [library_lm_decode(q, k, v, n, groups)
+                    for k, v in caches for n in lens]
+        work = [lm_decode_work(B * KV, groups, hd, n, 2, ps) for n in lens]
+        nbytes, flops = sum(w[0] for w in work), sum(w[1] for w in work)
+        bound = max(nbytes / PEAK_BYTES, flops / PEAK_BF16_FLOPS) * 1e3
+        lib_out = library()[0].reshape(B * H, hd)
+        k_out = kern()[0]
+        torch.cuda.synchronize()
+        e = rel_err(k_out, lib_out)
+        check(e < BF16_TOL, f"phase 14d decode {name}: kernel against "
+              f"gather + sdpa {e}")
+        row = dict(ms=graph_ms(kern, reps=10) / copies,
+                   plain_ms=graph_ms(plain, reps=3) / copies,
+                   library_ms=graph_ms(library, reps=10) / copies,
+                   bound_ms=bound, calls=len(lens), layers=layers)
+        shape = decode_launch_shape(pools[0][0], pools[0][1], cap // ps,
+                                    groups)
+        print(f"phase 14d: flash_decode_paged {name} (B{B} H{H} KV{KV} "
+              f"hd{hd} bf16, cap {cap}, ps {ps}, {len(lens)} calls "
+              f"kv_len {lens[0]}..{lens[-1]}; {copies} cache copies "
+              f"rotated): {row['ms'] * 1e3:.2f} us, plain "
+              f"{row['plain_ms'] * 1e3:.2f} us, gather + sdpa "
+              f"{row['library_ms'] * 1e3:.2f} us, bound "
+              f"{bound * 1e3:.3f} us by bytes ({nbytes / 1e6:.3f} MB); "
+              f"{shape_text(shape)} [{card}]", flush=True)
+        out[name] = row
+        del caches, pools
+    # prefill: one forward's flash calls at the 4 x (P + G) and the
+    # 1 x LM_LONG shapes
+    for name, b, s in (("served forward", B, P + G),
+                       (f"{LM_LONG} prefill", 1, LM_LONG)):
+        q = torch.randn((b, H, s, hd), generator=gen, device=dev).to(bf)
+        k = torch.randn((b, KV, s, hd), generator=gen, device=dev).to(bf)
+        v = torch.randn((b, KV, s, hd), generator=gen, device=dev).to(bf)
+        sc = 1.0 / hd ** 0.5
+
+        def kern():
+            return attention(q, k, v, causal=True, window=None, scale=sc)
+
+        def library():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  scale=sc, enable_gqa=True)
+        nbytes = 2.0 * (2 * q.numel() + 2 * k.numel())
+        flops = 4.0 * hd * attention_pairs(s, True, None) * b * H
+        t_b, t_o = nbytes / PEAK_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+        e = rel_err(kern(), library())
+        check(e < BF16_TOL, f"phase 14d flash {name}: kernel against sdpa "
+              f"{e}")
+        row = dict(ms=graph_ms(kern, reps=10),
+                   plain_ms=graph_ms(lambda: plain_attention(
+                       q, k, v, True, None), reps=3),
+                   library_ms=graph_ms(library, reps=10),
+                   bound_ms=max(t_b, t_o),
+                   bound_by="bytes" if t_b >= t_o else "operations",
+                   layers=cfg.n_layers)
+        print(f"phase 14d: flash_attention_bh {name} (B{b} H{H} KV{KV} S{s} "
+              f"hd{hd} causal bf16): {row['ms']:.4f} ms, "
+              f"{flops / row['ms'] / 1e9:.1f} TFLOP/s, plain "
+              f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms "
+              f"by its {sdpa_backend(library)} backend, bound "
+              f"{row['bound_ms']:.4f} ms by {row['bound_by']} [{card}]",
+              flush=True)
+        out[name] = row
+        del q, k, v
+    served_dec = out["served"]
+    fwd = [out["served forward"], out[f"{LM_LONG} prefill"]]
+
+    def per_pass(rows, key):
+        return sum(r[key] * r["layers"] for r in rows)
+    return {
+        "flash_decode_paged": {
+            f"lm_{k}": served_dec[k] * served_dec["layers"]
+            for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+        "flash_attention_bh": {
+            f"lm_{k}": per_pass(fwd, k)
+            for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+        "rows": out,
+    }
+
+
+def lm_batch(cfg, b, s, seed, dev):
+    """Seeded numpy tokens (and Whisper's stub audio) on ``dev``."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (b, s)))}
+    if cfg.family == "encdec":
+        batch["audio_embeds"] = torch.from_numpy(
+            (rng.standard_normal((b, cfg.enc_seq, cfg.d_model)) * 0.02)
+            .astype(np.float32))
+    if cfg.family == "vlm":
+        batch["vision_embeds"] = torch.zeros((b, cfg.vision_tokens,
+                                              cfg.d_model))
+    return {k: v.to(dev) for k, v in batch.items()}
+
+
+def lm_decode_run(model, batch, steps, capacity):
+    """``steps`` decode steps of ``batch``'s tokens on a fresh cache; the
+    logits ``[B, steps, V]``."""
+    import torch
+    cache = model.cache_init(batch["tokens"].shape[0], capacity)
+    if model.cfg.family == "encdec":
+        cache["xlayers"] = model.encode_cross(batch["audio_embeds"])
+    out = []
+    for t in range(steps):
+        logits, cache = model.decode_step(
+            cache, batch["tokens"][:, t:t + 1], t)
+        out.append(logits[:, 0])
+    return torch.stack(out, dim=1)
+
+
+def phase_lm_reduced(dev, rec, card):
+    """Phase 14c: all ten registry archs reduced, f32 on the card (TF32
+    off): decode equal to the forward (the reference's 1e-3), the card's
+    logits within TOL of scale of the same weights and tokens on the CPU
+    (plain versions), the sliding-window ring buffer, and GQA variants
+    with 2 and 1 KV heads (so ``groups`` > 1 runs in f32)."""
+    import copy
+    import torch
+    from repro_torch.configs.registry import ARCH_IDS, get_config
+    from repro_torch.models.transformer import Model
+
+    seq, cases = 10, []
+    for arch in ARCH_IDS:
+        cfg = dataclasses.replace(get_config(arch).reduced(),
+                                  dtype="float32")
+        if cfg.moe:     # drop-free routing so teacher forcing == decode
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=float(cfg.moe.n_experts)))
+        if cfg.family == "vlm":
+            cfg = dataclasses.replace(cfg, vision_tokens=0)
+        cases.append((arch, cfg, seq, cfg.attn_window or seq))
+    base = dataclasses.replace(get_config("llama3-8b").reduced(),
+                               dtype="float32")
+    for n_kv in (2, 1):
+        cases.append((f"llama3-8b n_kv {n_kv}",
+                      dataclasses.replace(base, n_kv=n_kv), seq, seq))
+    for arch in ("llama3-8b", "zamba2-1.2b"):
+        cfg = dataclasses.replace(get_config(arch).reduced(),
+                                  dtype="float32", attn_window=4)
+        cases.append((f"{arch} window 4", cfg, 12, 4))
+    worst = {"decode_vs_forward": 0.0, "card_vs_cpu": 0.0}
+    for i, (name, cfg, steps, cap) in enumerate(cases):
+        cpu = Model(cfg, device="cpu").init(
+            torch.Generator().manual_seed(i))
+        model = copy.deepcopy(cpu).to(dev)
+        batch = lm_batch(cfg, 2, steps, i, dev)
+        cbatch = {k: v.cpu() for k, v in batch.items()}
+        with rec:
+            full = model.forward(batch)[0]
+            dec = lm_decode_run(model, batch, steps, cap)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(full).all())
+              and bool(torch.isfinite(dec).all()),
+              f"phase 14c {name}: non-finite logits")
+        e_fwd = rel_err(full.cpu(), cpu.forward(cbatch)[0])
+        e_dec = rel_err(dec.cpu(), lm_decode_run(cpu, cbatch, steps, cap))
+        if "window" in name:      # the last step sees the window only
+            d = abs_err(dec[:, -1], full[:, -1])
+        else:
+            d = abs_err(dec, full)
+        check(e_fwd < TOL and e_dec < TOL,
+              f"phase 14c {name}: card against cpu forward {e_fwd}, decode "
+              f"{e_dec}")
+        check(d < LM_DECODE_TOL, f"phase 14c {name}: decode against the "
+              f"forward {d}")
+        worst["decode_vs_forward"] = max(worst["decode_vs_forward"], d)
+        worst["card_vs_cpu"] = max(worst["card_vs_cpu"], e_fwd, e_dec)
+        del model, cpu
+    print(f"phase 14c: {len(cases)} reduced f32 cases on the card (10 "
+          f"archs, llama3-8b at 2 and 1 KV heads, window 4 on llama3-8b "
+          f"and zamba2): decode against the forward max abs "
+          f"{worst['decode_vs_forward']:.3g} (< {LM_DECODE_TOL}), card "
+          f"against the CPU's plain versions {worst['card_vs_cpu']:.3g} of "
+          f"scale (< {TOL}) [{card}]", flush=True)
+    return worst
+
+
+def phase_lm(dev, errs, card):
+    """Phase 14: the LM substrate's serving path.  (b) llama3-8b at full
+    width in bf16 through ``repro_torch.launch.serve.main`` and
+    ``prefill``, every attention call held against its plain version;
+    (c) the ten archs reduced in f32; (d) walls and the attention kernels
+    at the LM's shapes.  Returns the kernels line's lm_* figures."""
+    import torch
+    from repro_torch.launch import serve
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    args = dict(zip(LM_SERVE[::2], LM_SERVE[1::2]))
+    B, P, G = (int(args[k]) for k in ("--batch", "--prompt-len", "--gen"))
+    argv = [*LM_SERVE, "--full"]
+    zero_counts()
+    t0 = time.perf_counter()
+    res = serve.main(argv)
+    torch.cuda.synchronize()
+    served_s = time.perf_counter() - t0
+    model, cfg = res.model, res.model.cfg
+    n_params = sum(p.numel() for p in model.parameters())
+    check(cfg.dtype == "bfloat16" and cfg.n_layers == 32
+          and cfg.d_model == 4096 and (cfg.n_heads, cfg.n_kv) == (32, 8)
+          and cfg.d_ff == 14336 and cfg.vocab == 128256,
+          f"phase 14: not llama3-8b at full width: {cfg}")
+    steps = P + G
+    counts = read_counts()
+    check_counts("phase 14 serve", counts,
+                 {"flash_decode_paged": cfg.n_layers * steps})
+    lm = {"flash_decode_paged": {"lm_launches":
+                                 counts["flash_decode_paged"]},
+          "flash_attention_bh": {"lm_launches": 0}}
+    print(f"phase 14b: serve.main({' '.join(argv)}): llama3-8b bf16, "
+          f"{cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} heads "
+          f"over {cfg.n_kv} KV heads, hd {cfg.hd}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab}: {n_params / 1e9:.3f} B parameters made on the card "
+          f"from seed 0; {B} x ({P} prompt + {G} generated) tokens in "
+          f"{served_s:.1f} s (weights included); prompt "
+          f"{res.prefill_ms:.1f} ms, {res.decode_ms_per_token:.3f} ms a "
+          f"generated token (eager, first run); launches {counts} [{card}]",
+          flush=True)
+
+    # the same decode again with every kernel call held against plain
+    rec = LMRecorder()
+    with rec:
+        again = serve.generate(model, res.prompts, G)
+    torch.cuda.synchronize()
+    check(torch.equal(again.tokens, res.tokens) and all(
+        torch.equal(a, b) for a, b in zip(again.step_logits,
+                                          res.step_logits)),
+          "phase 14b: a second eager decode differs from the first")
+    check(rec.calls["flash_decode_paged"] == cfg.n_layers * steps,
+          f"phase 14b: {rec.calls} recorded decode calls")
+
+    # prefill forwards: the served tokens, then B = 1 at LM_LONG
+    toks = torch.cat([res.prompts, res.tokens], dim=1)
+    zero_counts()
+    with rec:
+        full = model.prefill({"tokens": toks})
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check_counts("phase 14 prefill", counts,
+                 {"flash_attention_bh": cfg.n_layers})
+    lm["flash_attention_bh"]["lm_launches"] += counts["flash_attention_bh"]
+    steps_logits = torch.stack(res.step_logits, dim=1)
+    e = rel_err(steps_logits, full)
+    err_abs = abs_err(steps_logits, full)
+    check(e < LM_STEP_TOL, f"phase 14b: decode steps against the forward "
+          f"{e} of scale")
+    margin = top2_margin(full[:, P - 1:-1])
+    decided = margin > 2 * err_abs
+    fwd_tok = full[:, P - 1:-1].argmax(-1)
+    check(bool((fwd_tok == res.tokens)[decided].all()),
+          "phase 14b: a greedy token differs from the forward's where the "
+          "margin exceeds twice the error")
+    long_toks = torch.randint(0, cfg.vocab, (1, LM_LONG),
+                              generator=torch.Generator(device=dev)
+                              .manual_seed(1), device=dev)
+    zero_counts()
+    with rec:
+        long_logits = model.prefill({"tokens": long_toks})
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check_counts("phase 14 long prefill", counts,
+                 {"flash_attention_bh": cfg.n_layers})
+    lm["flash_attention_bh"]["lm_launches"] += counts["flash_attention_bh"]
+    check(long_logits.shape == (1, LM_LONG, cfg.vocab)
+          and bool(torch.isfinite(long_logits).all()),
+          f"phase 14b: the {LM_LONG}-token prefill gave "
+          f"{tuple(long_logits.shape)} with non-finite values")
+    del long_logits
+    print(f"phase 14b: {steps} decode steps against the forward of the same "
+          f"{B} x {steps} tokens: {e:.4g} of scale (< {LM_STEP_TOL}), max "
+          f"abs {err_abs:.4g}; greedy tokens equal the forward's at all "
+          f"{int(decided.sum())} of {decided.numel()} positions whose top-two "
+          f"margin exceeds twice that (smallest margin "
+          f"{float(margin.min()):.4g}); {LM_LONG}-token prefill finite; "
+          f"recorded calls held against plain: "
+          f"{rec.calls['flash_decode_paged']} decode (max "
+          f"{rec.err['flash_decode_paged']:.3g} of scale), "
+          f"{rec.calls['flash_attention_bh']} flash (max "
+          f"{rec.err['flash_attention_bh']:.3g}); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB [{card}]",
+          flush=True)
+
+    # walls: decode steps one by one, then the two forwards
+    cache = model.cache_init(B, steps)
+    for t in range(P):
+        _, cache = model.decode_step(cache, res.prompts[:, t:t + 1], t)
+    step_walls = []
+    for i in range(G):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.decode_step(cache, res.tokens[:, i:i + 1], P + i)
+        torch.cuda.synchronize()
+        step_walls.append((time.perf_counter() - t0) * 1e3)
+    last = res.tokens[:, -1:]
+    n_k, dev_ms, busy_ms, by_name = device_profile(
+        lambda: model.decode_step(cache, last, steps - 1), 3)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    print(f"phase 14d: one warm eager decode step (torch.profiler over 3): "
+          f"{profile_text(n_k, dev_ms, busy_ms, spread(step_walls)[0])}; "
+          "largest: " + "; ".join(f"{k[:60]} {v:.3f} ms" for k, v in top)
+          + f" [{card}]", flush=True)
+    fwd_walls = wall_ms(lambda: model.prefill({"tokens": toks}),
+                        LM_WALL_REPS)
+    long_walls = wall_ms(lambda: model.prefill({"tokens": long_toks}),
+                         LM_WALL_REPS)
+    print("phase 14d: warm eager walls (ms, median [min, max]): decode "
+          "step {:.3f} [{:.3f}, {:.3f}] over {} steps ({:.1f} tokens/s at "
+          "batch {}); prefill {} x {} {:.3f} [{:.3f}, {:.3f}]; prefill 1 x "
+          "{} {:.3f} [{:.3f}, {:.3f}] [{}]".format(
+              *spread(step_walls), G, B * 1e3 / spread(step_walls)[0], B, B,
+              steps, *spread(fwd_walls), LM_LONG, *spread(long_walls), card),
+          flush=True)
+    for kname in ("flash_decode_paged", "flash_attention_bh"):
+        errs[kname] = max(errs[kname], rec.abs[kname])
+    served = dict(batch=B, prompt=P, gen=G)
+    del res, again, full, cache, toks, long_toks
+    kern = phase_lm_kernels(dev, cfg, served, card)
+    del model
+    torch.cuda.empty_cache()
+    rec14c = LMRecorder()
+    phase_lm_reduced(dev, rec14c, card)
+    for kname in ("flash_decode_paged", "flash_attention_bh"):
+        errs[kname] = max(errs[kname], rec14c.abs[kname])
+        lm[kname].update(kern[kname])
+    print(f"phase 14: {time.perf_counter() - t_phase:.1f} s [{card}]",
+          flush=True)
+    return lm
+
+
 def run(dev) -> dict:
     import torch
     from repro_torch import obs
@@ -2925,6 +3412,7 @@ def run(dev) -> dict:
             row["refine_metrics"] = mx.snapshot()
     phase_gbdt(dev, rows, errs, card)
     phase_observe(dev, rows, errs, card)
+    lm = phase_lm(dev, errs, card)
     for r in rows:
         r.pop("mesh_inputs")
 
@@ -2962,6 +3450,7 @@ def run(dev) -> dict:
             "plain_ms": sum(r["plain_ms"] for r in rs),
             "bound_ms": bm, "bound_by": by,
             "library_ms": sum(r["library_ms"] for r in rs),
+            **lm.get(kname, {}),
         })
     print("kernel times are per main-path pass on "
           f"{card}: conv2d_shard and matmul_tiled over mobilenet-224 + "
@@ -2970,7 +3459,12 @@ def run(dev) -> dict:
           f"({PROMPT_LEN} + {N_NEW} tokens; kv_len from device memory), "
           "flash_attention_bh over the "
           f"{len(FLASH_CASES)} ops.flash_attention cases; CUDA-graph "
-          "replay", flush=True)
+          "replay; lm_* on the attention kernels: phase 14's llama3-8b "
+          "bf16 serving pass (flash_decode_paged: the served decode's "
+          f"{LM_SERVE[3]} x ({LM_SERVE[5]} + {LM_SERVE[7]}) tokens' "
+          "calls, kv_len from 1; "
+          "flash_attention_bh: one prefill forward of the served tokens "
+          f"and one of 1 x {LM_LONG})", flush=True)
     return {"kernels": kernels}
 
 

@@ -40,16 +40,28 @@ DPP on learned costs — and the §4 baselines it is compared against:
     res = plan_search(graph, est, Testbed(nodes=4))
     rows = baselines.all_solutions(graph, est, Testbed(nodes=4))
 
+The LM substrate's serving path — a registry architecture, its seeded
+weights (or the JAX package's, carried with ``params_from_numpy``),
+prefill and KV-cache decode, attention through the hand-written flash and
+paged-decode kernels:
+
+    from repro_torch.launch import serve
+    res = serve.main(["--arch", "llama3-8b", "--full"])   # bf16 on the card
+    model = Model(get_config("olmo-1b").reduced(), device="cpu")
+
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for ``device="cpu"``.  Deeper layers stay importable from the subpackages
 ``repro_torch.core``, ``repro_torch.gbdt``, ``repro_torch.sim``,
+``repro_torch.models``,
 ``repro_torch.cluster``, ``repro_torch.kernels``, ``repro_torch.runtime``,
 ``repro_torch.launch`` and ``repro_torch.configs``.
 """
 from repro_torch.core import (AnalyticEstimator, GBDTEstimator, Mode, Plan,
                               Scheme, Testbed, baselines, exhaustive_search,
                               fixed_plan, plan_search)
+from repro_torch.configs.registry import ARCH_IDS, get_config
 from repro_torch.launch import make_nodes_mesh
+from repro_torch.models import Model, params_from_numpy
 from repro_torch.sim import TraceConfig, train_estimators
 from repro_torch.runtime import (EXECUTORS, DecodeSession, ExecConfig,
                                  ExecStats, PagedKVCache, Session,
@@ -69,5 +81,6 @@ __all__ = [
     "init_transformer", "transformer_weights_from_numpy",
     "reference_decode", "greedy_decode", "plan_decode", "EXECUTORS",
     "make_nodes_mesh", "GBDTEstimator", "exhaustive_search", "baselines",
-    "TraceConfig", "train_estimators",
+    "TraceConfig", "train_estimators", "Model", "params_from_numpy",
+    "ARCH_IDS", "get_config",
 ]

@@ -48,9 +48,12 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         + [_P],
     },
     "flash_decode_paged": {
-        "flash_decode_paged_f32": [_P] * 5 + [_I] * 6 + [_P] + [_I] * 4
+        "flash_decode_paged_f32": [_P] * 5 + [_I] * 6 + [_P] + [_I] * 5
+        + [_F, _P],
+        "flash_decode_paged_bf16": [_P] * 5 + [_I] * 6 + [_P] + [_I] * 5
         + [_F, _P],
         "flash_decode_paged_occupancy": [_I] * 5 + [_P],
+        "flash_decode_paged_occupancy_bf16": [_I] * 5 + [_P],
     },
     "flash_attention": {
         "flash_attention_f32": [_P] * 4 + [_I] * 7 + [_F, _P],

@@ -1,15 +1,20 @@
 // flash_decode_paged for Hopper (sm_90a): single-query (decode) attention
-// over a paged KV cache, out[bh] = softmax(q[bh] . K[bh]^T * scale) V[bh]
-// over the live keys of one head, in f32.
+// over a paged KV cache, out[bh] = softmax(q[bh] . K[r]^T * scale) V[r]
+// over the live keys of pool row r = bh / groups, accumulated in f32, for
+// float or bfloat16 q and pools (the output in the input's type).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py::
 // flash_decode_paged (body _decode_kernel :77, pallas_call :161), the
 // attention of a decode step.  The scores and the value sum are computed in
 // this kernel's own body; no library call.
 //
-// Layouts: q [BH, hd]; k/v pools [BH, P, ps, hd], contiguous; the page
-// table [n_logical] int32 maps logical page j (keys j*ps .. j*ps + ps - 1)
-// to its physical slot, and is read from device memory.  window is a plain
+// Layouts: q [BH, hd]; k/v pools [BH / groups, P, ps, hd], contiguous;
+// query row bh reads pool row bh / groups (grouped-query heads by index:
+// groups query heads share one KV head, whose rows are read by each of
+// their blocks, never copied; groups = 1 is the reference's one pool row a
+// query row); the page table [n_logical] int32 maps logical page j (keys
+// j*ps .. j*ps + ps - 1) to its physical slot, and is read from device
+// memory.  window is a plain
 // int argument (window < 0: none).  kv_len is an int argument, or, when
 // kv_len_ptr is not null, the int32 that kv_len_ptr points to in device
 // memory, read by every block at its start: the counterpart of the
@@ -29,8 +34,11 @@
 // scores (their exp is exactly 0).
 //
 // What bounds it on the H100: bytes.  Every live key and value row is read
-// once and feeds 4 * hd flops, far below the f32 ridge of ~20 flop/byte,
-// so the least time is the live K/V bytes over 3.35 TB/s.  A decode step
+// once and feeds 4 * hd flops a query row, far below the f32 ridge of ~20
+// flop/byte (and bf16's ~295), so the least time is the live K/V bytes
+// over 3.35 TB/s.  With groups > 1 each query row is its own block, so a
+// KV head's rows are fetched once a query row; the repeats mostly hit L2,
+// and merging a head's query rows into one block is later work.  A decode step
 // at OLMo-1B widths on 4 nodes gives a call 4 heads and up to 512 keys
 // (2 MB at most), so the time goes to latency unless many SMs each keep
 // many rows in flight.  The design:
@@ -45,8 +53,10 @@
 //  * Rows in flight: a block of 8 warps (runs of at most 64 keys) or 32
 //    warps (longer runs, to keep more rows in flight on its SM); each warp
 //    takes U row groups a round.  A row is read by LPR lanes, 16 bytes a
-//    lane (float4) where hd % 4 == 0 and both pools are 16-byte aligned,
-//    else 4 bytes a lane.  The round's table entries are loaded first,
+//    lane (4 floats or 8 bfloat16) where a row is a whole number of 16-byte
+//    pieces and both pools are 16-byte aligned, else one element a lane.
+//    bfloat16 pieces stay packed in registers until the math converts each
+//    element to f32.  The round's table entries are loaded first,
 //    then all 2 * U row loads are issued before any of their math; the U
 //    scores are reduced across the row's lanes together and feed one
 //    online-softmax update a round, in base 2 (q is scaled by
@@ -66,6 +76,7 @@
 // point launches on the given stream and returns cudaGetLastError().
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -87,31 +98,45 @@ __host__ __device__ constexpr int smem_words(int hd, int warps) {
   return (warps + MAX_SPLITS) * (hd + 2);
 }
 
-template <int W>
-struct Vec {
-  float v[W];
+// W elements of T read together: 16 bytes (one 128-bit load) or one element
+template <typename T, int W>
+struct alignas(sizeof(T) * W) Vec {
+  T v[W];
 };
 
-template <int W>
-__device__ __forceinline__ Vec<W> load_global(const float* p) {
-  Vec<W> r;
-  if constexpr (W == 4) {
-    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
-    r.v[0] = t.x;
-    r.v[1] = t.y;
-    r.v[2] = t.z;
-    r.v[3] = t.w;
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+template <typename T, int W>
+__device__ __forceinline__ Vec<T, W> load_global(const T* p) {
+  static_assert(W == 1 || sizeof(T) * W == 16, "one element or 16 bytes");
+  Vec<T, W> r;
+  if constexpr (W == 1) {
+    r.v[0] = p[0];
   } else {
-    r.v[0] = __ldg(p);
+    *reinterpret_cast<uint4*>(r.v) = __ldg(reinterpret_cast<const uint4*>(p));
   }
   return r;
 }
 
-template <int W>
-__device__ __forceinline__ Vec<W> zero_row() {
-  Vec<W> r;
+template <typename T, int W>
+__device__ __forceinline__ Vec<T, W> zero_row() {
+  Vec<T, W> r;
 #pragma unroll
-  for (int e = 0; e < W; ++e) r.v[e] = 0.f;
+  for (int e = 0; e < W; ++e) r.v[e] = from_float<T>(0.f);
   return r;
 }
 
@@ -143,10 +168,10 @@ __device__ __forceinline__ void merge_states(const float* ml,
 
 // One online-softmax update with the U row groups a lane has loaded; row
 // group u is live while u * RPI < lim.
-template <int W, int NC, int U, int LPR>
+template <typename T, int W, int NC, int U, int LPR>
 __device__ __forceinline__ void update(const float (&qr)[NC][W],
-                                       const Vec<W> (&kr)[U][NC],
-                                       const Vec<W> (&vr)[U][NC], int lim,
+                                       const Vec<T, W> (&kr)[U][NC],
+                                       const Vec<T, W> (&vr)[U][NC], int lim,
                                        float& m, float& l,
                                        float (&acc)[NC][W]) {
   constexpr int RPI = 32 / LPR;
@@ -157,7 +182,8 @@ __device__ __forceinline__ void update(const float (&qr)[NC][W],
 #pragma unroll
     for (int c = 0; c < NC; ++c)
 #pragma unroll
-      for (int e = 0; e < W; ++e) t = fmaf(qr[c][e], kr[u][c].v[e], t);
+      for (int e = 0; e < W; ++e)
+        t = fmaf(qr[c][e], to_float(kr[u][c].v[e]), t);
     s[u] = t;
   }
 #pragma unroll
@@ -182,20 +208,20 @@ __device__ __forceinline__ void update(const float (&qr)[NC][W],
     for (int c = 0; c < NC; ++c)
 #pragma unroll
       for (int e = 0; e < W; ++e)
-        acc[c][e] = fmaf(p, vr[u][c].v[e], acc[c][e]);
+        acc[c][e] = fmaf(p, to_float(vr[u][c].v[e]), acc[c][e]);
   }
   m = mx;
 }
 
-// NW warps a block; W floats a load, LPR lanes a row, NC loads a lane a
-// row, U row groups a lane a round.  A lane holds the elements
+// NW warps a block; W elements of T a load, LPR lanes a row, NC loads a
+// lane a row, U row groups a lane a round.  A lane holds the elements
 // (sub + c * LPR) * W + e of its rows.
-template <int NW, int W, int LPR, int NC, int U>
+template <typename T, int NW, int W, int LPR, int NC, int U>
 __global__ void __launch_bounds__(NW * 32, 1) decode_kernel(
-    const float* __restrict__ q, const float* __restrict__ kp,
-    const float* __restrict__ vp, const int* __restrict__ table,
-    float* __restrict__ out, int n_pages, int n_logical, int ps, int hd,
-    int kv_len, const int* __restrict__ kv_len_ptr, int window,
+    const T* __restrict__ q, const T* __restrict__ kp,
+    const T* __restrict__ vp, const int* __restrict__ table,
+    T* __restrict__ out, int n_pages, int n_logical, int ps, int hd,
+    int kv_len, const int* __restrict__ kv_len_ptr, int window, int groups,
     float scale) {
   constexpr int RPI = 32 / LPR;       // rows one load instruction covers
   constexpr int RPW = U * RPI;        // rows of a warp a round
@@ -215,7 +241,7 @@ __global__ void __launch_bounds__(NW * 32, 1) decode_kernel(
   const int bh = blockIdx.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int grp = lane / LPR, sub = lane % LPR;
-  const long long pool = (long long)bh * n_pages * ps * hd;
+  const long long pool = (long long)(bh / groups) * n_pages * ps * hd;
 
   // scores in base 2: q * scale * log2(e), so every exponential is exp2
   const float qscale = scale * 1.4426950408889634f;
@@ -225,7 +251,7 @@ __global__ void __launch_bounds__(NW * 32, 1) decode_kernel(
 #pragma unroll
     for (int e = 0; e < W; ++e) {
       const int d = (sub + c * LPR) * W + e;
-      qr[c][e] = d < hd ? q[(long long)bh * hd + d] * qscale : 0.f;
+      qr[c][e] = d < hd ? to_float(q[(long long)bh * hd + d]) * qscale : 0.f;
       acc[c][e] = 0.f;
     }
   }
@@ -249,7 +275,7 @@ __global__ void __launch_bounds__(NW * 32, 1) decode_kernel(
       phys[u] = u * RPI < lim ? __ldg(table + lp) : 0;
       for (r += RPI; r >= ps; r -= ps) ++lp;
     }
-    Vec<W> kr[U][NC], vr[U][NC];
+    Vec<T, W> kr[U][NC], vr[U][NC];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const bool live = u * RPI < lim;
@@ -258,15 +284,15 @@ __global__ void __launch_bounds__(NW * 32, 1) decode_kernel(
       for (int c = 0; c < NC; ++c) {
         const int e0 = (sub + c * LPR) * W;
         if (live && e0 < hd) {
-          kr[u][c] = load_global<W>(kp + at + e0);
-          vr[u][c] = load_global<W>(vp + at + e0);
+          kr[u][c] = load_global<T, W>(kp + at + e0);
+          vr[u][c] = load_global<T, W>(vp + at + e0);
         } else {
-          kr[u][c] = zero_row<W>();
-          vr[u][c] = zero_row<W>();
+          kr[u][c] = zero_row<T, W>();
+          vr[u][c] = zero_row<T, W>();
         }
       }
     }
-    update<W, NC, U, LPR>(qr, kr, vr, lim, m, l, acc);
+    update<T, W, NC, U, LPR>(qr, kr, vr, lim, m, l, acc);
   }
 
   // the RPI row groups of a warp (LPR < 32), in a fixed xor tree
@@ -324,7 +350,8 @@ __global__ void __launch_bounds__(NW * 32, 1) decode_kernel(
       const int d = d0 + lane;
       float mc, lc, o;
       merge_states(c_ml, c_acc, hd, splits, min(d, hd - 1), &mc, &lc, &o);
-      if (d < hd) out[(long long)bh * hd + d] = o / fmaxf(lc, 1e-30f);
+      if (d < hd)
+        out[(long long)bh * hd + d] = from_float<T>(o / fmaxf(lc, 1e-30f));
     }
   }
 }
@@ -347,21 +374,22 @@ cudaLaunchConfig_t launch_config(int bh, int splits, int warps,
   return cfg;
 }
 
-using Kernel = void (*)(const float*, const float*, const float*, const int*,
-                        float*, int, int, int, int, int, const int*, int,
-                        float);
+template <typename T>
+using Kernel = void (*)(const T*, const T*, const T*, const int*, T*, int,
+                        int, int, int, int, const int*, int, int, float);
 
 // An instance, its shared bytes at a head dim and the rows one of its
 // blocks reads a round.
+template <typename T>
 struct Instance {
-  Kernel kernel;
+  Kernel<T> kernel;
   int smem_bytes;
   int rows_a_round;
 };
 
-template <int NW, int W, int LPR, int NC, int U>
-cudaError_t prepare(int hd, Instance* inst) {
-  inst->kernel = decode_kernel<NW, W, LPR, NC, U>;
+template <typename T, int NW, int W, int LPR, int NC, int U>
+cudaError_t prepare(int hd, Instance<T>* inst) {
+  inst->kernel = decode_kernel<T, NW, W, LPR, NC, U>;
   inst->smem_bytes = smem_words(hd, NW) * 4;
   inst->rows_a_round = NW * U * (32 / LPR);
   // once per instance: room for the shared bytes of its largest head dim
@@ -381,56 +409,79 @@ cudaError_t prepare(int hd, Instance* inst) {
   return cudaSuccess;
 }
 
-// The instance of a block width, head dim and load width.  16-byte loads
-// (vec) take LPR = hd / 4 lanes a row rounded up to 8, 16 or 32, and two
-// loads a lane above hd 128; 4-byte loads take 32 lanes a row and
+// The f32 instance of a block width, head dim and load width.  16-byte
+// loads (vec) take LPR = hd / 4 lanes a row rounded up to 8, 16 or 32, and
+// two loads a lane above hd 128; 4-byte loads take 32 lanes a row and
 // ceil(hd / 32) loads a lane.  U, the row groups a lane loads a round, is
 // 4 in an 8-warp block and 2 in a 32-warp block (held to 64 registers a
 // thread), halved where a lane holds two 16-byte pieces of a row (hd 256)
 // and doubled where it holds at most two floats (4-byte loads, hd <= 64).
 template <int NW>
-cudaError_t pick_width(int hd, int vec, Instance* inst) {
+cudaError_t pick_width(int hd, int vec, Instance<float>* inst) {
   constexpr int U = NW == 8 ? 4 : 2;
   if (vec) {
-    if (hd <= 32) return prepare<NW, 4, 8, 1, U>(hd, inst);
-    if (hd <= 64) return prepare<NW, 4, 16, 1, U>(hd, inst);
-    if (hd <= 128) return prepare<NW, 4, 32, 1, U>(hd, inst);
-    return prepare<NW, 4, 32, 2, U / 2>(hd, inst);
+    if (hd <= 32) return prepare<float, NW, 4, 8, 1, U>(hd, inst);
+    if (hd <= 64) return prepare<float, NW, 4, 16, 1, U>(hd, inst);
+    if (hd <= 128) return prepare<float, NW, 4, 32, 1, U>(hd, inst);
+    return prepare<float, NW, 4, 32, 2, U / 2>(hd, inst);
   }
-  if (hd <= 32) return prepare<NW, 1, 32, 1, 2 * U>(hd, inst);
-  if (hd <= 64) return prepare<NW, 1, 32, 2, 2 * U>(hd, inst);
-  if (hd <= 128) return prepare<NW, 1, 32, 4, U>(hd, inst);
-  return prepare<NW, 1, 32, 8, U / 2>(hd, inst);
+  if (hd <= 32) return prepare<float, NW, 1, 32, 1, 2 * U>(hd, inst);
+  if (hd <= 64) return prepare<float, NW, 1, 32, 2, 2 * U>(hd, inst);
+  if (hd <= 128) return prepare<float, NW, 1, 32, 4, U>(hd, inst);
+  return prepare<float, NW, 1, 32, 8, U / 2>(hd, inst);
 }
 
-cudaError_t pick(int hd, int vec, int warps, Instance* inst) {
+// The bf16 instance: 16-byte loads hold 8 elements, so LPR = hd / 8 lanes a
+// row rounded up to 4, 16 or 32 (one load a lane up to hd 256) and a warp
+// covers 32 / LPR rows a load; U is half the f32 one, which keeps the rows
+// a warp has in flight at hd 128 equal to the f32 kernel's (8 lanes' f32
+// registers hold each lane's 8 converted query and accumulator elements).
+// 2-byte loads take the f32 table's lanes and loads.
+template <int NW>
+cudaError_t pick_width(int hd, int vec, Instance<__nv_bfloat16>* inst) {
+  using B = __nv_bfloat16;
+  constexpr int U = NW == 8 ? 4 : 2;
+  if (vec) {
+    if (hd <= 32) return prepare<B, NW, 8, 4, 1, U / 2>(hd, inst);
+    if (hd <= 64) return prepare<B, NW, 8, 8, 1, U / 2>(hd, inst);
+    if (hd <= 128) return prepare<B, NW, 8, 16, 1, U / 2>(hd, inst);
+    return prepare<B, NW, 8, 32, 1, U / 2>(hd, inst);
+  }
+  if (hd <= 32) return prepare<B, NW, 1, 32, 1, 2 * U>(hd, inst);
+  if (hd <= 64) return prepare<B, NW, 1, 32, 2, 2 * U>(hd, inst);
+  if (hd <= 128) return prepare<B, NW, 1, 32, 4, U>(hd, inst);
+  return prepare<B, NW, 1, 32, 8, U / 2>(hd, inst);
+}
+
+template <typename T>
+cudaError_t pick(int hd, int vec, int warps, Instance<T>* inst) {
   return warps == 8 ? pick_width<8>(hd, vec, inst)
                     : pick_width<32>(hd, vec, inst);
 }
 
+// vec needs rows of whole 16-byte pieces and 16-byte aligned pools
 cudaError_t check_call(int bh, int hd, int vec, int splits, int warps,
-                       const void* kp, const void* vp) {
+                       int groups, int esize, const void* kp,
+                       const void* vp) {
   if (hd < 1 || hd > 256 || bh < 1 || bh > 65535 || splits < 1 ||
-      splits > MAX_SPLITS || (warps != 8 && warps != 32))
+      splits > MAX_SPLITS || (warps != 8 && warps != 32) || groups < 1 ||
+      bh % groups != 0)
     return cudaErrorInvalidValue;
-  if (vec && (hd % 4 != 0 || (uintptr_t)kp % 16 != 0 ||
+  if (vec && ((hd * esize) % 16 != 0 || (uintptr_t)kp % 16 != 0 ||
               (uintptr_t)vp % 16 != 0))
     return cudaErrorInvalidValue;
   return cudaSuccess;
 }
 
-}  // namespace
-
-extern "C" int flash_decode_paged_f32(const float* q, const float* kp,
-                                      const float* vp, const int* table,
-                                      float* out, int bh, int n_pages,
-                                      int n_logical, int ps, int hd,
-                                      int kv_len, const int* kv_len_ptr,
-                                      int window, int splits, int warps,
-                                      int vec, float scale, void* stream) {
-  cudaError_t e = check_call(bh, hd, vec, splits, warps, kp, vp);
+template <typename T>
+int launch(const T* q, const T* kp, const T* vp, const int* table, T* out,
+           int bh, int n_pages, int n_logical, int ps, int hd, int kv_len,
+           const int* kv_len_ptr, int window, int splits, int warps, int vec,
+           int groups, float scale, void* stream) {
+  cudaError_t e = check_call(bh, hd, vec, splits, warps, groups,
+                             (int)sizeof(T), kp, vp);
   if (e != cudaSuccess) return (int)e;
-  Instance inst;
+  Instance<T> inst;
   e = pick(hd, vec, warps, &inst);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchAttribute attr[1];
@@ -438,19 +489,19 @@ extern "C" int flash_decode_paged_f32(const float* q, const float* kp,
       bh, splits, warps, inst.smem_bytes, (cudaStream_t)stream, attr);
   e = cudaLaunchKernelEx(&cfg, inst.kernel, q, kp, vp, table, out, n_pages,
                          n_logical, ps, hd, kv_len, kv_len_ptr, window,
-                         scale);
+                         groups, scale);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
 // The launch shape of a call: info = {threads a block, dynamic shared
 // bytes, clusters the card holds at once, rows a block reads a round}.
-extern "C" int flash_decode_paged_occupancy(int bh, int hd, int vec,
-                                            int splits, int warps,
-                                            int* info) {
-  cudaError_t e = check_call(bh, hd, vec, splits, warps, nullptr, nullptr);
+template <typename T>
+int occupancy(int bh, int hd, int vec, int splits, int warps, int* info) {
+  cudaError_t e = check_call(bh, hd, vec, splits, warps, 1, (int)sizeof(T),
+                             nullptr, nullptr);
   if (e != cudaSuccess) return (int)e;
-  Instance inst;
+  Instance<T> inst;
   e = pick(hd, vec, warps, &inst);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchAttribute attr[1];
@@ -464,4 +515,46 @@ extern "C" int flash_decode_paged_occupancy(int bh, int hd, int vec,
   info[2] = clusters;
   info[3] = inst.rows_a_round;
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int flash_decode_paged_f32(const float* q, const float* kp,
+                                      const float* vp, const int* table,
+                                      float* out, int bh, int n_pages,
+                                      int n_logical, int ps, int hd,
+                                      int kv_len, const int* kv_len_ptr,
+                                      int window, int splits, int warps,
+                                      int vec, int groups, float scale,
+                                      void* stream) {
+  return launch(q, kp, vp, table, out, bh, n_pages, n_logical, ps, hd,
+                kv_len, kv_len_ptr, window, splits, warps, vec, groups, scale,
+                stream);
+}
+
+extern "C" int flash_decode_paged_bf16(const __nv_bfloat16* q,
+                                       const __nv_bfloat16* kp,
+                                       const __nv_bfloat16* vp,
+                                       const int* table, __nv_bfloat16* out,
+                                       int bh, int n_pages, int n_logical,
+                                       int ps, int hd, int kv_len,
+                                       const int* kv_len_ptr, int window,
+                                       int splits, int warps, int vec,
+                                       int groups, float scale,
+                                       void* stream) {
+  return launch(q, kp, vp, table, out, bh, n_pages, n_logical, ps, hd,
+                kv_len, kv_len_ptr, window, splits, warps, vec, groups, scale,
+                stream);
+}
+
+extern "C" int flash_decode_paged_occupancy(int bh, int hd, int vec,
+                                            int splits, int warps,
+                                            int* info) {
+  return occupancy<float>(bh, hd, vec, splits, warps, info);
+}
+
+extern "C" int flash_decode_paged_occupancy_bf16(int bh, int hd, int vec,
+                                                 int splits, int warps,
+                                                 int* info) {
+  return occupancy<__nv_bfloat16>(bh, hd, vec, splits, warps, info);
 }

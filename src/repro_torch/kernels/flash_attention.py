@@ -16,9 +16,11 @@ Dispatch is by device, as for the shard kernels
 the hand-written kernels in ``csrc/flash_decode_paged.cu`` and
 ``csrc/flash_attention.cu`` or raise: a wrong device or dtype is a
 ``TypeError``; a non-contiguous operand, an unsupported head dim and a
-failed build or launch are a ``RuntimeError``.  ``flash_decode_paged``
-takes float32; ``flash_attention_bh`` float32 or bfloat16 (f32
-accumulation, output in the input dtype).  ``flash_decode_paged.launches``
+failed build or launch are a ``RuntimeError``.  Both take float32 or
+bfloat16 (f32 accumulation, output in the input dtype), and both read
+grouped-query heads by index: ``flash_decode_paged``'s ``groups`` query
+rows share one pool row, ``flash_attention_bh``'s ``H / KV`` query heads
+one KV head.  ``flash_decode_paged.launches``
 and ``flash_attention_bh.launches`` count kernel launches.
 
 The paged decode kernel's launch shape is chosen here, on the host, so the
@@ -90,21 +92,27 @@ def decode_warps(n_logical: int, page_size: int, splits: int) -> int:
 
 
 def decode_vec(hd: int, *pools: torch.Tensor) -> bool:
-    """Whether the kernel reads K/V rows 16 bytes a lane: ``hd % 4 == 0``
-    and every pool 16-byte aligned (else 4 bytes a lane).  The CUDA entry
-    point re-checks it and refuses a launch that breaks it."""
-    return hd % 4 == 0 and all(p.data_ptr() % 16 == 0 for p in pools)
+    """Whether the kernel reads K/V rows 16 bytes a lane: a row of ``hd``
+    elements is a whole number of 16-byte pieces (``hd % 4 == 0`` in f32,
+    ``hd % 8 == 0`` in bf16) and every pool 16-byte aligned (else one
+    element a lane).  The CUDA entry point re-checks it and refuses a launch
+    that breaks it."""
+    return all((hd * p.element_size()) % 16 == 0 and p.data_ptr() % 16 == 0
+               for p in pools)
 
 
 def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
                        v_pages: torch.Tensor, page_table, kv_len, *,
                        window: Optional[int] = None,
-                       scale: Optional[float] = None) -> torch.Tensor:
+                       scale: Optional[float] = None,
+                       groups: int = 1) -> torch.Tensor:
     """Decode-step (``q_len == 1``) attention over a paged KV cache.
 
-    ``q``: [BH, hd]; ``k_pages``/``v_pages``: [BH, n_phys_pages,
-    page_size, hd] physical page pool; ``page_table``: [n_logical_pages]
-    int32 mapping logical page ``i`` (keys ``i*ps .. (i+1)*ps - 1``) to its
+    ``q``: [BH, hd]; ``k_pages``/``v_pages``: [BH / groups, n_phys_pages,
+    page_size, hd] physical page pool, pool row ``bh // groups`` serving
+    query row ``bh`` (grouped-query heads: the KV head's rows are read, not
+    repeated; ``groups=1`` is the reference's signature); ``page_table``:
+    [n_logical_pages] int32 mapping logical page ``i`` (keys ``i*ps .. (i+1)*ps - 1``) to its
     physical slot — on the card an int32 CUDA tensor on the pools' device
     (the cache keeps one), on the CPU any int sequence; ``kv_len``: number
     of live keys.  Pages outside the live range (past ``ceil(kv_len/ps)``,
@@ -118,10 +126,14 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
     table, so a device ``kv_len`` past the table reads no page past it;
     the caller bounds it (``PagedKVCache.advance`` does).
     """
-    bh, _, ps, hd = k_pages.shape
+    rows, _, ps, hd = k_pages.shape
+    if groups < 1:
+        raise ValueError(f"groups must be >= 1, got {groups}")
+    bh = rows * groups
     if tuple(q.shape) != (bh, hd) or v_pages.shape != k_pages.shape:
         raise ValueError(f"decode shapes q {tuple(q.shape)}, pools "
-                         f"{tuple(k_pages.shape)}/{tuple(v_pages.shape)}")
+                         f"{tuple(k_pages.shape)}/{tuple(v_pages.shape)}, "
+                         f"groups {groups}")
     _check_window(window)
     on_device = isinstance(kv_len, torch.Tensor)
     if on_device:
@@ -138,9 +150,10 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
                              f"{len(page_table)} pages of {ps} keys in the "
                              f"table")
     scale = 1.0 / math.sqrt(hd) if scale is None else float(scale)
-    if on_cpu(q, k_pages, v_pages):
+    if on_cpu(q, k_pages, v_pages, dtypes=(torch.float32, torch.bfloat16)):
         return flash_decode_paged_ref(q, k_pages, v_pages, page_table,
-                                      kv_len, window=window, scale=scale)
+                                      kv_len, window=window, scale=scale,
+                                      groups=groups)
     if not (isinstance(page_table, torch.Tensor)
             and page_table.device == q.device
             and page_table.dtype == torch.int32):
@@ -150,21 +163,23 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
     if hd > MAX_HEAD_DIM:
         raise RuntimeError(f"flash_decode_paged takes hd <= {MAX_HEAD_DIM}, "
                            f"got {hd}")
-    out = torch.empty((bh, hd), dtype=torch.float32, device=q.device)
+    out = torch.empty((bh, hd), dtype=q.dtype, device=q.device)
     if bh == 0:
         return out
     lib = build.load("flash_decode_paged")
+    fn = (lib.flash_decode_paged_f32 if q.dtype == torch.float32
+          else lib.flash_decode_paged_bf16)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     n_logical = len(page_table)
     splits = decode_splits(bh, n_logical)
-    rc = lib.flash_decode_paged_f32(
+    rc = fn(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         page_table.data_ptr(), out.data_ptr(), bh, k_pages.shape[1],
         n_logical, ps, hd, 0 if on_device else kv_len,
         kv_len.data_ptr() if on_device else None,
         -1 if window is None else int(window),
         splits, decode_warps(n_logical, ps, splits),
-        int(decode_vec(hd, k_pages, v_pages)), scale, stream)
+        int(decode_vec(hd, k_pages, v_pages)), groups, scale, stream)
     if rc != 0:
         raise RuntimeError(f"flash_decode_paged launch failed: cudaError "
                            f"{rc}")

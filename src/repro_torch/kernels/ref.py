@@ -86,11 +86,15 @@ def live_pages(kv_len: int, page_size: int,
 def flash_decode_paged_ref(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, page_table, kv_len,
                            *, window: Optional[int] = None,
-                           scale: Optional[float] = None) -> torch.Tensor:
+                           scale: Optional[float] = None,
+                           groups: int = 1) -> torch.Tensor:
     """Single-query attention over a paged KV cache: ``q`` [BH, hd],
-    pools [BH, P, ps, hd], ``page_table`` [n_logical] (tensor or array).
-    Gathers the live logical pages by table, masks the positions at or past
-    ``kv_len`` and outside the window with :data:`NEG_INF`, then softmax.
+    pools [BH / groups, P, ps, hd], ``page_table`` [n_logical] (tensor or
+    array); query row ``bh`` reads pool row ``bh // groups``, so the call
+    is the ungrouped one on pools repeated ``groups`` times along their
+    first axis.  Gathers the live logical pages by table, masks the
+    positions at or past ``kv_len`` and outside the window with
+    :data:`NEG_INF`, then softmax in f32; the output is in ``q``'s dtype.
     Pages outside ``lo .. hi - 1`` are never read.
 
     ``kv_len`` is an int or a one-element tensor.  A CUDA tensor is not
@@ -98,19 +102,20 @@ def flash_decode_paged_ref(q: torch.Tensor, k_pages: torch.Tensor,
     be captured in a CUDA graph): every page of the table is gathered, and
     the keys outside the live range get :data:`NEG_INF` scores and zero
     values, so what lies in a dead page does not reach the output."""
-    bh, _, ps, hd = k_pages.shape
+    hd = q.shape[1]
+    ps = k_pages.shape[2]
     scale = 1.0 / math.sqrt(hd) if scale is None else scale
     if isinstance(kv_len, torch.Tensor) and kv_len.is_cuda:
         return _decode_masked(q, k_pages, v_pages, page_table,
-                              kv_len.reshape(()), window, scale)
+                              kv_len.reshape(()), window, scale, groups)
     kv_len = int(kv_len)
     lo, hi = live_pages(kv_len, ps, window)
     if hi <= lo:
         return torch.zeros_like(q)
     table = torch.as_tensor(page_table, device=k_pages.device)
     phys = table[lo:hi].long()
-    k = k_pages[:, phys].reshape(bh, -1, hd).float()
-    v = v_pages[:, phys].reshape(bh, -1, hd).float()
+    k = _gather_rows(k_pages, phys, groups)
+    v = _gather_rows(v_pages, phys, groups)
     s = torch.einsum("hd,htd->ht", q.float(), k) * scale
     pos = lo * ps + torch.arange(k.shape[1], device=q.device)
     valid = pos < kv_len
@@ -120,13 +125,21 @@ def flash_decode_paged_ref(q: torch.Tensor, k_pages: torch.Tensor,
     return torch.einsum("ht,htd->hd", p, v).to(q.dtype)
 
 
-def _decode_masked(q, k_pages, v_pages, page_table, kv_len, window, scale):
+def _gather_rows(pages: torch.Tensor, phys: torch.Tensor,
+                 groups: int) -> torch.Tensor:
+    """The pages ``phys`` of every pool row as f32 ``[rows * groups, keys,
+    hd]``, each pool row repeated for its ``groups`` query rows."""
+    rows = pages[:, phys].reshape(pages.shape[0], -1, pages.shape[3]).float()
+    return rows if groups == 1 else rows.repeat_interleave(groups, dim=0)
+
+
+def _decode_masked(q, k_pages, v_pages, page_table, kv_len, window, scale,
+                   groups=1):
     """:func:`flash_decode_paged_ref` over the whole table, with the live
     range taken from the device scalar ``kv_len``."""
-    bh, _, ps, hd = k_pages.shape
     table = torch.as_tensor(page_table, device=k_pages.device).long()
-    k = k_pages[:, table].reshape(bh, -1, hd).float()
-    v = v_pages[:, table].reshape(bh, -1, hd).float()
+    k = _gather_rows(k_pages, table, groups)
+    v = _gather_rows(v_pages, table, groups)
     pos = torch.arange(k.shape[1], device=q.device)
     valid = pos < kv_len
     if window is not None:

@@ -1413,3 +1413,164 @@ def test_gbdt_estimator_refuses_nothing_on_device_forests(cuda):
     sols_cpu = baselines.all_solutions(g, ce_cpu, tb)
     assert {k: v[1] for k, v in sols.items()} == \
         {k: v[1] for k, v in sols_cpu.items()}
+
+
+# ---------------------------------------------------------------------------
+# the LM substrate: bf16 and grouped-query paged decode, models on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("hd", [64, 80, 128, 256])
+@pytest.mark.parametrize("ps,kv_len", [(1, 37), (16, 17), (16, 1500)])
+def test_decode_kernel_bf16_matches_plain(cuda, hd, ps, kv_len):
+    """bf16 q and pools (hd 80: a row of ten 16-byte pieces; odd multiples
+    take the 2-byte route below), f32 accumulation, bf16 out, within the
+    reference's 2e-2 of scale; NaN in every page it must not read."""
+    lh, n_pages = 8, -(-1536 // ps)
+    gen = torch.Generator(device=cuda).manual_seed(hd + ps + kv_len)
+    q = torch.randn((lh, hd), generator=gen, device=cuda).bfloat16()
+    for window in (None, 7, 100):
+        kp, vp, kz, vz, table = (t.bfloat16() if t.is_floating_point()
+                                 else t for t in _paged_pools(
+                                     gen, cuda, lh, hd, ps, n_pages, kv_len,
+                                     window))
+        out = flash_decode_paged(q, kp, vp, table, kv_len, window=window)
+        ref = flash_decode_paged_ref(q, kz, vz, table, kv_len, window=window)
+        torch.cuda.synchronize()
+        assert out.dtype == torch.bfloat16
+        assert bool(torch.isfinite(out).all()), window
+        assert _rel_err(out, ref) < 2e-2, window
+
+
+@pytest.mark.parametrize("hd,offset", [(36, 0), (128, 1)])
+def test_decode_kernel_bf16_on_the_2_byte_route(cuda, hd, offset):
+    lh, ps, n_pages = 4, 16, 20
+    gen = torch.Generator(device=cuda).manual_seed(hd * 3 + offset)
+    q = torch.randn((lh, hd), generator=gen, device=cuda).bfloat16()
+    n = lh * n_pages * ps * hd
+
+    def pool():
+        base = torch.randn(n + offset, generator=gen, device=cuda).bfloat16()
+        return base[offset:].view(lh, n_pages, ps, hd)
+    kp, vp = pool(), pool()
+    assert not fa_mod.decode_vec(hd, kp, vp)
+    table = torch.randperm(n_pages, generator=gen, device=cuda).int()
+    for kv_len, window in ((1, None), (200, None), (320, 33)):
+        out = flash_decode_paged(q, kp, vp, table, kv_len, window=window)
+        ref = flash_decode_paged_ref(q, kp, vp, table, kv_len, window=window)
+        torch.cuda.synchronize()
+        assert _rel_err(out, ref) < 2e-2, (kv_len, window)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("groups", [1, 2, 4, 8])
+def test_decode_kernel_groups_equal_repeated_pools(cuda, dtype, groups):
+    """``groups`` query rows read one pool row: bit-equal to the ungrouped
+    call on pools repeated ``groups`` times (the same launch shape, the
+    same sums), for the by-value and the device ``kv_len`` alike."""
+    rows, ps, n_pages, hd = 4, 16, 64, 128
+    gen = torch.Generator(device=cuda).manual_seed(groups)
+    q = torch.randn((rows * groups, hd), generator=gen, device=cuda).to(dtype)
+    kp = torch.randn((rows, n_pages, ps, hd), generator=gen,
+                     device=cuda).to(dtype)
+    vp = torch.randn_like(kp)
+    table = torch.randperm(n_pages, generator=gen, device=cuda).int()
+    kr, vr = (t.repeat_interleave(groups, dim=0) for t in (kp, vp))
+    length = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    for kv_len, window in ((1, None), (300, None), (1024, 50)):
+        length.fill_(kv_len)
+        got = flash_decode_paged(q, kp, vp, table, kv_len, window=window,
+                                 groups=groups)
+        by_ptr = flash_decode_paged(q, kp, vp, table, length, window=window,
+                                    groups=groups)
+        want = flash_decode_paged(q, kr, vr, table, kv_len, window=window)
+        plain = flash_decode_paged_ref(q, kp, vp, table, kv_len,
+                                       window=window, groups=groups)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and torch.equal(by_ptr, got)
+        tol = 1e-5 if dtype == torch.float32 else 2e-2
+        assert _rel_err(got, plain) < tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_device_kv_len_bit_equal(cuda, dtype):
+    lh, ps, n_pages, hd = 16, 16, 32, 128
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    q = torch.randn((lh, hd), generator=gen, device=cuda).to(dtype)
+    kp = torch.randn((lh // 4, n_pages, ps, hd), generator=gen,
+                     device=cuda).to(dtype)
+    vp = torch.randn_like(kp)
+    table = torch.arange(n_pages, dtype=torch.int32, device=cuda)
+    length = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    for kv_len in (1, 16, 17, 500, 512):
+        length.fill_(kv_len)
+        a = flash_decode_paged(q, kp, vp, table, kv_len, groups=4)
+        b = flash_decode_paged(q, kp, vp, table, length, groups=4)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b), kv_len
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cap", [32, 10, 17])
+def test_lm_cache_viewed_as_pools(cuda, dtype, cap):
+    """A contiguous LM cache ``[B, KV, cap, hd]`` read in place through the
+    identity table of ``models.attention.page_table`` (32 keys: pages of
+    16; 10: one page of 10; 17: pages of 1), 32 query heads over 8 KV
+    heads, against the plain version on the gathered, repeated keys."""
+    from repro_torch.models.attention import page_size, page_table
+    B, H, KV, hd = 4, 32, 8, 128
+    gen = torch.Generator(device=cuda).manual_seed(cap)
+    k = torch.randn((B, KV, cap, hd), generator=gen, device=cuda).to(dtype)
+    v = torch.randn_like(k)
+    q = torch.randn((B * H, hd), generator=gen, device=cuda).to(dtype)
+    table = page_table(cap, cuda)
+    ps = page_size(cap)
+    pools = [t.view(B * KV, cap // ps, ps, hd) for t in (k, v)]
+    for kv_len in (1, cap // 2, cap):
+        out = flash_decode_paged(q, *pools, table, kv_len, groups=H // KV)
+        kf = k[:, :, :kv_len].float().repeat_interleave(H // KV, dim=1)
+        vf = v[:, :, :kv_len].float().repeat_interleave(H // KV, dim=1)
+        s = torch.einsum("bhd,bhtd->bht", q.float().view(B, H, hd), kf) \
+            / hd ** 0.5
+        want = torch.einsum("bht,bhtd->bhd", torch.softmax(s, -1), vf)
+        torch.cuda.synchronize()
+        tol = 1e-5 if dtype == torch.float32 else 2e-2
+        assert _rel_err(out.view(B, H, hd), want) < tol, kv_len
+
+
+@pytest.mark.parametrize("arch", ["llama3-8b", "whisper-small",
+                                  "zamba2-1.2b", "deepseek-v2-236b"])
+def test_lm_decode_on_the_card_matches_the_cpu(cuda, arch):
+    """A reduced registry model on the card (f32, TF32 off) against the
+    same weights on the CPU (plain versions): forward and ten decode steps
+    within 1e-4 of scale; the attention kernels launched where the model
+    has GQA self-attention."""
+    import copy
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.transformer import Model
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    cpu = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    card = copy.deepcopy(cpu).to(cuda)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 10)))
+    batch = {"tokens": toks}
+    if cfg.family == "encdec":
+        batch["audio_embeds"] = torch.from_numpy(
+            (rng.standard_normal((2, cfg.enc_seq, cfg.d_model)) * 0.02)
+            .astype(np.float32))
+    f0, d0 = flash_attention_bh.launches, flash_decode_paged.launches
+    want = cpu.forward(batch)[0]
+    got = card.forward({k: v.to(cuda) for k, v in batch.items()})[0]
+    assert _rel_err(got.cpu(), want) < 1e-4
+    caches = [m.cache_init(2, 10) for m in (cpu, card)]
+    if cfg.family == "encdec":
+        caches[0]["xlayers"] = cpu.encode_cross(batch["audio_embeds"])
+        caches[1]["xlayers"] = card.encode_cross(
+            batch["audio_embeds"].to(cuda))
+    for t in range(10):
+        a, _ = cpu.decode_step(caches[0], toks[:, t:t + 1], t)
+        b, _ = card.decode_step(caches[1], toks[:, t:t + 1].to(cuda), t)
+        assert _rel_err(b.cpu(), a) < 1e-4, t
+    gqa = not cfg.mla
+    assert (flash_attention_bh.launches > f0) == gqa
+    assert (flash_decode_paged.launches > d0) == gqa
