@@ -102,7 +102,22 @@ seeds:
   equal to the forward, the same weights on the CPU, the window-4 ring
   buffer, 2 and 1 KV heads); (d) walls, and both attention kernels at
   the LM's shapes beside plain, library (gather + SDPA with
-  ``enable_gqa``; SDPA) and bound, on the kernels line as ``lm_*``.
+  ``enable_gqa``; SDPA) and bound, on the kernels line as ``lm_*``;
+* the LM training path (phase 15) — (a) olmo-1b as the registry gives
+  it (bf16, 16 layers, d 2048, 16 heads, d_ff 8192, vocab 50304, tied;
+  ~1.177 B parameters made on the card from seed 0) trained 8 steps of
+  4 x 2048 tokens through ``repro_torch.launch.train.main``: finite
+  losses, the last below the first, ``flash_attention_bh`` launched
+  twice a layer a step (forward and the remat recompute, counted from
+  the config); (d) the warm step's walls, tokens/s and model-flops
+  share, one warm step under ``torch.profiler``, the AdamW pass, the
+  kernel with its log-sum-exp and the plain flash backward at the
+  step's shape (the ``train_*`` fields of the kernels line); (b)
+  olmo-1b's widths at 2 layers, f32 and bf16: every gradient through
+  the kernel forward (each call's out and lse held against plain)
+  against the plain forward under autograd; (c) the ten registry archs
+  reduced, f32, one train step (``accum`` 2 on llama3-8b) against the
+  same weights and batch on the CPU.
 
 All four kernels' launch counters are zeroed just before each path's run
 and read just after: they must equal the launches the plan (or the case
@@ -142,6 +157,7 @@ non-zero and prints no result.
 """
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -1272,9 +1288,10 @@ def attention_pairs(S, causal, window) -> int:
     return int((hi - lo).sum())
 
 
-def plain_attention(q, k, v, causal, window):
+def plain_attention(q, k, v, causal, window, lse=False):
     """The plain version one head at a time (the [S, S] scores of one head
-    at a time fit in memory), query head h reading kv head h // (H / KV)."""
+    at a time fit in memory), query head h reading kv head h // (H / KV);
+    with ``lse`` also the plain log-sum-exp [B, H, S]."""
     import torch
     from repro_torch.kernels.ref import flash_attention_ref
     rep = q.shape[1] // k.shape[1]
@@ -1283,7 +1300,10 @@ def plain_attention(q, k, v, causal, window):
         g = h // rep
         outs.append(flash_attention_ref(q[:, h:h + 1], k[:, g:g + 1],
                                         v[:, g:g + 1], causal=causal,
-                                        window=window))
+                                        window=window, return_lse=lse))
+    if lse:
+        return (torch.cat([o for o, _ in outs], dim=1),
+                torch.cat([x for _, x in outs], dim=1))
     return torch.cat(outs, dim=1)
 
 
@@ -2903,13 +2923,17 @@ class LMRecorder:
     (``repro_torch.models.attention``'s ``flash_attention_kernel`` and
     ``flash_decode_paged``) that call the wrappers (so launches count as
     before) and hold each call at once against its plain version on the
-    card: bf16 within BF16_TOL of scale, f32 within TOL.  Installed with
-    ``with``; ``calls`` and ``err`` per kernel."""
+    card: bf16 within BF16_TOL of scale, f32 within TOL; a flash call that
+    writes its log-sum-exp (a training forward) has it held within TOL of
+    the plain one, whatever the dtype (both score in f32).  Installed with
+    ``with``; ``calls`` and ``err`` per kernel, ``lse_calls`` and
+    ``lse_err``."""
 
     def __init__(self):
         self.calls = {"flash_attention_bh": 0, "flash_decode_paged": 0}
         self.err = {"flash_attention_bh": 0.0, "flash_decode_paged": 0.0}
         self.abs = dict(self.err)
+        self.lse_calls, self.lse_err = 0, 0.0
 
     def _hold(self, kname, out, plain):
         import torch
@@ -2929,11 +2953,25 @@ class LMRecorder:
                       lm_attn.flash_decode_paged)
         flash, decode = self.saved
 
-        def rec_flash(q, k, v, *, causal, window, scale):
-            out = flash(q, k, v, causal=causal, window=window, scale=scale)
-            self._hold("flash_attention_bh", out,
-                       plain_attention(q, k, v, causal, window))
-            return out
+        def rec_flash(q, k, v, *, causal, window, scale, return_lse=False):
+            if not return_lse:
+                out = flash(q, k, v, causal=causal, window=window,
+                            scale=scale)
+                self._hold("flash_attention_bh", out,
+                           plain_attention(q, k, v, causal, window))
+                return out
+            out, lse = flash(q, k, v, causal=causal, window=window,
+                             scale=scale, return_lse=True)
+            plain, plain_lse = plain_attention(q, k, v, causal, window,
+                                               lse=True)
+            self._hold("flash_attention_bh", out, plain)
+            e = rel_err(lse, plain_lse)
+            n = self.calls["flash_attention_bh"]
+            check(e < TOL, f"flash_attention_bh call {n}: lse error {e} "
+                  f"against plain")
+            self.lse_calls += 1
+            self.lse_err = max(self.lse_err, e)
+            return out, lse
 
         def rec_decode(q, kp, vp, table, kv_len, **kw):
             out = decode(q, kp, vp, table, kv_len, **kw)
@@ -3352,6 +3390,352 @@ def phase_lm(dev, errs, card):
     return lm
 
 
+
+#: phase 15: olmo-1b trained at full width in bf16 through the launcher
+TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = "olmo-1b", 8, 4, 2048
+TRAIN_WARM = 2                  # steps left out of the warm walls
+#: 15b: olmo-1b's widths at 2 layers, kernel forward against plain
+GRAD_LAYERS, GRAD_BATCH, GRAD_SEQ = 2, 2, 2048
+#: 15c: the reduced archs' batch (rows, tokens); llama3-8b with accum 2
+REDUCED_BATCH, REDUCED_SEQ, ACCUM_ARCH = 4, 24, "llama3-8b"
+TRAIN_SCHED = dict(peak_lr=1e-3, warmup=0, total=4)   # lr = peak at step 0
+ADAMW_TOL = 1e-6                # AdamW on the same gradients, of scale
+
+
+def train_flash_launches(cfg, accum=1) -> int:
+    """flash_attention_bh launches of one train step: each GQA
+    self-attention in a checkpointed block runs twice (forward, and the
+    recompute in the backward); Zamba2's shared attention block runs
+    outside the checkpoint, once; MLA and RWKV have none."""
+    if cfg.mla or cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        every = cfg.hybrid_attn_every or cfg.n_layers
+        return accum * -(-cfg.n_layers // every)
+    return accum * 2 * (cfg.n_layers + cfg.n_enc_layers)
+
+
+class PlainSelfAttention:
+    """Within ``with``, ``gqa_full``'s self-attention is the plain version
+    under plain autograd (``flash_attention_ref``), not the kernel's
+    autograd Function: the reference of phase 15b."""
+
+    class _Plain:
+        @staticmethod
+        def apply(q, k, v, causal, window, scale, grad):
+            from repro_torch.kernels.ref import flash_attention_ref
+            return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       scale=scale)
+
+    def __enter__(self):
+        import repro_torch.models.attention as lm_attn
+        self.mod, self.saved = lm_attn, lm_attn.FlashSDPA
+        lm_attn.FlashSDPA = self._Plain
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.FlashSDPA = self.saved
+        return False
+
+
+def train_batch(cfg, b, s, seed, dev):
+    """``SyntheticLMDataset(seed)``'s batch 0 on ``dev`` (int64 tokens)."""
+    import torch
+    from repro_torch.data import SyntheticLMDataset
+    ds = SyntheticLMDataset(vocab=cfg.vocab, seq_len=s, global_batch=b,
+                            seed=seed)
+    return {k: torch.from_numpy(v).long().to(dev)
+            for k, v in ds.batch(0).items()}
+
+
+def kernel_share(by_name):
+    """(flash ms, cuBLAS ms, other ms) of a profile's kernels by name."""
+    flash = sum(v for k, v in by_name.items() if "flash_kernel" in k)
+    blas = sum(v for k, v in by_name.items() if "flash_kernel" not in k
+               and any(t in k.lower() for t in ("gemm", "xmma", "nvjet",
+                                                "cutlass", "cublas")))
+    return flash, blas, sum(by_name.values()) - flash - blas
+
+
+def phase_train_walls(dev, res, card):
+    """Phase 15d: the warm full-width step's walls, one warm step under
+    ``torch.profiler``, the AdamW pass alone, the flash kernel at the
+    step's shape (forward with lse) and the plain flash backward, each a
+    step's worth; returns the kernels line's train_* fields."""
+    import torch
+    from repro_torch.kernels.flash_attention import attention
+    from repro_torch.models.attention import flash_backward
+    from repro_torch.optim import adamw_update, cosine_schedule
+    from repro_torch.runtime.steps import loss_and_grads, make_train_step
+
+    model, cfg = res.model, res.model.cfg
+    med, lo, hi = spread(res.step_ms[TRAIN_WARM:])
+    flops = 6.0 * res.n_params * res.tokens_per_step
+    print(f"phase 15d: warm eager step (steps {TRAIN_WARM}..{TRAIN_STEPS - 1})"
+          f" median {med:.1f} ms [{lo:.1f}, {hi:.1f}], first "
+          f"{res.step_ms[0]:.1f} ms; {res.tokens_per_step / med * 1e3:.0f} "
+          f"tokens/s; model-flops share 6 N T / (step x 989 TFLOP/s) = "
+          f"{flops / (med / 1e3) / PEAK_BF16_FLOPS * 100:.1f}% (N "
+          f"{res.n_params}, T {res.tokens_per_step}); peak memory "
+          f"{res.peak_bytes / 2 ** 30:.2f} GiB [{card}]", flush=True)
+
+    step = make_train_step(model, total=TRAIN_STEPS,
+                           warmup=max(1, TRAIN_STEPS // 10))
+    batch = train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, 1, dev)
+    opt = res.opt_state
+
+    def one():
+        step(model, opt, batch)
+    walls = wall_ms(one, 1)
+    n_k, dev_ms, busy_ms, by_name = device_profile(one, 1)
+    flash_ms, blas_ms, other_ms = kernel_share(by_name)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    print(f"phase 15d: one warm step under torch.profiler: "
+          f"{profile_text(n_k, dev_ms, busy_ms, walls[0])}; "
+          f"flash_attention_bh {flash_ms:.2f} ms, cuBLAS {blas_ms:.2f} ms, "
+          f"the rest {other_ms:.2f} ms; largest: "
+          + "; ".join(f"{k[:60]} {v:.2f} ms" for k, v in top)
+          + f" [{card}]", flush=True)
+
+    _, grads = loss_and_grads(model, batch)
+    params = dict(model.named_parameters())
+    lr = cosine_schedule(opt["step"], peak_lr=3e-4, warmup=1,
+                         total=TRAIN_STEPS)
+    _, adam_ms, _, adam_names = device_profile(
+        lambda: adamw_update(grads, opt, params, lr), 1)
+    del grads
+    torch.cuda.empty_cache()
+
+    # the flash kernel (forward with lse) and the plain backward at the
+    # step's shape, one layer's call each, times the step's calls
+    gen = torch.Generator(device=dev).manual_seed(15)
+    H, hd = cfg.n_heads, cfg.hd
+    shape = (TRAIN_BATCH, H, TRAIN_SEQ, hd)
+    q, k, v, dout = (torch.randn(shape, generator=gen, device=dev)
+                     .to(torch.bfloat16) for _ in range(4))
+    sc = hd ** -0.5
+    out, lse = attention(q, k, v, causal=True, window=None, scale=sc,
+                         return_lse=True)
+    fwd_ms = graph_ms(lambda: attention(q, k, v, causal=True, window=None,
+                                        scale=sc, return_lse=True), reps=10)
+    bwd_ms = graph_ms(lambda: flash_backward(q, k, v, out, lse, dout,
+                                             causal=True, window=None,
+                                             scale=sc), reps=3)
+    launches = train_flash_launches(cfg)
+    pairs = attention_pairs(TRAIN_SEQ, True, None) * TRAIN_BATCH * H
+    # each input read once, out and the f32 lse written once
+    nbytes = 2.0 * 4 * q.numel() + 4.0 * lse.numel()
+    t_b = nbytes / PEAK_BYTES * 1e3
+    t_o = 4.0 * hd * pairs / PEAK_BF16_FLOPS * 1e3
+    bound, by = max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+    print(f"phase 15d: AdamW pass over {len(params)} tensors "
+          f"({res.n_params} weights) "
+          + (f"{adam_ms:.2f} ms of kernels ({len(adam_names)} kernel names)"
+             if adam_ms is not None else "not measured")
+          + f"; flash_attention_bh at {list(shape)} bf16 causal with lse "
+          f"{fwd_ms:.3f} ms a call ({4.0 * hd * pairs / fwd_ms / 1e9:.1f} "
+          f"TFLOP/s; bound {bound:.4f} ms by {by}), x {launches} a "
+          f"step = {fwd_ms * launches:.2f} ms; the "
+          f"plain flash backward (the reference's _flash_bwd, PyTorch ops) "
+          f"{bwd_ms:.3f} ms a call, x {cfg.n_layers} a step = "
+          f"{bwd_ms * cfg.n_layers:.2f} ms [{card}]", flush=True)
+    return {"train_launches": launches,
+            "train_ms": fwd_ms * launches,
+            "train_bound_ms": bound * launches,
+            "train_profile_ms": flash_ms if dev_ms is not None else None,
+            "train_plain_bwd_ms": bwd_ms * cfg.n_layers,
+            "train_step_ms": med}
+
+
+def phase_train_grads(dev, card):
+    """Phase 15b: olmo-1b's widths at GRAD_LAYERS layers, f32 and bf16:
+    every gradient through the kernel forward (each call's out and lse held
+    against plain as it runs) against the one through the plain forward
+    under autograd; every parameter with a plain gradient has one from the
+    kernel forward."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.transformer import Model
+    from repro_torch.runtime.steps import loss_and_grads
+
+    worst = {}
+    for dtype, tol in (("float32", TOL), ("bfloat16", BF16_TOL)):
+        cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                                  n_layers=GRAD_LAYERS, dtype=dtype)
+        model = Model(cfg, device=dev).init(
+            torch.Generator(device=dev).manual_seed(15))
+        model.requires_grad_(True)
+        batch = train_batch(cfg, GRAD_BATCH, GRAD_SEQ, 15, dev)
+        rec = LMRecorder()
+        zero_counts()
+        with rec:
+            loss_k, g_k = loss_and_grads(model, batch)
+        torch.cuda.synchronize()
+        want = train_flash_launches(cfg)
+        check_counts(f"phase 15b {dtype} kernel forward", read_counts(),
+                     {"flash_attention_bh": want})
+        check(rec.lse_calls == want, f"phase 15b {dtype}: {rec.lse_calls} "
+              f"calls wrote lse, {want} expected")
+        zero_counts()
+        with PlainSelfAttention():
+            loss_p, g_p = loss_and_grads(model, batch)
+        torch.cuda.synchronize()
+        check_counts(f"phase 15b {dtype} plain forward", read_counts(), {})
+        e_loss = abs(float(loss_k) - float(loss_p)) / max(1.0, abs(float(
+            loss_p)))
+        check(e_loss < tol, f"phase 15b {dtype}: loss {float(loss_k)} "
+              f"against plain {float(loss_p)}")
+        e_grad, live = 0.0, 0
+        for n, gp in g_p.items():
+            gk = g_k[n]
+            if float(gp.abs().max()) > 0:
+                live += 1
+                check(float(gk.abs().max()) > 0, f"phase 15b {dtype}: {n} "
+                      f"has no gradient through the kernel forward")
+            e = rel_err(gk, gp)
+            check(e < tol, f"phase 15b {dtype}: {n} gradient {e} of scale "
+                  f"against the plain forward's")
+            e_grad = max(e_grad, e)
+        worst[dtype] = dict(loss=e_loss, grad=e_grad, lse=rec.lse_err,
+                            abs=rec.abs["flash_attention_bh"])
+        print(f"phase 15b: {cfg.name} widths at {GRAD_LAYERS} layers "
+              f"{dtype}, B{GRAD_BATCH} S{GRAD_SEQ}: loss {float(loss_k):.6f} "
+              f"against plain {float(loss_p):.6f}; {live} of {len(g_p)} "
+              f"gradients live, each within {e_grad:.3g} of scale of the "
+              f"plain forward's (< {tol}); {rec.lse_calls} kernel calls "
+              f"with lse, out within {rec.err['flash_attention_bh']:.3g}, "
+              f"lse within {rec.lse_err:.3g} of scale of plain (< {TOL}) "
+              f"[{card}]", flush=True)
+        del model, g_k, g_p
+        torch.cuda.empty_cache()
+    return worst
+
+
+def phase_train_reduced(dev, card):
+    """Phase 15c: the ten registry archs reduced, f32 on the card (TF32
+    off) against the same weights and batch on the CPU: the loss and every
+    gradient within TOL of scale (``accum`` 2 on ACCUM_ARCH), AdamW on the
+    CPU's gradients within ADAMW_TOL of scale on both, and one
+    ``make_train_step`` step each (every weight within ``2 lr (1 + 0.1
+    |p|)`` of the CPU's: AdamW's sign sensitivity, see
+    ``tests/test_torch_train.py``)."""
+    import copy
+    import torch
+    from repro_torch.configs.registry import ARCH_IDS, get_config
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim import adamw_init, adamw_update, cosine_schedule
+    from repro_torch.runtime.steps import loss_and_grads, make_train_step
+
+    worst = {"loss": 0.0, "grad": 0.0, "adamw": 0.0, "step": 0.0}
+    lr = cosine_schedule(0, **TRAIN_SCHED)
+    for i, arch in enumerate(ARCH_IDS):
+        cfg = dataclasses.replace(get_config(arch).reduced(),
+                                  dtype="float32")
+        accum = 2 if arch == ACCUM_ARCH else 1
+        cpu = Model(cfg, device="cpu").init(torch.Generator().manual_seed(i))
+        model = copy.deepcopy(cpu).to(dev)
+        batch = lm_batch(cfg, REDUCED_BATCH, REDUCED_SEQ, i, dev)
+        batch["labels"] = batch["tokens"]
+        cbatch = {k: v.cpu() for k, v in batch.items()}
+        for m in (cpu, model):
+            m.requires_grad_(True)
+        l_c, g_c = loss_and_grads(cpu, cbatch, accum=accum)
+        zero_counts()
+        l_k, g_k = loss_and_grads(model, batch, accum=accum)
+        torch.cuda.synchronize()
+        check_counts(f"phase 15c {arch}", read_counts(),
+                     {"flash_attention_bh": train_flash_launches(cfg, accum)})
+        e_loss = abs(float(l_k) - float(l_c)) / max(1.0, abs(float(l_c)))
+        e_grad = max(rel_err(g_k[n].cpu(), g) for n, g in g_c.items())
+        check(e_loss < TOL and e_grad < TOL, f"phase 15c {arch}: loss "
+              f"{e_loss}, gradients {e_grad} of scale against the CPU")
+        pc = {n: p.detach().clone() for n, p in cpu.named_parameters()}
+        pk = {n: p.to(dev) for n, p in pc.items()}
+        adamw_update(g_c, adamw_init(pc), pc, lr)
+        adamw_update({n: g.to(dev) for n, g in g_c.items()},
+                     adamw_init(pk), pk, lr.to(dev))
+        e_ada = max(rel_err(pk[n].cpu(), pc[n]) for n in pc)
+        check(e_ada < ADAMW_TOL, f"phase 15c {arch}: AdamW on the same "
+              f"gradients {e_ada} of scale apart")
+        steps = [make_train_step(m, accum=accum, **TRAIN_SCHED)
+                 for m in (cpu, model)]
+        steps[0](cpu, adamw_init(dict(cpu.named_parameters())), cbatch)
+        steps[1](model, adamw_init(dict(model.named_parameters())), batch)
+        e_step = 0.0
+        for (n, a), (_, b) in zip(cpu.named_parameters(),
+                                  model.named_parameters()):
+            d = (b.detach().cpu() - a.detach()).abs()
+            bound = 2 * float(lr) * (1 + 0.1 * a.detach().abs()) + 1e-6
+            check(bool((d <= bound).all()), f"phase 15c {arch}: {n} moved "
+                  f"{float((d - bound).max())} past the step bound")
+            e_step = max(e_step, float(d.max()))
+        for key, e in (("loss", e_loss), ("grad", e_grad), ("adamw", e_ada),
+                       ("step", e_step)):
+            worst[key] = max(worst[key], e)
+        del cpu, model
+    print(f"phase 15c: {len(ARCH_IDS)} reduced archs f32, B{REDUCED_BATCH} "
+          f"S{REDUCED_SEQ} ({ACCUM_ARCH} with accum 2), card against CPU: "
+          f"loss {worst['loss']:.3g}, gradients {worst['grad']:.3g} of "
+          f"scale (< {TOL}); AdamW on the same gradients "
+          f"{worst['adamw']:.3g} (< {ADAMW_TOL}); one full step's weights "
+          f"apart by at most {worst['step']:.3g} (lr {float(lr)}) [{card}]",
+          flush=True)
+    return worst
+
+
+def phase_train(dev, errs, card):
+    """Phase 15: the LM training path.  (a) olmo-1b at full width in bf16
+    through ``repro_torch.launch.train.main``; (d) its walls and profile;
+    (b) gradients through the kernel forward against the plain forward;
+    (c) the ten reduced archs' train step against the CPU.  Returns the
+    kernels line's train_* fields."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import train
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    argv = ["--arch", TRAIN_ARCH, "--full", "--steps", str(TRAIN_STEPS),
+            "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ)]
+    zero_counts()
+    t0 = time.perf_counter()
+    res = train.main(argv)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = read_counts()
+    cfg = res.model.cfg
+    check(dataclasses.asdict(cfg) == dataclasses.asdict(
+        get_config(TRAIN_ARCH)) and cfg.dtype == "bfloat16",
+        f"phase 15a: not {TRAIN_ARCH} at full width in bf16: {cfg}")
+    want = cfg.n_layers * 2 * TRAIN_STEPS
+    check(want == train_flash_launches(cfg) * TRAIN_STEPS,
+          "phase 15a: launches a step disagree with the layer count")
+    check_counts("phase 15a train", counts, {"flash_attention_bh": want})
+    check(all(math.isfinite(x) for x in res.losses),
+          f"phase 15a: non-finite loss {res.losses}")
+    check(res.losses[-1] < res.losses[0], f"phase 15a: the loss did not "
+          f"fall: {res.losses}")
+    print(f"phase 15a: train.main({' '.join(argv)}): {cfg.name} bf16, "
+          f"{cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} heads, hd "
+          f"{cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, tied "
+          f"{cfg.tie_embeddings}: {res.n_params} parameters made on the "
+          f"card from seed 0; {TRAIN_STEPS} steps of {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} tokens in {run_s:.1f} s (weights included); losses "
+          + ", ".join(f"{x:.4f}" for x in res.losses) + "; lrs "
+          + ", ".join(f"{x:.3g}" for x in res.lrs)
+          + f"; launches {counts} [{card}]", flush=True)
+    fields = phase_train_walls(dev, res, card)
+    del res
+    torch.cuda.empty_cache()
+    grads = phase_train_grads(dev, card)
+    errs["flash_attention_bh"] = max(errs["flash_attention_bh"],
+                                     *(g["abs"] for g in grads.values()))
+    phase_train_reduced(dev, card)
+    print(f"phase 15: {time.perf_counter() - t_phase:.1f} s [{card}]",
+          flush=True)
+    return fields
+
+
 def run(dev) -> dict:
     import torch
     from repro_torch import obs
@@ -3413,6 +3797,7 @@ def run(dev) -> dict:
     phase_gbdt(dev, rows, errs, card)
     phase_observe(dev, rows, errs, card)
     lm = phase_lm(dev, errs, card)
+    lm["flash_attention_bh"].update(phase_train(dev, errs, card))
     for r in rows:
         r.pop("mesh_inputs")
 
@@ -3464,7 +3849,10 @@ def run(dev) -> dict:
           f"{LM_SERVE[3]} x ({LM_SERVE[5]} + {LM_SERVE[7]}) tokens' "
           "calls, kv_len from 1; "
           "flash_attention_bh: one prefill forward of the served tokens "
-          f"and one of 1 x {LM_LONG})", flush=True)
+          f"and one of 1 x {LM_LONG}); train_* on flash_attention_bh: "
+          f"phase 15's {TRAIN_ARCH} bf16 step of {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} tokens (its calls with lse, graph replay) beside "
+          "the plain flash backward", flush=True)
     return {"kernels": kernels}
 
 

@@ -56,8 +56,8 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "flash_decode_paged_occupancy_bf16": [_I] * 5 + [_P],
     },
     "flash_attention": {
-        "flash_attention_f32": [_P] * 4 + [_I] * 7 + [_F, _P],
-        "flash_attention_bf16": [_P] * 4 + [_I] * 7 + [_F, _P],
+        "flash_attention_f32": [_P] * 5 + [_I] * 7 + [_F, _P],
+        "flash_attention_bf16": [_P] * 5 + [_I] * 7 + [_F, _P],
         "flash_attention_occupancy": [_I] * 6 + [_P],
     },
 }

@@ -14,7 +14,12 @@
 // no repeated copy of k and v exists.  Any S: keys at or past S are masked
 // and query rows at or past S are not stored, so nothing is padded (the
 // reference's wrapper pads S with zero keys that its non-causal kernel
-// does not mask).  Masked scores are the finite NEG_INF = -1e30, so a tile
+// does not mask).  Given an lse pointer, it also writes f32 [B, H, S], each
+// row's log-sum-exp m + log(l) of its masked scale q k scores in natural-log
+// units (the reference's _flash_fwd keeps it for its backward,
+// src/repro/models/attention.py:156-162); a null pointer writes nothing
+// more and leaves the output's bits as they were.
+// Masked scores are the finite NEG_INF = -1e30, so a tile
 // with every key masked contributes 0 and never a NaN.  Any hd from 1 to
 // 256: the instance of the next head dim in 32, 64, 96, 128, 192, 256
 // takes it, its shared tiles zero past hd.
@@ -87,6 +92,7 @@ constexpr int STAGES = 2;  // the k/v ring
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 using bf16 = __nv_bfloat16;
 
@@ -390,8 +396,9 @@ __device__ __forceinline__ void store_pair(bf16* p, float a, float b) {
 template <typename T, int HD, int MT>
 __global__ void __launch_bounds__(THREADS) flash_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, T* __restrict__ out, int BH, int H, int KV,
-    int S, int hd, int causal, int window, float scale, int per) {
+    const T* __restrict__ v, T* __restrict__ out, float* __restrict__ lse,
+    int BH, int H, int KV, int S, int hd, int causal, int window,
+    float scale, int per) {
   using C = Tile<T, HD, MT>;
   constexpr int BQ = C::BQ, BK = C::BK;
   constexpr int LDQ = C::LDQ, LDK = C::LDK, LDV = C::LDV;
@@ -579,6 +586,14 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(
     l1 += __shfl_xor_sync(FULL, l1, 2);
     const float inv0 = 1.f / fmaxf(l0, 1e-30f);
     const float inv1 = 1.f / fmaxf(l1, 1e-30f);
+    // lse = m + log(l) in natural-log units of scale q k (m is held in
+    // base 2); one lane of the four that share a row stores it
+    if (lse != nullptr && t == 0) {
+      const int r = qw + 16 * mt + g;
+      float* lr = lse + (long long)bh * S;
+      if (r < S) lr[r] = m[mt][0] * LN2 + logf(fmaxf(l0, 1e-30f));
+      if (r + 8 < S) lr[r + 8] = m[mt][1] * LN2 + logf(fmaxf(l1, 1e-30f));
+    }
     T* om = ow + 16 * mt * LDQ;
 #pragma unroll
     for (int n = 0; n < ON; ++n) {
@@ -692,9 +707,9 @@ int copy_width(const void* q, const void* k, const void* v, const void* out,
 }
 
 template <typename T>
-int dispatch(const T* q, const T* k, const T* v, T* out, int B, int H,
-             int KV, int S, int hd, int causal, int window, float scale,
-             void* stream) {
+int dispatch(const T* q, const T* k, const T* v, T* out, float* lse, int B,
+             int H, int KV, int S, int hd, int causal, int window,
+             float scale, void* stream) {
   const int per = copy_width<T>(q, k, v, out, hd);
   if (per == 0) return (int)cudaErrorInvalidValue;
   return with_instance<T>(B, H, S, hd, causal, [&](auto inst) {
@@ -706,8 +721,8 @@ int dispatch(const T* q, const T* k, const T* v, T* out, int B, int H,
     if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
     flash_kernel<T, I::HD, I::MT>
         <<<(unsigned)blocks, THREADS, smem_bytes<T, I::HD, I::MT>(),
-           (cudaStream_t)stream>>>(q, k, v, out, B * H, H, KV, S, hd, causal,
-                                   window, scale, per);
+           (cudaStream_t)stream>>>(q, k, v, out, lse, B * H, H, KV, S, hd,
+                                   causal, window, scale, per);
     return (int)cudaGetLastError();
   });
 }
@@ -730,20 +745,24 @@ int occupancy(int B, int H, int S, int hd, int causal, int* info) {
 
 }  // namespace
 
+// lse: null, or f32 [B, H, S] that takes each query row's log-sum-exp of
+// its masked scale q k scores (what the flash backward recomputes p from).
 extern "C" int flash_attention_f32(const float* q, const float* k,
-                                   const float* v, float* out, int B, int H,
-                                   int KV, int S, int hd, int causal,
-                                   int window, float scale, void* stream) {
-  return dispatch(q, k, v, out, B, H, KV, S, hd, causal, window, scale,
+                                   const float* v, float* out, float* lse,
+                                   int B, int H, int KV, int S, int hd,
+                                   int causal, int window, float scale,
+                                   void* stream) {
+  return dispatch(q, k, v, out, lse, B, H, KV, S, hd, causal, window, scale,
                   stream);
 }
 
 extern "C" int flash_attention_bf16(const void* q, const void* k,
-                                    const void* v, void* out, int B, int H,
-                                    int KV, int S, int hd, int causal,
-                                    int window, float scale, void* stream) {
+                                    const void* v, void* out, float* lse,
+                                    int B, int H, int KV, int S, int hd,
+                                    int causal, int window, float scale,
+                                    void* stream) {
   return dispatch((const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out,
-                  B, H, KV, S, hd, causal, window, scale, stream);
+                  lse, B, H, KV, S, hd, causal, window, scale, stream);
 }
 
 // The launch shape of the instance that takes a call: info = {query rows a

@@ -191,13 +191,16 @@ flash_decode_paged.launches = 0
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool, window: Optional[int],
-              scale: Optional[float]) -> torch.Tensor:
+              causal: bool, window: Optional[int], scale: Optional[float],
+              return_lse: bool = False):
     """The flash attention kernel on the model layout: ``q`` [B, H, S, hd],
     ``k``/``v`` [B, KV, S, hd] with ``H % KV == 0`` (GQA by index, no
-    repeated copy).  The one place :data:`flash_attention_bh.launches`
-    counts; :func:`flash_attention_bh` and ``ops.flash_attention`` call
-    it."""
+    repeated copy).  With ``return_lse`` it returns ``(out, lse)``, ``lse``
+    f32 [B, H, S] each query row's log-sum-exp of its masked ``scale q k``
+    scores (natural log), which the flash backward recomputes the weights
+    from; without it only ``out``, whose bits do not depend on the flag.
+    The one place :data:`flash_attention_bh.launches` counts;
+    :func:`flash_attention_bh` and ``ops.flash_attention`` call it."""
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
         raise ValueError(f"attention shapes q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
@@ -212,7 +215,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     dtypes = (torch.float32, torch.bfloat16)
     if on_cpu(q, k, v, dtypes=dtypes):
         return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   scale=scale)
+                                   scale=scale, return_lse=return_lse)
     _need_contiguous("flash_attention_bh", q, k, v)
     if hd > MAX_HEAD_DIM:
         raise RuntimeError(f"flash_attention_bh takes hd <= {MAX_HEAD_DIM}, "
@@ -221,20 +224,23 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(f"flash_attention_bh takes B*H <= 65535, got "
                            f"{B * H}")
     out = torch.empty_like(q)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     if q.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     lib = build.load("flash_attention")
     fn = (lib.flash_attention_f32 if q.dtype == torch.float32
           else lib.flash_attention_bf16)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H,
-            KV, S, hd, int(causal), -1 if window is None else int(window),
-            scale, stream)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if return_lse else None, B, H, KV, S, hd,
+            int(causal), -1 if window is None else int(window), scale,
+            stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_bh launch failed: cudaError "
                            f"{rc}")
     flash_attention_bh.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 def flash_attention_bh(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -152,11 +152,14 @@ def _decode_masked(q, k_pages, v_pages, page_table, kv_len, window, scale,
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: Optional[int] = None,
-                        scale: Optional[float] = None) -> torch.Tensor:
+                        scale: Optional[float] = None,
+                        return_lse: bool = False):
     """Naive masked softmax attention in f32: ``q`` [..., H, S, hd], ``k``
     and ``v`` [..., KV, S, hd] with ``H % KV == 0`` (query head ``h`` reads
     kv head ``h // (H / KV)``).  Causal and sliding-window masks as the
-    kernel's; the output is in the input dtype."""
+    kernel's; the output is in the input dtype.  ``return_lse`` also
+    returns each row's f32 log-sum-exp of its masked scores ``[..., H,
+    S]``, as the kernel does."""
     S, hd = q.shape[-2:]
     scale = 1.0 / math.sqrt(hd) if scale is None else scale
     rep = q.shape[-3] // k.shape[-3]
@@ -170,5 +173,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         mask &= ki <= qi
     if window is not None:
         mask &= ki > qi - window
-    p = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
-    return (p @ vf).to(q.dtype)
+    s = torch.where(mask, s, NEG_INF)
+    out = (torch.softmax(s, dim=-1) @ vf).to(q.dtype)
+    if return_lse:
+        return out, torch.logsumexp(s, dim=-1)
+    return out

@@ -47,11 +47,14 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+@torch.no_grad()
 def generate(model: Model, prompts: torch.Tensor, n_gen: int,
              audio: Optional[torch.Tensor] = None) -> ServeResult:
     """Feed ``prompts`` through ``decode_step`` one position at a time,
     then generate ``n_gen`` tokens greedily, on a cache of exactly the
-    positions it needs (the window's, where the config has one)."""
+    positions it needs (the window's, where the config has one).  No
+    autograd graph is built, whether or not the weights require
+    gradients."""
     cfg, dev = model.cfg, model.device
     B, P = prompts.shape
     cache = model.cache_init(B, capacity=cfg.attn_window or (P + n_gen))

@@ -16,6 +16,12 @@ Cross-attention (keys from the encoder, another length than the queries)
 and MLA stay plain torch, as in the reference, which computes them
 outside Pallas: MLA's prefill has a 192-wide qk head over a 128-wide v head
 the flash kernel does not take, and its decode attends in the latent space.
+
+Training differentiates the self-attention through :class:`FlashSDPA`,
+the port of the reference's ``_chunked_sdpa`` ``custom_vjp``: its forward
+is the flash kernel writing its log-sum-exp, its backward
+:func:`flash_backward`, the reference's ``_flash_bwd`` (jnp there, plain
+torch here).
 """
 from __future__ import annotations
 
@@ -31,6 +37,8 @@ from .common import _param, apply_mrope, apply_rope
 
 #: the largest page of the decode kernel's view of a cache
 PAGE_SIZE = 16
+#: keys a chunk of the flash backward (the reference's ``_KV_CHUNK``)
+KV_CHUNK = 512
 
 
 # ---------------------------------------------------------------------------
@@ -97,6 +105,108 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Differentiable self-attention: the flash forward and its backward
+# ---------------------------------------------------------------------------
+
+def _chunk_valid(k0: int, k1: int, S: int, causal: bool,
+                 window: Optional[int], device) -> Optional[torch.Tensor]:
+    """[S, k1 - k0] mask of queries 0 .. S-1 against keys k0 .. k1-1 (the
+    reference's ``_chunk_valid`` by index, positions being 0 .. S-1); None
+    where nothing is masked."""
+    if not causal and window is None:
+        return None
+    qi = torch.arange(S, device=device)[:, None]
+    ki = torch.arange(k0, k1, device=device)[None, :]
+    valid = torch.ones((S, k1 - k0), dtype=torch.bool, device=device)
+    if causal:
+        valid &= ki <= qi
+    if window is not None:
+        valid &= ki > qi - window
+    return valid
+
+
+def flash_backward(q, k, v, out, lse, dout, *, causal: bool,
+                   window: Optional[int], scale: float):
+    """The reference's ``_flash_bwd`` (``src/repro/models/attention.py``
+    :165), line for line: ``D = rowsum(dout * out)`` in f32, then per
+    :data:`KV_CHUNK` keys the scores recomputed and masked, ``p = exp(s -
+    lse)``, ``dv``, ``dp``, ``ds = p (dp - D) scale`` in q's dtype, ``dq``
+    summed in f32 and ``dk``.  ``q``/``out``/``dout`` [B, H, S, hd], ``k``/
+    ``v`` [B, KV, S, hd], ``lse`` f32 [B, H, S]; in the grouped layout
+    ``[B, KV, G, S, hd]`` (query head ``h`` reads KV head ``h // G``) the
+    G heads of a group sum into their KV head's ``dk``/``dv``.  The
+    reference's backward is jnp that XLA runs, not a Pallas kernel; this is
+    its plain-torch port, which the card runs as PyTorch ops (a
+    hand-written flash backward is later work).  The last chunk is the
+    keys left, where the reference pads with masked keys that add 0.
+    Returns ``(dq, dk, dv)`` in the inputs' dtypes."""
+    B, H, S, hd = q.shape
+    KV = k.shape[1]
+    G = H // KV
+    dt = q.dtype
+    qg = q.reshape(B, KV, G * S, hd)
+    dog = dout.reshape(B, KV, G * S, hd)
+    lse_g = lse.reshape(B, KV, G, S, 1)
+    D = (dout.float() * out.float()).sum(-1).reshape(B, KV, G, S, 1)
+    dq = torch.zeros((B, KV, G * S, hd), dtype=torch.float32,
+                     device=q.device)
+    dks, dvs = [], []
+    for k0 in range(0, S, KV_CHUNK):
+        k1 = min(S, k0 + KV_CHUNK)
+        kb, vb = k[:, :, k0:k1], v[:, :, k0:k1]
+        s = (qg @ kb.transpose(-1, -2)).float().reshape(
+            B, KV, G, S, k1 - k0) * scale
+        valid = _chunk_valid(k0, k1, S, causal, window, q.device)
+        if valid is not None:
+            s = torch.where(valid, s, NEG_INF)
+        p = torch.exp(s - lse_g)                       # [B,KV,G,S,C]
+        pq = p.to(dt).reshape(B, KV, G * S, k1 - k0)
+        dvs.append(pq.transpose(-1, -2) @ dog)
+        dp = (dog @ vb.transpose(-1, -2)).float().reshape(p.shape)
+        ds = (p * (dp - D) * scale).to(dt).reshape(pq.shape)
+        dq = dq + (ds @ kb).float()
+        dks.append(ds.transpose(-1, -2) @ qg)
+    dq = dq.reshape(B, H, S, hd)
+    return (dq.to(dt), torch.cat(dks, dim=2).to(k.dtype),
+            torch.cat(dvs, dim=2).to(v.dtype))
+
+
+class FlashSDPA(torch.autograd.Function):
+    """Self-attention with the reference's flash ``custom_vjp``
+    (``_chunked_sdpa``): the forward is the flash kernel
+    (``kernels.flash_attention.attention``; its plain version on CPU
+    tensors), which also writes its log-sum-exp when a gradient is wanted;
+    the backward is :func:`flash_backward` on the saved q, k, v, out and
+    lse.  ``q`` [B, H, S, hd], ``k``/``v`` [B, KV, S, hd], contiguous;
+    ``grad`` is ``torch.is_grad_enabled()`` at the call (inside ``forward``
+    grad mode is off, and ``needs_input_grad`` follows ``requires_grad``
+    alone), so a call under ``no_grad`` writes no lse and saves nothing.
+    The kernel itself has no autograd: called bare on the card, its output
+    would carry no gradient to q, k and v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: Optional[int],
+                scale: float, grad: bool):
+        if not (grad and any(ctx.needs_input_grad[:3])):
+            return flash_attention_kernel(q, k, v, causal=causal,
+                                          window=window, scale=scale)
+        out, lse = flash_attention_kernel(q, k, v, causal=causal,
+                                          window=window, scale=scale,
+                                          return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.attn_args = (causal, window, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, scale = ctx.attn_args
+        dq, dk, dv = flash_backward(q, k, v, out, lse, dout, causal=causal,
+                                    window=window, scale=scale)
+        return dq, dk, dv, None, None, None, None
+
+
+# ---------------------------------------------------------------------------
 # GQA full forward (train / prefill / encoder / cross)
 # ---------------------------------------------------------------------------
 
@@ -136,11 +246,12 @@ def gqa_full(cfg, p: Attention, x: torch.Tensor, *, causal: bool = True,
     scale = 1.0 / math.sqrt(hd)
     if kv_x is None:
         # self-attention: the flash kernel at every length (the reference's
-        # _sdpa below CHUNKED_SEQ_THRESHOLD and _chunked_sdpa from it on);
-        # masks by index, which is the reference's by pos (0 .. S-1)
-        out = flash_attention_kernel(q.contiguous(), k.contiguous(),
-                                     v.contiguous(), causal=causal,
-                                     window=window, scale=scale)
+        # _sdpa below CHUNKED_SEQ_THRESHOLD and _chunked_sdpa from it on),
+        # with _chunked_sdpa's flash backward; masks by index, which is the
+        # reference's by pos (0 .. S-1)
+        out = FlashSDPA.apply(q.contiguous(), k.contiguous(),
+                              v.contiguous(), causal, window, scale,
+                              torch.is_grad_enabled())
     else:
         out = _sdpa(q.reshape(B, KV, H // KV, S, hd), k, v, None,
                     scale).reshape(B, H, S, hd)

@@ -98,8 +98,9 @@ class Norm(torch.nn.Module):
 
 
 def _param(shape, device, dtype) -> torch.nn.Parameter:
-    """An uninitialised serving weight (no gradient until training is
-    ported)."""
+    """An uninitialised weight, created frozen (``requires_grad=False``):
+    serving keeps no gradient state; training turns gradients on with
+    ``model.requires_grad_(True)`` (``runtime.steps.make_train_step``)."""
     return torch.nn.Parameter(torch.empty(shape, device=device, dtype=dtype),
                               requires_grad=False)
 
@@ -174,8 +175,16 @@ def act_fn(name: str):
     raise ValueError(name)
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean token CE in fp32. logits [..., V], labels [...] int."""
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token CE in fp32. logits [..., V], labels [...] int; with
+    ``mask`` [...] the mean over the masked-in tokens, ``sum(nll * mask) /
+    max(sum(mask), 1)``.  The gold logit is a gather (the reference's
+    masked sum over a one-hot adds exact zeros: the same value)."""
     logits = logits.float()
     gold = logits.gather(-1, labels[..., None].long())[..., 0]
-    return (torch.logsumexp(logits, dim=-1) - gold).mean()
+    nll = torch.logsumexp(logits, dim=-1) - gold
+    if mask is not None:
+        mask = mask.to(nll.dtype)
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()

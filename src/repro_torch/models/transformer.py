@@ -11,6 +11,13 @@ across leaf for leaf, a copy and never a transpose.  Entry points:
   * ``encode`` / ``encode_cross`` (Whisper)
   * ``cache_init(batch, capacity)``, ``decode_step(cache, tok, t)``
 
+``forward``, ``encode`` and ``loss`` are differentiable (training); with
+``remat`` each block runs under ``torch.utils.checkpoint`` (non-reentrant),
+as the reference wraps each scanned block in ``jax.checkpoint``: its
+activations are recomputed in the backward.  ``prefill``, ``encode_cross``
+and ``decode_step`` run under ``no_grad``.  :func:`params_to_numpy` is the
+inverse of :func:`params_from_numpy`.
+
 The reference scans stacked layer parameters (``lax.scan``); here the
 layers are a ``ModuleList`` walked in a Python loop.  Its ``constrain``
 calls (the sharding context's re-layout points) are the identity without
@@ -28,6 +35,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import attention as A
 from . import ffn as F
@@ -120,6 +128,17 @@ def _mamba_block(cfg, p: MambaBlock, x):
 def _rwkv_block(cfg, p: RWKVBlock, x):
     x = x + S.rwkv6_time_mix(cfg, p.tmix, apply_norm(cfg, x, p.ln1))
     return x + S.rwkv6_channel_mix(cfg, p.tmix, apply_norm(cfg, x, p.ln2))
+
+
+def _block(remat: bool, fn, *args):
+    """``fn(*args)``, under non-reentrant activation checkpointing when
+    ``remat`` and autograd records (the reference's ``jax.checkpoint``
+    around a scanned block).  The blocks draw no random numbers, so the
+    RNG state is not saved."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
 
 
 def _dense_cfg(cfg):
@@ -240,11 +259,10 @@ class Model(torch.nn.Module):
         return pos[None].expand(B, Stx), None
 
     # ---------------- full forward ----------------
-    @torch.no_grad()
     def forward(self, batch: Dict[str, torch.Tensor], *,
                 remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
         """Returns (logits over the decoder stream, aux loss).  ``remat``
-        is accepted and ignored (no backward until training is ported)."""
+        checkpoints each block (:func:`_block`)."""
         cfg = self.cfg
         window = cfg.attn_window
         x = self.tok_emb[batch["tokens"]]
@@ -253,27 +271,30 @@ class Model(torch.nn.Module):
             x = torch.cat([batch["vision_embeds"].to(x.dtype), x], dim=1)
         pos, pos3 = self._positions(batch)
 
+        def dense(c, p):
+            return lambda h: _dense_block(c, p, h, pos, pos3, window)
+
         fam = cfg.family
         if fam in ("dense", "vlm"):
             for p in self.blocks:
-                x = _dense_block(cfg, p, x, pos, pos3, window)
+                x = _block(remat, dense(cfg, p), x)
         elif fam == "moe":
             if cfg.moe.first_dense:
                 for p in self.first_blocks:
-                    x = _dense_block(_dense_cfg(cfg), p, x, pos, pos3,
-                                     window)
+                    x = _block(remat, dense(_dense_cfg(cfg), p), x)
             auxs = []
             for p in self.blocks:
-                x, a = _moe_block(cfg, p, x, pos, pos3, window)
+                x, a = _block(remat, lambda h, p=p: _moe_block(
+                    cfg, p, h, pos, pos3, window), x)
                 auxs.append(a)
             aux = aux + torch.stack(auxs).sum()
         elif fam == "ssm":
             for p in self.blocks:
-                x = _rwkv_block(cfg, p, x)
+                x = _block(remat, lambda h, p=p: _rwkv_block(cfg, p, h), x)
         elif fam == "hybrid":
-            x = self._hybrid_forward(x, pos, window)
+            x = self._hybrid_forward(x, pos, window, remat)
         elif fam == "encdec":
-            x = self._encdec_forward(batch, x, window)
+            x = self._encdec_forward(batch, x, window, remat)
         else:
             raise ValueError(fam)
 
@@ -282,18 +303,18 @@ class Model(torch.nn.Module):
             logits = logits[:, cfg.vision_tokens:, :]
         return logits, aux
 
-    def _hybrid_forward(self, x, pos, window):
+    def _hybrid_forward(self, x, pos, window, remat):
         """Zamba2: the shared attention block after every
-        ``hybrid_attn_every`` Mamba2 blocks and after the last."""
+        ``hybrid_attn_every`` Mamba2 blocks and after the last (outside
+        the checkpoint, as in the reference)."""
         cfg = self.cfg
         every = cfg.hybrid_attn_every or cfg.n_layers
         for i, p in enumerate(self.blocks):
-            x = _mamba_block(cfg, p, x)
+            x = _block(remat, lambda h, p=p: _mamba_block(cfg, p, h), x)
             if (i + 1) % every == 0 or i == cfg.n_layers - 1:
                 x = _dense_block(cfg, self.shared_attn, x, pos, None, window)
         return x
 
-    @torch.no_grad()
     def encode(self, audio_embeds: torch.Tensor, *,
                remat: bool = False) -> torch.Tensor:
         """Whisper encoder over stub frame embeddings -> [B, enc_seq, d]."""
@@ -301,23 +322,29 @@ class Model(torch.nn.Module):
         enc = audio_embeds.to(dtype_of(cfg))
         enc = enc + sinusoidal_pos(enc.shape[1], cfg.d_model,
                                    enc.device).to(enc.dtype)
+
+        def ebody(p, h):
+            h = h + A.gqa_full(cfg, p.attn, apply_norm(cfg, h, p.ln1),
+                               causal=False)
+            return h + F.mlp(cfg, p.mlp, apply_norm(cfg, h, p.ln2))
         for p in self.enc_blocks:
-            enc = enc + A.gqa_full(cfg, p.attn, apply_norm(cfg, enc, p.ln1),
-                                   causal=False)
-            enc = enc + F.mlp(cfg, p.mlp, apply_norm(cfg, enc, p.ln2))
+            enc = _block(remat, lambda h, p=p: ebody(p, h), enc)
         return apply_norm(cfg, enc, self.enc_norm)
 
-    def _encdec_forward(self, batch, x, window):
+    def _encdec_forward(self, batch, x, window, remat):
         cfg = self.cfg
-        enc = self.encode(batch["audio_embeds"])
+        enc = self.encode(batch["audio_embeds"], remat=remat)
         x = x + sinusoidal_pos(x.shape[1], cfg.d_model,
                                x.device).to(x.dtype)
-        for p in self.blocks:
-            x = x + A.gqa_full(cfg, p.attn, apply_norm(cfg, x, p.ln1),
+
+        def dbody(p, h):
+            h = h + A.gqa_full(cfg, p.attn, apply_norm(cfg, h, p.ln1),
                                causal=True, window=window)
-            x = x + A.gqa_full(cfg, p.xattn, apply_norm(cfg, x, p.ln_x),
+            h = h + A.gqa_full(cfg, p.xattn, apply_norm(cfg, h, p.ln_x),
                                causal=False, kv_x=enc)
-            x = x + F.mlp(cfg, p.mlp, apply_norm(cfg, x, p.ln2))
+            return h + F.mlp(cfg, p.mlp, apply_norm(cfg, h, p.ln2))
+        for p in self.blocks:
+            x = _block(remat, lambda h, p=p: dbody(p, h), x)
         return x
 
     # ---------------- loss ----------------
@@ -326,7 +353,9 @@ class Model(torch.nn.Module):
         return cross_entropy(logits, batch["labels"]) + aux
 
     # prefill = forward returning logits (serving feeds the prompt through
-    # decode_step, as the reference's launcher does)
+    # decode_step, as the reference's launcher does); no autograd graph,
+    # whether or not the weights require gradients
+    @torch.no_grad()
     def prefill(self, batch) -> torch.Tensor:
         return self.forward(batch)[0]
 
@@ -504,3 +533,34 @@ def params_from_numpy(cfg, tree, device="cuda") -> Model:
                                  f"{p.dtype} parameter")
             p.copy_(torch.from_numpy(np.array(v, dtype=np.float32)))
     return model
+
+
+def params_to_numpy(model: Model) -> Dict[str, Any]:
+    """The inverse of :func:`params_from_numpy`: the model's weights as the
+    reference's ``Model.init`` pytree, leaf for leaf, as float32 numpy
+    arrays on the host (layer lists stacked on a leading axis;
+    ``nonparam_ln`` norms as empty dicts, as the reference keeps them).
+    ``checkpoint.save_pytree`` writes it under the reference's key paths."""
+    tree: Dict[str, Any] = {}
+    for name, mod in model.named_modules():
+        if isinstance(mod, Norm) and mod.w is None:
+            _put(tree, name.split("."), {})
+    for name, p in model.named_parameters():
+        _put(tree, name.split("."), p.detach().float().cpu().numpy())
+    for key in STACKED:
+        if key in tree:
+            tree[key] = _stack([tree[key][str(i)]
+                                for i in range(len(tree[key]))])
+    return tree
+
+
+def _put(tree: Dict[str, Any], path, value) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
+
+
+def _stack(layers):
+    if isinstance(layers[0], dict):
+        return {k: _stack([layer[k] for layer in layers]) for k in layers[0]}
+    return np.stack(layers)

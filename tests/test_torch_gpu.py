@@ -1574,3 +1574,127 @@ def test_lm_decode_on_the_card_matches_the_cpu(cuda, arch):
     gqa = not cfg.mla
     assert (flash_attention_bh.launches > f0) == gqa
     assert (flash_decode_paged.launches > d0) == gqa
+
+
+# ---------------------------------------------------------------------------
+# The training path: the flash kernel's log-sum-exp, the autograd Function
+# and a train step
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 100),
+                                           (False, None), (False, 64)])
+@pytest.mark.parametrize("H,KV,S", [(4, 4, 300), (8, 2, 1024)])
+def test_flash_lse_matches_plain(cuda, dtype, hd, causal, window, H, KV, S):
+    """The kernel's lse within 1e-4 of the plain lse (its scale at least
+    1), f32 and bf16 (both score in f32 from the same inputs), and the
+    output bit-equal with and without it."""
+    from repro_torch.kernels.flash_attention import attention
+    g = torch.Generator(device=cuda).manual_seed(hd + S)
+    q = torch.randn((2, H, S, hd), generator=g, device=cuda).to(dtype)
+    k = torch.randn((2, KV, S, hd), generator=g, device=cuda).to(dtype)
+    v = torch.randn((2, KV, S, hd), generator=g, device=cuda).to(dtype)
+    n0 = flash_attention_bh.launches
+    out, lse = attention(q, k, v, causal=causal, window=window, scale=None,
+                         return_lse=True)
+    bare = attention(q, k, v, causal=causal, window=window, scale=None)
+    torch.cuda.synchronize()
+    assert flash_attention_bh.launches == n0 + 2
+    assert lse.dtype == torch.float32 and lse.shape == (2, H, S)
+    assert torch.equal(out, bare)
+    want_out, want = flash_attention_ref(q, k, v, causal=causal,
+                                         window=window, return_lse=True)
+    assert _rel_err(lse, want) < 1e-4
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert _rel_err(out, want_out) < tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 64),
+                                           (False, None)])
+@pytest.mark.parametrize("KV", [4, 1])
+def test_flash_function_grads_on_the_card(cuda, dtype, causal, window, KV):
+    """FlashSDPA with the kernel forward against autograd of the plain
+    forward on the same CUDA tensors: the output, dq, dk and dv (f32 within
+    1e-4 of scale, bf16 within 2e-2), every one a real gradient.  This is
+    the check that the kernel's output reaches autograd: the bare kernel
+    would leave q, k and v with none."""
+    from repro_torch.models.attention import FlashSDPA
+    S, hd = 1100, 128
+    g = torch.Generator(device=cuda).manual_seed(7)
+    ts = [torch.randn((1, 4 if i == 0 else KV, S, hd), generator=g,
+                      device=cuda).to(dtype).requires_grad_()
+          for i in range(3)]
+    dout = torch.randn((1, 4, S, hd), generator=g, device=cuda).to(dtype)
+    n0 = flash_attention_bh.launches
+    out = FlashSDPA.apply(*ts, causal, window, hd ** -0.5, True)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, ts, dout)
+    torch.cuda.synchronize()
+    assert flash_attention_bh.launches == n0 + 1
+    plain = flash_attention_ref(*ts, causal=causal, window=window,
+                                scale=hd ** -0.5)
+    want = torch.autograd.grad(plain, ts, dout)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert _rel_err(out.detach(), plain.detach()) < tol
+    for name, a, b in zip("qkv", got, want):
+        assert a.dtype == dtype and float(b.abs().max()) > 0
+        assert _rel_err(a, b) < tol, name
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "llama3-8b",
+                                  "granite-moe-3b-a800m", "zamba2-1.2b",
+                                  "whisper-small"])
+def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
+    """A reduced registry model (f32, TF32 off), the same weights and batch
+    on the card and on the CPU: the loss and every gradient within 1e-4 of
+    scale, the card's forward and its remat recompute through the flash
+    kernel, and one ``make_train_step``
+    step on each."""
+    import copy
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime.steps import loss_and_grads, make_train_step
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    cpu = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    card = copy.deepcopy(cpu).to(cuda)
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 24)))
+    batch = {"tokens": toks, "labels": toks}
+    if cfg.family == "encdec":
+        batch["audio_embeds"] = torch.from_numpy(
+            (rng.standard_normal((2, cfg.enc_seq, cfg.d_model)) * 0.02)
+            .astype(np.float32))
+    cbatch = {k: v.to(cuda) for k, v in batch.items()}
+    for m in (cpu, card):
+        m.requires_grad_(True)
+    l_cpu, g_cpu = loss_and_grads(cpu, batch)
+    n0 = flash_attention_bh.launches
+    l_card, g_card = loss_and_grads(card, cbatch)
+    torch.cuda.synchronize()
+    # checkpointed blocks run their attention twice (forward, recompute);
+    # Zamba2's shared attention block sits outside the checkpoint
+    every = cfg.hybrid_attn_every or cfg.n_layers
+    launches = {"dense": 2 * cfg.n_layers, "moe": 2 * cfg.n_layers,
+                "hybrid": -(-cfg.n_layers // every),
+                "encdec": 2 * (cfg.n_layers + cfg.n_enc_layers)}
+    assert flash_attention_bh.launches - n0 == launches[cfg.family]
+    assert abs(float(l_card) - float(l_cpu)) < 1e-4 * max(1.0, float(l_cpu))
+    for n, g in g_cpu.items():
+        assert _rel_err(g_card[n].cpu(), g) < 1e-4, n
+    steps = [make_train_step(m, peak_lr=1e-3, warmup=0, total=4)
+             for m in (cpu, card)]
+    opt_cpu = adamw_init(dict(cpu.named_parameters()))
+    opt_card = adamw_init(dict(card.named_parameters()))
+    _, m_cpu = steps[0](cpu, opt_cpu, batch)
+    _, m_card = steps[1](card, opt_card, cbatch)
+    assert abs(float(m_card["loss"]) - float(m_cpu["loss"])) < 1e-4
+    assert float(m_card["lr"]) == float(m_cpu["lr"])
+    for (n, a), (_, b) in zip(cpu.named_parameters(),
+                              card.named_parameters()):
+        # one AdamW step moves a weight by at most about lr either way
+        assert float((a - b.cpu()).abs().max()) <= 2e-3 * (
+            1 + 0.1 * float(a.abs().max())) + 1e-6, n

@@ -14,8 +14,9 @@ from repro.configs.registry import get_config as j_get_config
 from repro.models.transformer import Model as JModel
 
 from repro_torch.configs.registry import get_config
-from repro_torch.models.common import Norm
-from repro_torch.models.transformer import STACKED, params_from_numpy
+from repro_torch.models.transformer import params_from_numpy
+# re-exported for the tests that carry the port's weights back
+from repro_torch.models.transformer import params_to_numpy  # noqa: F401
 
 B, S = 2, 16
 F32_TOL = 1e-4          # the reference's scale-normalised f32 bound
@@ -82,33 +83,3 @@ def rel_err(a, b) -> float:
     b = np.asarray(b, np.float32)
     assert a.shape == b.shape, (a.shape, b.shape)
     return float(np.abs(a - b).max() / max(1.0, float(np.abs(b).max())))
-
-
-def params_to_numpy(model):
-    """The inverse of ``params_from_numpy``: the port's module state as the
-    reference's pytree of float32 numpy arrays (layer lists stacked on a
-    leading axis; ``nonparam_ln`` norms as empty dicts), ready for the
-    reference's ``Model`` in a float32 config."""
-    tree = {}
-    for name, mod in model.named_modules():
-        if isinstance(mod, Norm) and mod.w is None:
-            _put(tree, name.split("."), {})
-    for name, p in model.named_parameters():
-        _put(tree, name.split("."), p.detach().float().cpu().numpy())
-    for key in STACKED:
-        if key in tree:
-            tree[key] = _stack([tree[key][str(i)]
-                                for i in range(len(tree[key]))])
-    return tree
-
-
-def _put(tree, path, value):
-    for key in path[:-1]:
-        tree = tree.setdefault(key, {})
-    tree[path[-1]] = value
-
-
-def _stack(layers):
-    if isinstance(layers[0], dict):
-        return {k: _stack([layer[k] for layer in layers]) for k in layers[0]}
-    return np.stack(layers)
