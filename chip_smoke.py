@@ -118,6 +118,23 @@ seeds:
   against the plain forward under autograd; (c) the ten registry archs
   reduced, f32, one train step (``accum`` 2 on llama3-8b) against the
   same weights and batch on the CPU.
+* the LM planner and its dry run (phase 16) — (a) ``choose_strategy`` for
+  the ten archs x (train, prefill, decode) on the H100 production mesh
+  (16 x 16, shape only) beside the v5e constants', every parameter and
+  cache spec dividing its tensor; (b) three steps counted by
+  ``repro_torch.launch.dryrun`` on the one-card mesh under
+  ``FakeTensorMode`` — olmo-1b's train step at B 4 x S 2048, llama3-8b's
+  decode step at B 4 over a 4096-position cache, llama3-8b's prefill of 1
+  x 4096 — then built on real weights on the card and run once under the
+  same op counter: FLOPs, bytes and kernel units equal to the fake run's,
+  launches equal to the config's (32 flash, 32 decode, 32 flash),
+  argument bytes equal to the live tensors', the FLOPs within 5% of a
+  count from the config, every warm wall (timed without the counter) at
+  or above the roofline's max(t_compute, t_memory); the host cost of the
+  counter hook beside a ``torch.library.custom_op``; (c) the production
+  dry runs through ``serve.main(["--dry-run", ...])`` and
+  ``train.main([..., "--dry-run"])`` under ``tests/test_dryrun.py``'s
+  assertions, and both report tables.
 
 All four kernels' launch counters are zeroed just before each path's run
 and read just after: they must equal the launches the plan (or the case
@@ -3521,6 +3538,7 @@ def phase_train_walls(dev, res, card):
     bwd_ms = graph_ms(lambda: flash_backward(q, k, v, out, lse, dout,
                                              causal=True, window=None,
                                              scale=sc), reps=3)
+    lib = train_library_ms(q, k, v, sc)
     launches = train_flash_launches(cfg)
     pairs = attention_pairs(TRAIN_SEQ, True, None) * TRAIN_BATCH * H
     # each input read once, out and the f32 lse written once
@@ -3535,16 +3553,48 @@ def phase_train_walls(dev, res, card):
           + f"; flash_attention_bh at {list(shape)} bf16 causal with lse "
           f"{fwd_ms:.3f} ms a call ({4.0 * hd * pairs / fwd_ms / 1e9:.1f} "
           f"TFLOP/s; bound {bound:.4f} ms by {by}), x {launches} a "
-          f"step = {fwd_ms * launches:.2f} ms; the "
+          f"step = {fwd_ms * launches:.2f} ms; the library forward with its "
+          "log-sum-exp (causal, graph replay): " + ", ".join(
+              f"{name} {ms:.4f} ms" if ms is not None else f"{name} not "
+              f"available" for name, ms in lib.items())
+          + f"; the "
           f"plain flash backward (the reference's _flash_bwd, PyTorch ops) "
           f"{bwd_ms:.3f} ms a call, x {cfg.n_layers} a step = "
           f"{bwd_ms * cfg.n_layers:.2f} ms [{card}]", flush=True)
     return {"train_launches": launches,
             "train_ms": fwd_ms * launches,
             "train_bound_ms": bound * launches,
+            "train_library_ms": min(ms for ms in lib.values()
+                                    if ms is not None) * launches,
             "train_profile_ms": flash_ms if dev_ms is not None else None,
             "train_plain_bwd_ms": bwd_ms * cfg.n_layers,
             "train_step_ms": med}
+
+
+def train_library_ms(q, k, v, scale) -> dict:
+    """ms a call of PyTorch's SDPA forward that writes the log-sum-exp
+    (what the training forward needs), causal, graph-replayed: the flash
+    backend (``aten._scaled_dot_product_flash_attention``, which must run)
+    and the cuDNN one (``aten._scaled_dot_product_cudnn_attention``, None
+    where this build or card refuses it)."""
+    import torch
+    aten = torch.ops.aten
+
+    def flash():
+        return aten._scaled_dot_product_flash_attention(
+            q, k, v, 0.0, True, False, scale=scale)
+
+    def cudnn():
+        return aten._scaled_dot_product_cudnn_attention(
+            q, k, v, None, True, 0.0, True, False, scale=scale)
+    out = {"SDPA flash": graph_ms(flash, reps=10)}
+    try:
+        out["SDPA cuDNN"] = graph_ms(cudnn, reps=10)
+    except RuntimeError as e:
+        print(f"phase 15d: SDPA cuDNN with lse refused: {str(e)[:120]}",
+              flush=True)
+        out["SDPA cuDNN"] = None
+    return out
 
 
 def phase_train_grads(dev, card):
@@ -3736,6 +3786,310 @@ def phase_train(dev, errs, card):
     return fields
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the LM planner and its dry run
+# ---------------------------------------------------------------------------
+
+#: the TPU v5e's constants, the reference's (peak bf16, HBM, link)
+V5E = dict(peak_flops=197e12, hbm_bw=819e9, link_bw=50e9)
+#: 16b: (name, arch, (seq, batch, mode)) counted on the one-card mesh and
+#: run on the card under the same counter
+DRY_CASES = (("olmo-1b train", TRAIN_ARCH, (TRAIN_SEQ, TRAIN_BATCH, "train")),
+             ("llama3-8b decode", "llama3-8b", (LM_DECODE_KEYS, 4, "decode")),
+             ("llama3-8b prefill", "llama3-8b", (LM_LONG, 1, "prefill")))
+#: counted FLOPs against the analytic count (the matmuls and attention
+#: exactly; the elementwise work, one FLOP an element, is the rest)
+DRY_FLOPS_TOL = 0.05
+DRY_WALL_REPS = 3
+#: host calls timed a variant in 16b's hook-cost probe
+HOOK_CALLS = 2000
+
+
+def short_strategy(st) -> str:
+    return (f"{st.attn}/{st.ffn}/{st.moe}"
+            + ("/resident" if st.decode_resident else ""))
+
+
+def phase_lm_planner(card):
+    """Phase 16a: ``choose_strategy`` for every registry arch and mode on
+    the H100 production mesh (16 x 16), beside the v5e constants'; the
+    reference test's feasibility rules (``tests/test_shard_plan.py``) and
+    every parameter and cache spec dividing its tensor."""
+    from repro_torch.configs.registry import ARCH_IDS, get_config
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models.transformer import Model
+    from repro_torch.runtime.planner import choose_strategy
+    from repro_torch.runtime.shard_plan import (_fits, cache_specs,
+                                                param_specs, tree_leaves)
+
+    mesh = make_production_mesh()
+    m = mesh.shape["model"]
+    differ = 0
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        model = Model(cfg, device="meta")
+        shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
+        cache = model.cache_init(128, 4096)
+        row = []
+        for mode in ("train", "prefill", "decode"):
+            st = choose_strategy(cfg, mesh, mode)
+            v5 = choose_strategy(cfg, mesh, mode, **V5E)
+            check(st.attn in ("tp", "sp") and st.ffn in ("tp", "sp"),
+                  f"phase 16a: {arch} {mode}: {st}")
+            if cfg.moe and cfg.moe.n_experts % m:
+                check(st.moe == "tp", f"phase 16a: {arch} {mode}: experts "
+                      f"do not divide {m} but moe {st.moe}")
+            for n, spec in param_specs(model, mesh, st, mode).items():
+                check(_fits(shapes[n], spec, mesh), f"phase 16a: {arch} "
+                      f"{mode}: {n} {shapes[n]} under {spec}")
+            for leaf, spec in zip(tree_leaves(cache), tree_leaves(
+                    cache_specs(cache, mesh, st))):
+                check(_fits(tuple(leaf.shape), spec, mesh),
+                      f"phase 16a: {arch}: cache {tuple(leaf.shape)} under "
+                      f"{spec}")
+            differ += st != v5
+            row.append(f"{mode} {short_strategy(st)}"
+                       + ("" if st == v5 else
+                          f" (v5e: {short_strategy(v5)})"))
+        print(f"phase 16a: {arch} on 16x16, attn/ffn/moe: "
+              + "; ".join(row), flush=True)
+    print(f"phase 16a: 30 strategies, every spec divides; {differ} differ "
+          f"from the v5e constants' (host only) [{card}]", flush=True)
+
+
+def analytic_flops(cfg, seq, batch, mode) -> float:
+    """FLOPs of one step of ``mode`` counted from the config alone:
+    ``model_flops_estimate`` less its input-embedding term where the
+    embeddings are untied (a lookup does no FLOPs), plus the attention
+    (the flash kernel's masked pairs a call; decode at the cache's last
+    position, every key live) and in training the remat recompute of the
+    blocks and the plain flash backward (five [S, S] products a head).
+    The non-reentrant checkpoint stops its recompute at the last tensor
+    the backward saved, so a dense block's down projection, whose output
+    nothing saves, is not recomputed."""
+    from repro_torch.launch.op_cost import attention_pairs
+    from repro_torch.launch.roofline import model_flops_estimate
+    mf = model_flops_estimate(cfg, seq, batch, mode)
+    tokens = batch * (seq if mode != "decode" else 1)
+    mult = 6.0 if mode == "train" else 2.0
+    emb = cfg.vocab * cfg.d_model
+    if not cfg.tie_embeddings:
+        mf -= mult * emb * tokens
+    H, hd, L = cfg.n_heads, cfg.hd, cfg.n_layers
+    if mode == "decode":
+        return mf + 4.0 * batch * H * seq * hd * L
+    fwd = 4.0 * batch * H * attention_pairs(seq, True,
+                                            cfg.attn_window) * hd * L
+    if mode == "prefill":
+        return mf + fwd
+    recomputed = mf / (mult * tokens) - emb - L * cfg.d_model * cfg.d_ff
+    return (mf + 2.0 * recomputed * tokens + 2 * fwd
+            + 10.0 * batch * H * seq * seq * hd * L)
+
+
+def hook_costs(dev):
+    """Host us a call of the paged decode wrapper at a small shape: called
+    as the port calls it (the counter hook: one look at the dispatch-mode
+    stack), through a ``torch.library.custom_op`` with ``register_fake``
+    wrapping it (the idiomatic route the hook was weighed against), and
+    the hook's look alone."""
+    import importlib
+    import torch
+    from repro_torch.launch import op_cost
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+
+    @torch.library.custom_op("repro_smoke::decode", mutates_args=())
+    def probe(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
+              table: torch.Tensor, kv_len: int, groups: int) -> torch.Tensor:
+        return fa.flash_decode_paged(q, kp, vp, table, kv_len,
+                                     groups=groups)
+
+    @probe.register_fake
+    def _(q, kp, vp, table, kv_len, groups):
+        return torch.empty_like(q)
+
+    g = torch.Generator(device=dev).manual_seed(16)
+    q = torch.randn((32, 128), generator=g, device=dev).to(torch.bfloat16)
+    kp, vp = (torch.randn((8, 2, 16, 128), generator=g, device=dev)
+              .to(torch.bfloat16) for _ in range(2))
+    table = torch.arange(2, dtype=torch.int32, device=dev)
+    out = {}
+    for name, fn in (("hook", lambda: fa.flash_decode_paged(
+            q, kp, vp, table, 32, groups=4)),
+            ("custom_op", lambda: probe(q, kp, vp, table, 32, 4))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(HOOK_CALLS):
+            fn()
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) / HOOK_CALLS * 1e6
+    t0 = time.perf_counter()
+    for _ in range(HOOK_CALLS * 10):
+        op_cost.active()
+    out["look"] = (time.perf_counter() - t0) / (HOOK_CALLS * 10) * 1e6
+    return out
+
+
+def phase_dryrun_live(dev, card):
+    """Phase 16b: each DRY_CASES step counted by the dry run on the
+    one-card mesh (fake tensors), then built on real weights on the card
+    and run once under the same counter: FLOPs, bytes and kernel units
+    equal; launches (the wrappers' counters, zeroed just before) equal to
+    the config's; argument bytes equal to the live tensors'; the counted
+    FLOPs within DRY_FLOPS_TOL of :func:`analytic_flops`; every warm wall,
+    timed without the counter, at or above the roofline's max(t_compute,
+    t_memory).  Returns the launches by kernel."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.transformer import Model
+    from repro_torch.runtime.shard_plan import Strategy, tree_leaves
+
+    mesh = make_local_mesh()
+    check(mesh.shape == {"data": 1, "model": 1},
+          f"phase 16b: the local mesh is {mesh.shape}, not one card")
+    total = {"flash_attention_bh": 0, "flash_decode_paged": 0}
+    model = None
+    for name, arch, shape in DRY_CASES:
+        seq, batch, mode = shape
+        cfg = get_config(arch)
+        t0 = time.perf_counter()
+        rec = dryrun.run_one(arch, shape, mesh=mesh, verbose=False)
+        fake_s = time.perf_counter() - t0
+        if model is None or model.cfg.name != cfg.name:
+            del model
+            torch.cuda.empty_cache()
+            model = Model(cfg, device=dev).init(
+                torch.Generator(device=dev).manual_seed(16))
+        kname = "flash_decode_paged" if mode == "decode" \
+            else "flash_attention_bh"
+        want = train_flash_launches(cfg) if mode == "train" \
+            else cfg.n_layers
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        counter, inputs, _, _ = dryrun.count_step(
+            cfg, model, shape, mesh, Strategy(**rec["strategy"]))
+        torch.cuda.synchronize()
+        live_s = time.perf_counter() - t0
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() - base
+        check_counts(f"phase 16b {name}", counts, {kname: want})
+        total[kname] += counts[kname]
+        if (counter.flops, counter.bytes) != (rec["hlo_flops"],
+                                              rec["hlo_bytes"]):
+            fake = {}
+            from torch._subclasses.fake_tensor import FakeTensorMode
+            with FakeTensorMode():
+                fmodel = Model(cfg, device=dev)
+                fc, _, _, _ = dryrun.count_step(
+                    cfg, fmodel, shape, mesh, Strategy(**rec["strategy"]))
+                fake = fc.by_op
+            diff = {k: (counter.by_op.get(k), fake.get(k))
+                    for k in set(counter.by_op) | set(fake)
+                    if counter.by_op.get(k) != fake.get(k)}
+            raise SmokeFailure(
+                f"phase 16b {name}: live counts {counter.flops} FLOPs "
+                f"{counter.bytes} bytes != fake {rec['hlo_flops']} / "
+                f"{rec['hlo_bytes']}; ops that differ (live, fake): {diff}")
+        check(counter.units == rec["kernel_units"] == {kname: want},
+              f"phase 16b {name}: units {counter.units} live, "
+              f"{rec['kernel_units']} fake, {want} expected")
+        live_args = sum(t.numel() * t.element_size() for t in {
+            t.untyped_storage().data_ptr(): t
+            for t in tree_leaves(inputs.args)}.values())
+        # the allocator's peak less the arguments the step made (optimizer
+        # state, cache, batch): the live intermediates
+        peak -= live_args - sum(p.numel() * p.element_size()
+                                for p in model.parameters())
+        args = rec["mem_per_device"]["argument_size_bytes"]
+        check(live_args == args, f"phase 16b {name}: argument bytes "
+              f"{args} counted, {live_args} live")
+        ana = analytic_flops(cfg, seq, batch, mode)
+        e = abs(counter.flops - ana) / ana
+        check(e < DRY_FLOPS_TOL, f"phase 16b {name}: counted FLOPs "
+              f"{counter.flops} against {ana} analytic, {e:.3%}")
+        walls = wall_ms(inputs.step, DRY_WALL_REPS)
+        roof = max(rec["t_compute_s"], rec["t_memory_s"]) * 1e3
+        check(min(walls) >= roof, f"phase 16b {name}: a warm wall "
+              f"{min(walls):.3f} ms below the roofline {roof:.3f} ms")
+        med = spread(walls)[0]
+        print(f"phase 16b: {name} ({arch} {cfg.dtype} {mode}, B {batch}, "
+              f"{'capacity' if mode == 'decode' else 'S'} {seq}; strategy "
+              f"{short_strategy(Strategy(**rec['strategy']))} on 1x1): "
+              f"counted {rec['hlo_flops']:.6g} FLOPs, {rec['hlo_bytes']:.6g} "
+              f"bytes, {rec['kernel_units']} in {fake_s:.1f} s on fake "
+              f"tensors; the live run under the counter equal ({live_s:.1f} "
+              f"s, {counter.ops} ops), launches {counts}; FLOPs "
+              f"{(counter.flops - ana) / ana:+.3%} of the analytic "
+              f"{ana:.6g}; arguments {args} bytes = the live tensors'; "
+              f"temp {rec['mem_per_device']['temp_size_bytes'] / 2**30:.3f} "
+              f"GiB counted, {counter.peak_bytes / 2**30:.3f} live, the "
+              f"allocator's peak over the arguments {peak / 2**30:.3f} GiB; "
+              f"roofline {roof:.3f} ms ({rec['bottleneck']}: compute "
+              f"{rec['t_compute_s'] * 1e3:.3f}, memory "
+              f"{rec['t_memory_s'] * 1e3:.3f}), warm wall median {med:.3f} "
+              f"ms [{min(walls):.3f}, {max(walls):.3f}] = "
+              f"{med / roof:.2f}x the roofline [{card}]", flush=True)
+        del inputs, counter
+        if mode == "decode":
+            costs = hook_costs(dev)
+            print(f"phase 16b: host us a call of flash_decode_paged at 32 "
+                  f"keys ({HOOK_CALLS} calls): through the wrapper with its "
+                  f"counter hook {costs['hook']:.2f}, through a "
+                  f"torch.library.custom_op {costs['custom_op']:.2f} "
+                  f"(+{costs['custom_op'] - costs['hook']:.2f}); the hook's "
+                  f"look at the mode stack alone {costs['look']:.3f} "
+                  f"[{card}]", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_dryrun_production(card):
+    """Phase 16c: the production dry runs through the launchers, each
+    record under ``tests/test_dryrun.py``'s assertions, and both report
+    tables."""
+    from repro_torch.launch import report, serve, train
+
+    recs = serve.main(["--arch", "llama3-8b", "--dry-run", "--shape",
+                       "decode_32k"])
+    recs += train.main(["--arch", TRAIN_ARCH, "--dry-run"])
+    for r in recs:
+        what = f"phase 16c: {r['arch']} {r['shape']}"
+        check(r["hlo_flops"] > 0 and r["hlo_bytes"] > 0, what)
+        check(r["bottleneck"] in ("compute", "memory", "collective"), what)
+        check(0 < r["useful_ratio"] < 10, f"{what}: useful ratio "
+              f"{r['useful_ratio']}")
+        check(r["mem_per_device"]["temp_size_bytes"] is not None, what)
+        check(r["mesh"] == "16x16" and r["chips"] == 256, what)
+    check(recs[0]["bottleneck"] == "memory", "phase 16c: the decode step "
+          f"is {recs[0]['bottleneck']}-bound, not memory-bound")
+    print(f"phase 16c: dry runs of the H100 production mesh (16x16, "
+          f"{recs[0]['chips']} cards), per card [{card}]:\n"
+          + report.dryrun_table(recs) + "\n" + report.roofline_table(recs),
+          flush=True)
+
+
+def phase_lm_dryrun(dev, card):
+    """Phase 16: the LM planner (16a), the dry run held against live steps
+    on the card (16b), the production dry runs (16c).  Returns the kernels
+    line's dryrun_launches."""
+    import torch
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    phase_lm_planner(card)
+    total = phase_dryrun_live(dev, card)
+    phase_dryrun_production(card)
+    print(f"phase 16: {time.perf_counter() - t_phase:.1f} s [{card}]",
+          flush=True)
+    return {k: {"dryrun_launches": v} for k, v in total.items()}
+
+
 def run(dev) -> dict:
     import torch
     from repro_torch import obs
@@ -3798,6 +4152,8 @@ def run(dev) -> dict:
     phase_observe(dev, rows, errs, card)
     lm = phase_lm(dev, errs, card)
     lm["flash_attention_bh"].update(phase_train(dev, errs, card))
+    for kname, fields in phase_lm_dryrun(dev, card).items():
+        lm[kname].update(fields)
     for r in rows:
         r.pop("mesh_inputs")
 
@@ -3852,7 +4208,9 @@ def run(dev) -> dict:
           f"and one of 1 x {LM_LONG}); train_* on flash_attention_bh: "
           f"phase 15's {TRAIN_ARCH} bf16 step of {TRAIN_BATCH} x "
           f"{TRAIN_SEQ} tokens (its calls with lse, graph replay) beside "
-          "the plain flash backward", flush=True)
+          "the plain flash backward and SDPA's forward with lse; "
+          "dryrun_launches: phase 16b's live steps under the op counter",
+          flush=True)
     return {"kernels": kernels}
 
 

@@ -37,6 +37,7 @@ from typing import Optional
 
 import torch
 
+from ..launch import op_cost
 from . import build
 from .conv2d import on_cpu
 from .gemm import SMS
@@ -125,7 +126,21 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
     launch serves every position.  The kernel clamps its reads to the
     table, so a device ``kv_len`` past the table reads no page past it;
     the caller bounds it (``PagedKVCache.advance`` does).
+
+    Under the dry run's op counter (:mod:`repro_torch.launch.op_cost`)
+    the call is one unit of counted work, made or run there.
     """
+    counter = op_cost.active()
+    if counter is not None:
+        return counter.decode(_flash_decode_paged, q, k_pages, v_pages,
+                              page_table, kv_len, window=window,
+                              scale=scale, groups=groups)
+    return _flash_decode_paged(q, k_pages, v_pages, page_table, kv_len,
+                               window=window, scale=scale, groups=groups)
+
+
+def _flash_decode_paged(q, k_pages, v_pages, page_table, kv_len, *,
+                        window, scale, groups):
     rows, _, ps, hd = k_pages.shape
     if groups < 1:
         raise ValueError(f"groups must be >= 1, got {groups}")
@@ -200,7 +215,19 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scores (natural log), which the flash backward recomputes the weights
     from; without it only ``out``, whose bits do not depend on the flag.
     The one place :data:`flash_attention_bh.launches` counts;
-    :func:`flash_attention_bh` and ``ops.flash_attention`` call it."""
+    :func:`flash_attention_bh` and ``ops.flash_attention`` call it.  Under
+    the dry run's op counter (:mod:`repro_torch.launch.op_cost`) the call
+    is one unit of counted work, made or run there."""
+    counter = op_cost.active()
+    if counter is not None:
+        return counter.attention(_attention, q, k, v, causal=causal,
+                                 window=window, scale=scale,
+                                 return_lse=return_lse)
+    return _attention(q, k, v, causal=causal, window=window, scale=scale,
+                      return_lse=return_lse)
+
+
+def _attention(q, k, v, *, causal, window, scale, return_lse):
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
         raise ValueError(f"attention shapes q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")

@@ -14,6 +14,14 @@ also how the local executors run the nodes' parts.
 
 A mesh over several cards (one node a card) is not ported: it raises
 ``NotImplementedError`` naming ROADMAP.md queue A 10.
+
+The LM planner's meshes (the port of ``make_production_mesh`` and
+``make_local_mesh``) are :class:`ShapeMesh` objects: axis names and sizes,
+which is all the sharding rules, the planner and the dry run read.  The
+production meshes keep the reference's shapes, 16 x 16 and 2 x 16 x 16
+(256 and 512 H100s), so the rules meet the divisibility structure they
+were written for; only the physics changes, to the H100 SXM's constants
+below.
 """
 from __future__ import annotations
 
@@ -21,7 +29,19 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
-__all__ = ["NodesMesh", "check_mesh", "make_nodes_mesh"]
+__all__ = ["HBM_BW", "LINK_BW", "NodesMesh", "PEAK_FLOPS_BF16", "ShapeMesh",
+           "check_mesh", "make_local_mesh", "make_nodes_mesh",
+           "make_production_mesh"]
+
+# H100 SXM hardware constants (the roofline's denominators), per card
+PEAK_FLOPS_BF16 = 989e12          # dense bf16 tensor cores
+HBM_BW = 3.35e12                  # bytes/s, HBM3
+#: bytes/s a card sends on the production mesh: one 400 Gb/s ConnectX-7
+#: NIC per GPU (NVIDIA DGX H100 datasheet: 8 GPUs and 8 x 400 Gb/s a
+#: node).  A 16-wide ``model`` axis spans two 8-GPU NVLink nodes, so its
+#: ring crosses InfiniBand; an axis of at most 8 cards would see NVLink
+#: 4's 450 GB/s a direction instead, which is not used here.
+LINK_BW = 50e9
 
 AXIS = "nodes"
 
@@ -153,3 +173,43 @@ def make_nodes_mesh(nodes: int,
             return NodesMesh(devs, [torch.cuda.Stream(dev)
                                     for _ in range(nodes)])
     return NodesMesh(devs)
+
+
+class ShapeMesh:
+    """A mesh as the LM planner sees it: ``axis_names``, ``shape`` (axis
+    name -> size) and ``size``.  It holds no devices: the port plans for
+    the production meshes of 256 and 512 cards on one card (the
+    reference builds them over 512 fake CPU devices)."""
+
+    def __init__(self, shape: Dict[str, int]):
+        self.shape: Dict[str, int] = dict(shape)
+        self.axis_names: Tuple[str, ...] = tuple(self.shape)
+
+    @property
+    def size(self) -> int:
+        n = 1
+        for v in self.shape.values():
+            n *= v
+        return n
+
+    def __repr__(self) -> str:
+        return f"ShapeMesh({self.shape})"
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> ShapeMesh:
+    """The reference's production mesh shapes: ``(data 16, model 16)``, or
+    ``(pod 2, data 16, model 16)`` with ``multi_pod``; shape only."""
+    if multi_pod:
+        return ShapeMesh({"pod": 2, "data": 16, "model": 16})
+    return ShapeMesh({"data": 16, "model": 16})
+
+
+def make_local_mesh(model_axis: int = 1) -> ShapeMesh:
+    """The mesh over the cards present, ``model_axis`` of them on the
+    ``model`` axis and the rest on ``data``; one H100 gives (1, 1), and so
+    does a machine with no card (the CPU)."""
+    n = max(1, torch.cuda.device_count())
+    if model_axis < 1 or n % model_axis:
+        raise ValueError(f"model axis {model_axis} does not divide the "
+                         f"{n} card(s) present")
+    return ShapeMesh({"data": n // model_axis, "model": model_axis})

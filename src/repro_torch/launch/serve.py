@@ -1,6 +1,6 @@
 """Serving launcher: ``python -m repro_torch.launch.serve --arch <id>
 [--full] [--batch B] [--prompt-len P] [--gen N] [--device cuda|cpu]
-[--dtype DTYPE]``.
+[--dtype DTYPE] [--dry-run [--shape SHAPE]]``.
 
 The port of the JAX package's ``launch/serve.py``: batched KV-cache decode
 of one registry architecture (its ``reduced()`` variant unless ``--full``)
@@ -11,8 +11,9 @@ from stub audio first.  Logs ``serve.timing`` through
 :mod:`repro_torch.obs.log` (``REPRO_LOG``).  Runs on the card unless
 ``--device cpu``; the decode steps are eager (one captured graph a step is
 an open item).  ``--dtype float32`` serves a bf16 config in f32 (the
-conformance tests' setting).  ``--dry-run`` (lowering a production-mesh
-decode step) waits for the LM planner's port and raises.
+conformance tests' setting).  ``--dry-run`` counts the production-mesh
+step of ``--shape`` (default ``decode_32k``) without running it, through
+:func:`repro_torch.launch.dryrun.main`, and returns its records.
 """
 from __future__ import annotations
 
@@ -85,7 +86,9 @@ def generate(model: Model, prompts: torch.Tensor, n_gen: int,
                        td * 1e3 / max(n_gen, 1))
 
 
-def main(argv=None) -> ServeResult:
+def main(argv=None):
+    """The CLI: a :class:`ServeResult`, or with ``--dry-run`` the dry
+    run's records."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--batch", type=int, default=4)
@@ -97,13 +100,12 @@ def main(argv=None) -> ServeResult:
                     help="parameter and activation dtype (default: the "
                          "config's)")
     ap.add_argument("--dry-run", action="store_true")
+    ap.add_argument("--shape", default="decode_32k")
     args = ap.parse_args(argv)
 
     if args.dry_run:
-        raise NotImplementedError(
-            "--dry-run lowers the production-mesh decode step through the "
-            "LM planner (shard_ctx, shard_plan, dryrun), which the port "
-            "does not have yet (ROADMAP A 7.3)")
+        from . import dryrun
+        return dryrun.main(["--arch", args.arch, "--shape", args.shape])
 
     cfg = get_config(args.arch)
     if not args.full:

@@ -1,6 +1,6 @@
 """Training launcher: ``python -m repro_torch.launch.train --arch <id>
 [--steps N] [--batch B] [--seq S] [--accum A] [--full] [--ckpt PATH]
-[--device cuda|cpu] [--dtype DTYPE]``.
+[--device cuda|cpu] [--dtype DTYPE] [--dry-run [--shape SHAPE]]``.
 
 The port of the JAX package's ``launch/train.py``: real optimizer steps of
 one registry architecture (its ``reduced()`` variant unless ``--full``) on
@@ -13,11 +13,13 @@ through :mod:`repro_torch.obs.log` (``REPRO_LOG``); ``--ckpt`` writes the
 trained weights as the reference's pytree (``params_to_numpy``) with
 ``save_pytree``.  Runs on the card unless ``--device cpu``; the step is
 eager (one captured graph a step is an open item).  ``--dtype float32``
-trains a bf16 config in f32.  ``--dry-run`` (lowering the production-mesh
-train step) waits for the LM planner's port and raises.
+trains a bf16 config in f32.  ``--dry-run`` counts the production-mesh
+step of ``--shape`` (default ``train_4k``) without running it, through
+:func:`repro_torch.launch.dryrun.main`.
 
 :func:`main` returns a :class:`TrainResult` (losses, learning rates, each
-step's wall with the card synchronised, peak device memory).
+step's wall with the card synchronised, peak device memory), or with
+``--dry-run`` the dry run's records.
 """
 from __future__ import annotations
 
@@ -60,7 +62,7 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def main(argv=None) -> TrainResult:
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--steps", type=int, default=20)
@@ -79,10 +81,8 @@ def main(argv=None) -> TrainResult:
     args = ap.parse_args(argv)
 
     if args.dry_run:
-        raise NotImplementedError(
-            f"--dry-run lowers the production-mesh train step (shape "
-            f"{args.shape}) through the LM planner (shard_ctx, shard_plan, "
-            f"dryrun), which the port does not have yet (ROADMAP A 7.3)")
+        from . import dryrun
+        return dryrun.main(["--arch", args.arch, "--shape", args.shape])
 
     cfg = get_config(args.arch)
     if not args.full:

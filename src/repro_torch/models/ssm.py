@@ -5,7 +5,10 @@ Each has its exact per-token recurrence, its chunk-parallel form (one state
 read and write per chunk; exact up to float rounding) and an O(1)-state
 single-token decode step.  No Pallas kernel exists for them: they are plain
 torch, and the reference's ``lax.scan`` over time (or over chunks) is a
-Python loop here, one step a token on the host.
+Python loop here, one step a token on the host.  Under the dry run's op
+counter each loop runs one step, counted its trip count of times
+(:func:`repro_torch.launch.op_cost.time_loop`): every step has the same
+shapes.
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from ..launch.op_cost import time_loop, unfold
 from .common import _param
 
 
@@ -60,13 +64,15 @@ def _mamba2_core(cfg, p: Mamba2, xbc, b, c, dtv,
     dt_act = F.softplus(dtv + p.dt_bias)                  # [B,S,H]
     xh = xbc.reshape(B_, S, H, hd)
     h, ys = h0, []
-    for t in range(S):
-        xt, bt, ct, dtt = xh[:, t], b[:, t], c[:, t], dt_act[:, t]
-        decay = torch.exp(dtt * a)                        # [B,H]
-        dx = dtt[..., None] * xt                          # [B,H,hd]
-        h = h * decay[..., None, None] + dx[..., None] * bt[:, None, None, :]
-        ys.append(torch.einsum("bhdn,bn->bhd", h, ct))
-    y = torch.stack(ys, dim=1)                            # [B,S,H,hd]
+    with time_loop(S) as steps:
+        for t in steps:
+            xt, bt, ct, dtt = xh[:, t], b[:, t], c[:, t], dt_act[:, t]
+            decay = torch.exp(dtt * a)                    # [B,H]
+            dx = dtt[..., None] * xt                      # [B,H,hd]
+            h = h * decay[..., None, None] \
+                + dx[..., None] * bt[:, None, None, :]
+            ys.append(torch.einsum("bhdn,bn->bhd", h, ct))
+    y = torch.stack(unfold(ys, S), dim=1)                 # [B,S,H,hd]
     y = y + p.d_skip[None, None, :, None] * xh
     return y.reshape(B_, S, d_inner).to(xbc.dtype), h
 
@@ -95,28 +101,29 @@ def _mamba2_chunked(cfg, p: Mamba2, xbc, b, c, dtv, h0, chunk: int):
     nc = (S + pad) // C
     tri = torch.tril(torch.ones((C, C), device=xbc.device))   # inclusive
     h, ys = h0, []
-    for i in range(nc):
-        sl = slice(i * C, (i + 1) * C)
-        xb, bb, cb, dtb = xh[:, sl], b[:, sl], c[:, sl], dt_act[:, sl]
-        lam = dtb * a                                       # [B,C,H] (<=0)
-        A = torch.cumsum(lam, dim=1)                        # inclusive
-        # scores[t,u] = (C_t . B_u) e^{A_t - A_u} dt_u  (u <= t)
-        ratio = torch.exp(torch.clamp(A[:, :, None] - A[:, None], -60.0,
-                                      0.0))
-        cb_dot_bu = torch.einsum("btn,bun->btu", cb, bb)    # [B,C,C]
-        scores = cb_dot_bu[:, None] * ratio.permute(0, 3, 1, 2) \
-            * dtb.transpose(1, 2)[:, :, None, :]            # [B,H,C,C]
-        scores = scores * tri[None, None]
-        intra = torch.einsum("bhtu,buhd->bthd", scores, xb)
-        inter = torch.exp(A)[..., None] * torch.einsum("btn,bhdn->bthd", cb,
-                                                       h)
-        # state: h_C = e^{A_C} h0 + sum_u e^{A_C - A_u} dt_u x_u (x) B_u
-        Ac = A[:, -1]                                       # [B,H]
-        wgt = torch.exp(torch.clamp(Ac[:, None] - A, -60.0, 0.0)) * dtb
-        h = torch.exp(Ac)[..., None, None] * h + torch.einsum(
-            "buh,buhd,bun->bhdn", wgt, xb, bb)
-        ys.append(intra + inter)
-    y = torch.cat(ys, dim=1)[:, :S]
+    with time_loop(nc) as steps:
+        for i in steps:
+            sl = slice(i * C, (i + 1) * C)
+            xb, bb, cb, dtb = xh[:, sl], b[:, sl], c[:, sl], dt_act[:, sl]
+            lam = dtb * a                                   # [B,C,H] (<=0)
+            A = torch.cumsum(lam, dim=1)                    # inclusive
+            # scores[t,u] = (C_t . B_u) e^{A_t - A_u} dt_u  (u <= t)
+            ratio = torch.exp(torch.clamp(A[:, :, None] - A[:, None], -60.0,
+                                          0.0))
+            cb_dot_bu = torch.einsum("btn,bun->btu", cb, bb)    # [B,C,C]
+            scores = cb_dot_bu[:, None] * ratio.permute(0, 3, 1, 2) \
+                * dtb.transpose(1, 2)[:, :, None, :]        # [B,H,C,C]
+            scores = scores * tri[None, None]
+            intra = torch.einsum("bhtu,buhd->bthd", scores, xb)
+            inter = torch.exp(A)[..., None] * torch.einsum(
+                "btn,bhdn->bthd", cb, h)
+            # state: h_C = e^{A_C} h0 + sum_u e^{A_C - A_u} dt_u x_u (x) B_u
+            Ac = A[:, -1]                                   # [B,H]
+            wgt = torch.exp(torch.clamp(Ac[:, None] - A, -60.0, 0.0)) * dtb
+            h = torch.exp(Ac)[..., None, None] * h + torch.einsum(
+                "buh,buhd,bun->bhdn", wgt, xb, bb)
+            ys.append(intra + inter)
+    y = torch.cat(unfold(ys, nc), dim=1)[:, :S]
     y = y + p.d_skip[None, None, :, None] * xh[:, :S]
     return y.reshape(B_, S, d_inner).to(xbc.dtype), h
 
@@ -192,14 +199,16 @@ def _rwkv6_core(cfg, p: RWKV6, r, k, v, w, s0):
     """Linear-attention recurrence.  r,k,v [B,S,H,hd]; w (decay in (0,1))
     [B,S,H,hd]; s0 [B,H,hd,hd]."""
     u = p.u_bonus                                          # [H,hd]
+    S = r.shape[1]
     s, ys = s0, []
-    for t in range(r.shape[1]):
-        rt, kt, vt, wt = r[:, t], k[:, t], v[:, t], w[:, t]
-        kv = kt[..., :, None] * vt[..., None, :]           # [B,H,hd,hd]
-        ys.append(torch.einsum("bhk,bhkv->bhv", rt,
-                               s + u[None, :, :, None] * kv))
-        s = wt[..., :, None] * s + kv
-    return torch.stack(ys, dim=1), s                       # [B,S,H,hd]
+    with time_loop(S) as steps:
+        for t in steps:
+            rt, kt, vt, wt = r[:, t], k[:, t], v[:, t], w[:, t]
+            kv = kt[..., :, None] * vt[..., None, :]       # [B,H,hd,hd]
+            ys.append(torch.einsum("bhk,bhkv->bhv", rt,
+                                   s + u[None, :, :, None] * kv))
+            s = wt[..., :, None] * s + kv
+    return torch.stack(unfold(ys, S), dim=1), s            # [B,S,H,hd]
 
 
 def _rwkv6_proj(cfg, p: RWKV6, x):
@@ -237,27 +246,29 @@ def _rwkv6_chunked(cfg, p: RWKV6, r, k, v, w, s0, chunk: int):
     u = p.u_bonus
     tri = torch.tril(torch.ones((C, C), device=r.device), diagonal=-1)
     s, ys = s0, []
-    for i in range(nc):
-        sl = slice(i * C, (i + 1) * C)
-        rb, kb, vb, wb = r[:, sl], k[:, sl], v[:, sl], w[:, sl]
-        logw = torch.log(torch.clamp(wb, min=1e-30))
-        L = torch.cumsum(logw, dim=1)                      # L_t (inclusive)
-        Lm1 = L - logw                                     # L_{t-1}
-        # intra-chunk: A[t,u] = sum_d r_t k_u exp(L_{t-1}-L_u), u < t
-        ex = torch.exp(torch.clamp(Lm1[:, :, None] - L[:, None], -60.0, 0.0))
-        scores = torch.einsum("bthd,buhd,btuhd->bhtu", rb, kb, ex)
-        scores = scores * tri[None, None]
-        intra = torch.einsum("bhtu,buhd->bthd", scores, vb)
-        diag = torch.einsum("bthd,bthd->bth", rb * u[None, None], kb)
-        intra = intra + diag[..., None] * vb
-        inter = torch.einsum("bthk,bhkv->bthv", rb * torch.exp(Lm1), s)
-        # state: S1 = diag(exp(L_C)) S0 + sum_u (k_u exp(L_C-L_u)) v_u
-        Lc = L[:, -1]                                      # [B,H,hd]
-        kk = kb * torch.exp(torch.clamp(Lc[:, None] - L, -60.0, 0.0))
-        s = torch.exp(Lc)[..., None] * s + torch.einsum("buhk,buhv->bhkv",
-                                                        kk, vb)
-        ys.append(intra + inter)
-    return torch.cat(ys, dim=1)[:, :S], s
+    with time_loop(nc) as steps:
+        for i in steps:
+            sl = slice(i * C, (i + 1) * C)
+            rb, kb, vb, wb = r[:, sl], k[:, sl], v[:, sl], w[:, sl]
+            logw = torch.log(torch.clamp(wb, min=1e-30))
+            L = torch.cumsum(logw, dim=1)                  # L_t (inclusive)
+            Lm1 = L - logw                                 # L_{t-1}
+            # intra-chunk: A[t,u] = sum_d r_t k_u exp(L_{t-1}-L_u), u < t
+            ex = torch.exp(torch.clamp(Lm1[:, :, None] - L[:, None], -60.0,
+                                       0.0))
+            scores = torch.einsum("bthd,buhd,btuhd->bhtu", rb, kb, ex)
+            scores = scores * tri[None, None]
+            intra = torch.einsum("bhtu,buhd->bthd", scores, vb)
+            diag = torch.einsum("bthd,bthd->bth", rb * u[None, None], kb)
+            intra = intra + diag[..., None] * vb
+            inter = torch.einsum("bthk,bhkv->bthv", rb * torch.exp(Lm1), s)
+            # state: S1 = diag(exp(L_C)) S0 + sum_u (k_u exp(L_C-L_u)) v_u
+            Lc = L[:, -1]                                      # [B,H,hd]
+            kk = kb * torch.exp(torch.clamp(Lc[:, None] - L, -60.0, 0.0))
+            s = torch.exp(Lc)[..., None] * s + torch.einsum("buhk,buhv->bhkv",
+                                                            kk, vb)
+            ys.append(intra + inter)
+    return torch.cat(unfold(ys, nc), dim=1)[:, :S], s
 
 
 def rwkv6_time_mix(cfg, p: RWKV6, x: torch.Tensor) -> torch.Tensor:

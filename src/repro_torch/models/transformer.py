@@ -20,9 +20,12 @@ inverse of :func:`params_from_numpy`.
 
 The reference scans stacked layer parameters (``lax.scan``); here the
 layers are a ``ModuleList`` walked in a Python loop.  Its ``constrain``
-calls (the sharding context's re-layout points) are the identity without
-a mesh and are left out until the LM planner is ported.  Decode updates
-the cache in place.  Every family is here: dense, vlm, moe (with
+calls (the sharding context's re-layout points,
+:mod:`repro_torch.runtime.shard_ctx`) stand where its ``_scan_blocks``
+has them: at each block's entry and after each stack of blocks; they are
+the identity unless the dry run installs a callback, and stand outside
+a block's checkpoint, so the recompute does not call them again.  Decode
+updates the cache in place.  Every family is here: dense, vlm, moe (with
 ``first_dense`` and MLA), ssm (RWKV-6), hybrid (Zamba2: one shared
 attention block after every ``hybrid_attn_every`` Mamba2 blocks) and
 encdec (Whisper).
@@ -37,6 +40,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..runtime.shard_ctx import constrain
 from . import attention as A
 from . import ffn as F
 from . import ssm as S
@@ -277,20 +281,26 @@ class Model(torch.nn.Module):
         fam = cfg.family
         if fam in ("dense", "vlm"):
             for p in self.blocks:
-                x = _block(remat, dense(cfg, p), x)
+                x = _block(remat, dense(cfg, p), constrain(x))
+            x = constrain(x)
         elif fam == "moe":
             if cfg.moe.first_dense:
                 for p in self.first_blocks:
-                    x = _block(remat, dense(_dense_cfg(cfg), p), x)
+                    x = _block(remat, dense(_dense_cfg(cfg), p),
+                               constrain(x))
+                x = constrain(x)
             auxs = []
             for p in self.blocks:
                 x, a = _block(remat, lambda h, p=p: _moe_block(
-                    cfg, p, h, pos, pos3, window), x)
+                    cfg, p, h, pos, pos3, window), constrain(x))
                 auxs.append(a)
+            x = constrain(x)
             aux = aux + torch.stack(auxs).sum()
         elif fam == "ssm":
             for p in self.blocks:
-                x = _block(remat, lambda h, p=p: _rwkv_block(cfg, p, h), x)
+                x = _block(remat, lambda h, p=p: _rwkv_block(cfg, p, h),
+                           constrain(x))
+            x = constrain(x)
         elif fam == "hybrid":
             x = self._hybrid_forward(x, pos, window, remat)
         elif fam == "encdec":
@@ -306,13 +316,16 @@ class Model(torch.nn.Module):
     def _hybrid_forward(self, x, pos, window, remat):
         """Zamba2: the shared attention block after every
         ``hybrid_attn_every`` Mamba2 blocks and after the last (outside
-        the checkpoint, as in the reference)."""
+        the checkpoint, as in the reference): each run of Mamba2 blocks
+        before it is one stack."""
         cfg = self.cfg
         every = cfg.hybrid_attn_every or cfg.n_layers
         for i, p in enumerate(self.blocks):
-            x = _block(remat, lambda h, p=p: _mamba_block(cfg, p, h), x)
+            x = _block(remat, lambda h, p=p: _mamba_block(cfg, p, h),
+                       constrain(x))
             if (i + 1) % every == 0 or i == cfg.n_layers - 1:
-                x = _dense_block(cfg, self.shared_attn, x, pos, None, window)
+                x = _dense_block(cfg, self.shared_attn, constrain(x), pos,
+                                 None, window)
         return x
 
     def encode(self, audio_embeds: torch.Tensor, *,
@@ -328,8 +341,8 @@ class Model(torch.nn.Module):
                                causal=False)
             return h + F.mlp(cfg, p.mlp, apply_norm(cfg, h, p.ln2))
         for p in self.enc_blocks:
-            enc = _block(remat, lambda h, p=p: ebody(p, h), enc)
-        return apply_norm(cfg, enc, self.enc_norm)
+            enc = _block(remat, lambda h, p=p: ebody(p, h), constrain(enc))
+        return apply_norm(cfg, constrain(enc), self.enc_norm)
 
     def _encdec_forward(self, batch, x, window, remat):
         cfg = self.cfg
@@ -344,8 +357,8 @@ class Model(torch.nn.Module):
                                causal=False, kv_x=enc)
             return h + F.mlp(cfg, p.mlp, apply_norm(cfg, h, p.ln2))
         for p in self.blocks:
-            x = _block(remat, lambda h, p=p: dbody(p, h), x)
-        return x
+            x = _block(remat, lambda h, p=p: dbody(p, h), constrain(x))
+        return constrain(x)
 
     # ---------------- loss ----------------
     def loss(self, batch, *, remat: bool = True) -> torch.Tensor:

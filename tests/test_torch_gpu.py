@@ -1698,3 +1698,38 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
         # one AdamW step moves a weight by at most about lr either way
         assert float((a - b.cpu()).abs().max()) <= 2e-3 * (
             1 + 0.1 * float(a.abs().max())) + 1e-6, n
+
+
+@pytest.mark.parametrize("arch,mode", [
+    ("llama3-8b", "train"), ("llama3-8b", "prefill"), ("llama3-8b", "decode"),
+    ("zamba2-1.2b", "prefill"), ("zamba2-1.2b", "decode")])
+def test_dry_run_counts_equal_the_live_step(cuda, arch, mode):
+    """The dry run's op counter on a reduced bf16 step: the step on fake
+    CUDA tensors and the same step run on the card count the same FLOPs,
+    bytes and kernel units, and the card's run launched the kernels that
+    many times (Zamba2's time loop folded; its train step is not counted,
+    ROADMAP A 7.4)."""
+    import dataclasses
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.transformer import Model
+    from repro_torch.runtime.shard_plan import Strategy
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="bfloat16")
+    mesh, shape = make_local_mesh(), (64, 2, mode)
+    with FakeTensorMode():
+        fake, _, _, _ = dryrun.count_step(cfg, Model(cfg, device=cuda),
+                                          shape, mesh, Strategy())
+    model = Model(cfg, device=cuda).init(
+        torch.Generator(device=cuda).manual_seed(0))
+    wrappers = {"flash_attention_bh": flash_attention_bh,
+                "flash_decode_paged": flash_decode_paged}
+    before = {k: f.launches for k, f in wrappers.items()}
+    live, _, _, _ = dryrun.count_step(cfg, model, shape, mesh, Strategy())
+    torch.cuda.synchronize()
+    assert (live.flops, live.bytes, live.units) == (fake.flops, fake.bytes,
+                                                    fake.units)
+    assert live.units and all(n > 0 for n in live.units.values())
+    assert {k: f.launches - before[k] for k, f in wrappers.items()} == {
+        k: live.units.get(k, 0) for k in wrappers}

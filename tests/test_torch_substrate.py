@@ -283,8 +283,11 @@ def test_launcher_runs_every_input_family(arch):
 
 
 def test_launcher_dry_run_and_missing_card_raise(monkeypatch):
-    with pytest.raises(NotImplementedError, match="A 7.3"):
-        train.main(["--arch", "olmo-1b", "--dry-run"])
+    # --dry-run counts the production-mesh train step (no card needed)
+    (rec,) = train.main(["--arch", "olmo-1b", "--dry-run"])
+    assert (rec["arch"], rec["shape"], rec["mode"]) == ("olmo-1b",
+                                                        "train_4k", "train")
+    assert rec["hlo_flops"] > 0 and 0 < rec["useful_ratio"] < 10
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="needs a CUDA device"):
         train.main(["--arch", "olmo-1b", "--steps", "1"])

@@ -35,6 +35,21 @@ def one_intra_op_thread():
     torch.set_num_threads(n)
 
 
+def ref_dryrun_shapes():
+    """The reference dry run's ``SHAPES``, read from its source: importing
+    ``repro.launch.dryrun`` sets ``XLA_FLAGS`` for the whole process (512
+    host devices), which would change the device count of every later JAX
+    test in the same worker."""
+    import ast
+    from pathlib import Path
+    src = (Path(__file__).resolve().parents[1] / "src" / "repro" / "launch"
+           / "dryrun.py").read_text()
+    for node in ast.parse(src).body:
+        if isinstance(node, ast.AnnAssign) and node.target.id == "SHAPES":
+            return ast.literal_eval(node.value)
+    raise LookupError("SHAPES not found in the reference's dryrun.py")
+
+
 def configs(arch, dtype="float32", **kw):
     """(reference config, port config) of ``arch``'s ``reduced()`` variant
     with ``dtype`` and the fields ``kw`` replaced on both."""
