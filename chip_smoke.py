@@ -134,7 +134,27 @@ seeds:
   counter hook beside a ``torch.library.custom_op``; (c) the production
   dry runs through ``serve.main(["--dry-run", ...])`` and
   ``train.main([..., "--dry-run"])`` under ``tests/test_dryrun.py``'s
-  assertions, and both report tables.
+  assertions, and both report tables.  16b also counts the ssm and hybrid
+  train steps: rwkv6-3b (2 layers) and zamba2-1.2b (7 layers, its shared
+  attention block twice, through ``flash_attention_bh``) at full width in
+  bf16, B 2 x S 256, folded on fake tensors (the time loops' backward
+  folded too) and run on the card with every step of the loops run: FLOPs,
+  bytes and kernel units equal.
+* the example scripts (phase 17) — ``examples/torch_quickstart.py``,
+  ``torch_plan_edge_cnn.py``, ``torch_serve_llm.py`` and
+  ``torch_train_lm.py`` run on the card as subprocesses at reduced flags,
+  each exiting 0 with its headline printed, every kernel call held
+  against its plain version on the same inputs (TOL in f32, BF16_TOL in
+  bf16) and each kernel's launches equal to the count its plans and
+  config give (quickstart: ``kernel_records`` of its two MobileNet plans;
+  serving: layers x (prompt + generated) decode calls and a prefill call
+  a layer; training: ``train_flash_launches`` a step);
+  ``experiments/torch_hillclimb.py``'s pairs A-D, one subprocess a pair
+  run beside the examples: every row counted, pair A's chunked rows below
+  the recurrent ones in bytes, and pair C's ep and tp rows apart in
+  collective bytes, its tp rows above its ep rows in collective time as
+  in the reference (pair B has no ep row: granite-moe's 40 experts do not
+  divide the model axis, so every row lays its experts out as tp).
 
 All four kernels' launch counters are zeroed just before each path's run
 and read just after: they must equal the launches the plan (or the case
@@ -815,6 +835,48 @@ def recorders(calls):
     def rec_mm(xs, w):
         out = matmul_tiled(xs, w)
         calls["matmul_tiled"].append((xs, w, out))
+        return out
+    return rec_conv, rec_mm
+
+
+def holding_recorders(held, errs, shapes):
+    """Stand-ins for the engine's conv2d_shard and matmul_tiled that call
+    the wrappers and hold each eager call at once against its plain
+    version on the same inputs (scale-normalised TOL): a captured
+    segment program reuses its input buffers, so a call cannot be held
+    after the run.  A call made while a CUDA graph captures is not held
+    (nothing has run yet); its program's first, eager call was, at the
+    same shapes.  Counts go to ``held``, the largest absolute differences
+    to ``errs``, the call shapes to ``shapes``."""
+    import torch
+    from repro_torch.kernels.conv2d import conv2d_shard
+    from repro_torch.kernels.ops import matmul_tiled
+    from repro_torch.kernels.ref import conv2d_shard_ref, matmul_ref
+
+    def capturing(t):
+        return t.is_cuda and torch.cuda.is_current_stream_capturing()
+
+    def hold(kname, out, plain, shape):
+        e = rel_err(out, plain)
+        check(e < TOL, f"{kname} call {held[kname]} {shape}: error {e:.3e}"
+              f" of scale against plain")
+        held[kname] += 1
+        errs[kname] = max(errs[kname], abs_err(out, plain))
+        shapes.add(shape)
+
+    def rec_conv(xs, w, **kwargs):
+        out = conv2d_shard(xs, w, **kwargs)
+        if not capturing(xs):
+            hold("conv2d_shard", out, conv2d_shard_ref(xs, w, **kwargs),
+                 ("conv2d_shard", tuple(xs.shape), tuple(w.shape),
+                  tuple(sorted((k, str(v)) for k, v in kwargs.items()))))
+        return out
+
+    def rec_mm(xs, w):
+        out = matmul_tiled(xs, w)
+        if not capturing(xs):
+            hold("matmul_tiled", out, matmul_ref(xs, w),
+                 ("matmul_tiled", tuple(xs.shape), tuple(w.shape), ()))
         return out
     return rec_conv, rec_mm
 
@@ -2943,14 +3005,15 @@ class LMRecorder:
     card: bf16 within BF16_TOL of scale, f32 within TOL; a flash call that
     writes its log-sum-exp (a training forward) has it held within TOL of
     the plain one, whatever the dtype (both score in f32).  Installed with
-    ``with``; ``calls`` and ``err`` per kernel, ``lse_calls`` and
-    ``lse_err``."""
+    ``with``; ``calls`` and ``err`` per kernel, ``lse_calls``,
+    ``lse_err`` and the held ``shapes`` (kernel, out shape, dtype)."""
 
     def __init__(self):
         self.calls = {"flash_attention_bh": 0, "flash_decode_paged": 0}
         self.err = {"flash_attention_bh": 0.0, "flash_decode_paged": 0.0}
         self.abs = dict(self.err)
         self.lse_calls, self.lse_err = 0, 0.0
+        self.shapes = set()
 
     def _hold(self, kname, out, plain):
         import torch
@@ -2958,6 +3021,7 @@ class LMRecorder:
         tol = BF16_TOL if out.dtype == torch.bfloat16 else TOL
         check(e < tol, f"{kname} call {self.calls[kname]} {out.dtype} "
               f"{tuple(out.shape)}: error {e} against plain")
+        self.shapes.add((kname, tuple(out.shape), str(out.dtype)))
         self.calls[kname] += 1
         self.err[kname] = max(self.err[kname], e)
         self.abs[kname] = max(self.abs[kname], abs_err(out, plain))
@@ -3794,9 +3858,17 @@ def phase_train(dev, errs, card):
 V5E = dict(peak_flops=197e12, hbm_bw=819e9, link_bw=50e9)
 #: 16b: (name, arch, (seq, batch, mode)) counted on the one-card mesh and
 #: run on the card under the same counter
-DRY_CASES = (("olmo-1b train", TRAIN_ARCH, (TRAIN_SEQ, TRAIN_BATCH, "train")),
-             ("llama3-8b decode", "llama3-8b", (LM_DECODE_KEYS, 4, "decode")),
-             ("llama3-8b prefill", "llama3-8b", (LM_LONG, 1, "prefill")))
+#: run on the card with every step of the SSM time loops run; the ssm and
+#: hybrid cases (depth cut to the last field: zamba2's 7 layers run its
+#: shared attention block twice) are counted with the loops folded
+DRY_CASES = (("olmo-1b train", TRAIN_ARCH, (TRAIN_SEQ, TRAIN_BATCH, "train"),
+              None),
+             ("llama3-8b decode", "llama3-8b", (LM_DECODE_KEYS, 4, "decode"),
+              None),
+             ("llama3-8b prefill", "llama3-8b", (LM_LONG, 1, "prefill"),
+              None),
+             ("rwkv6-3b train", "rwkv6-3b", (256, 2, "train"), 2),
+             ("zamba2-1.2b train", "zamba2-1.2b", (256, 2, "train"), 7))
 #: counted FLOPs against the analytic count (the matmuls and attention
 #: exactly; the elementwise work, one FLOP an element, is the rest)
 DRY_FLOPS_TOL = 0.05
@@ -3931,6 +4003,32 @@ def hook_costs(dev):
     return out
 
 
+def flash_at(dev, cfg, batch, seq, name) -> None:
+    """``flash_attention_bh`` at a model's self-attention shape (``batch``
+    x ``seq`` tokens) on random inputs, held against its plain version at
+    the reference's tolerance for the config's dtype."""
+    import importlib
+    import torch
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    dt = getattr(torch, cfg.dtype)
+    g = torch.Generator(device=dev).manual_seed(17)
+    q = torch.randn((batch, cfg.n_heads, seq, cfg.hd), generator=g,
+                    device=dev).to(dt)
+    k, v = (torch.randn((batch, cfg.n_kv, seq, cfg.hd), generator=g,
+                        device=dev).to(dt) for _ in range(2))
+    got = fa.attention(q, k, v, causal=True, window=cfg.attn_window,
+                       scale=None)
+    want = plain_attention(q.float(), k.float(), v.float(), True,
+                           cfg.attn_window)
+    e = rel_err(got, want)
+    tol = 2e-2 if dt == torch.bfloat16 else TOL
+    check(e < tol, f"phase 16b {name}: flash_attention_bh at "
+          f"{tuple(q.shape)} off its plain version by {e:.3e} of scale")
+    print(f"phase 16b: {name}: flash_attention_bh at the step's shape "
+          f"{tuple(q.shape)} {cfg.dtype} within {e:.3e} of scale of its "
+          f"plain version", flush=True)
+
+
 def phase_dryrun_live(dev, card):
     """Phase 16b: each DRY_CASES step counted by the dry run on the
     one-card mesh (fake tensors), then built on real weights on the card
@@ -3952,11 +4050,18 @@ def phase_dryrun_live(dev, card):
           f"phase 16b: the local mesh is {mesh.shape}, not one card")
     total = {"flash_attention_bh": 0, "flash_decode_paged": 0}
     model = None
-    for name, arch, shape in DRY_CASES:
+    for name, arch, shape, layers in DRY_CASES:
         seq, batch, mode = shape
         cfg = get_config(arch)
+        cut = None
+        if layers is not None:
+            def cut(c, _n=layers):
+                return dataclasses.replace(c, n_layers=_n)
+            cfg = cut(cfg)
+        loops = cfg.family in ("ssm", "hybrid")
         t0 = time.perf_counter()
-        rec = dryrun.run_one(arch, shape, mesh=mesh, verbose=False)
+        rec = dryrun.run_one(arch, shape, mesh=mesh, cfg_transform=cut,
+                             verbose=False)
         fake_s = time.perf_counter() - t0
         if model is None or model.cfg.name != cfg.name:
             del model
@@ -3973,13 +4078,16 @@ def phase_dryrun_live(dev, card):
         zero_counts()
         t0 = time.perf_counter()
         counter, inputs, _, _ = dryrun.count_step(
-            cfg, model, shape, mesh, Strategy(**rec["strategy"]))
+            cfg, model, shape, mesh, Strategy(**rec["strategy"]),
+            fold_loops=False)
         torch.cuda.synchronize()
         live_s = time.perf_counter() - t0
         counts = read_counts()
         peak = torch.cuda.max_memory_allocated() - base
         check_counts(f"phase 16b {name}", counts, {kname: want})
         total[kname] += counts[kname]
+        if want and loops:
+            flash_at(dev, cfg, batch, seq, name)
         if (counter.flops, counter.bytes) != (rec["hlo_flops"],
                                               rec["hlo_bytes"]):
             fake = {}
@@ -3996,9 +4104,10 @@ def phase_dryrun_live(dev, card):
                 f"phase 16b {name}: live counts {counter.flops} FLOPs "
                 f"{counter.bytes} bytes != fake {rec['hlo_flops']} / "
                 f"{rec['hlo_bytes']}; ops that differ (live, fake): {diff}")
-        check(counter.units == rec["kernel_units"] == {kname: want},
+        want_units = {kname: want} if want else {}
+        check(counter.units == rec["kernel_units"] == want_units,
               f"phase 16b {name}: units {counter.units} live, "
-              f"{rec['kernel_units']} fake, {want} expected")
+              f"{rec['kernel_units']} fake, {want_units} expected")
         live_args = sum(t.numel() * t.element_size() for t in {
             t.untyped_storage().data_ptr(): t
             for t in tree_leaves(inputs.args)}.values())
@@ -4009,24 +4118,32 @@ def phase_dryrun_live(dev, card):
         args = rec["mem_per_device"]["argument_size_bytes"]
         check(live_args == args, f"phase 16b {name}: argument bytes "
               f"{args} counted, {live_args} live")
-        ana = analytic_flops(cfg, seq, batch, mode)
-        e = abs(counter.flops - ana) / ana
-        check(e < DRY_FLOPS_TOL, f"phase 16b {name}: counted FLOPs "
-              f"{counter.flops} against {ana} analytic, {e:.3%}")
+        if loops:
+            ana_text = ("no count from the config (the recurrences' "
+                        "elementwise work is most of it)")
+        else:
+            ana = analytic_flops(cfg, seq, batch, mode)
+            e = abs(counter.flops - ana) / ana
+            check(e < DRY_FLOPS_TOL, f"phase 16b {name}: counted FLOPs "
+                  f"{counter.flops} against {ana} analytic, {e:.3%}")
+            ana_text = (f"FLOPs {(counter.flops - ana) / ana:+.3%} of the "
+                        f"analytic {ana:.6g}")
         walls = wall_ms(inputs.step, DRY_WALL_REPS)
         roof = max(rec["t_compute_s"], rec["t_memory_s"]) * 1e3
         check(min(walls) >= roof, f"phase 16b {name}: a warm wall "
               f"{min(walls):.3f} ms below the roofline {roof:.3f} ms")
         med = spread(walls)[0]
-        print(f"phase 16b: {name} ({arch} {cfg.dtype} {mode}, B {batch}, "
+        print(f"phase 16b: {name} ({arch} {cfg.dtype} {mode}, "
+              f"{cfg.n_layers} layers, B {batch}, "
               f"{'capacity' if mode == 'decode' else 'S'} {seq}; strategy "
               f"{short_strategy(Strategy(**rec['strategy']))} on 1x1): "
               f"counted {rec['hlo_flops']:.6g} FLOPs, {rec['hlo_bytes']:.6g} "
               f"bytes, {rec['kernel_units']} in {fake_s:.1f} s on fake "
-              f"tensors; the live run under the counter equal ({live_s:.1f} "
-              f"s, {counter.ops} ops), launches {counts}; FLOPs "
-              f"{(counter.flops - ana) / ana:+.3%} of the analytic "
-              f"{ana:.6g}; arguments {args} bytes = the live tensors'; "
+              f"tensors{' (time loops folded)' if loops else ''}; the live "
+              f"run under the counter equal ({live_s:.1f} s, {counter.ops} "
+              f"ops{', every loop step run' if loops else ''}), launches "
+              f"{counts}; {ana_text}; arguments {args} bytes = the live "
+              f"tensors'; "
               f"temp {rec['mem_per_device']['temp_size_bytes'] / 2**30:.3f} "
               f"GiB counted, {counter.peak_bytes / 2**30:.3f} live, the "
               f"allocator's peak over the arguments {peak / 2**30:.3f} GiB; "
@@ -4088,6 +4205,237 @@ def phase_lm_dryrun(dev, card):
     print(f"phase 16: {time.perf_counter() - t_phase:.1f} s [{card}]",
           flush=True)
     return {k: {"dryrun_launches": v} for k, v in total.items()}
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: the example scripts
+# ---------------------------------------------------------------------------
+
+#: (script, flags, its headline's marker)
+EXAMPLES = (
+    ("examples/torch_quickstart.py", (), "whole mobilenet"),
+    ("examples/torch_plan_edge_cnn.py", ("--samples", "2000", "--trees",
+                                         "20"), "worst gap"),
+    ("examples/torch_serve_llm.py", ("--arch", "llama3-8b", "--batch", "4",
+                                     "--prompt-len", "12", "--gen", "24"),
+     "decode:"),
+    ("examples/torch_train_lm.py", ("--steps", "80", "--ckpt",
+                                    "build/phase17_lm.npz"), "final loss"),
+)
+HILLCLIMB = "experiments/torch_hillclimb.py"
+#: the subprocess that runs one script as ``__main__`` with every kernel
+#: wrapper it reaches replaced by a stand-in (``holding_recorders``,
+#: ``LMRecorder``) that calls the wrapper and holds the call against its
+#: plain version on the same inputs; it reports the launch counters,
+#: zeroed just before the script, the held calls and their errors
+SCRIPT_RUNNER = r"""
+import json, runpy, sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as cs
+import torch
+from repro_torch.runtime import engine
+torch.backends.cudnn.allow_tf32 = False
+torch.set_float32_matmul_precision("highest")
+sys.argv = sys.argv[2:]
+held = {"conv2d_shard": 0, "matmul_tiled": 0}
+errs = {"conv2d_shard": 0.0, "matmul_tiled": 0.0}
+shapes = set()
+engine.conv2d_shard, engine.matmul_tiled = cs.holding_recorders(
+    held, errs, shapes)
+lm = cs.LMRecorder()
+cs.zero_counts()
+code = 0
+with lm:
+    try:
+        runpy.run_path(sys.argv[0], run_name="__main__")
+    except SystemExit as e:
+        code = e.code if isinstance(e.code, int) else (0 if e.code is None
+                                                        else 1)
+launches = cs.read_counts()
+held.update(lm.calls)
+errs.update(lm.abs)
+print("PHASE17 " + json.dumps({
+    "launches": launches, "held": held, "errs": errs,
+    "shapes": sorted(str(s) for s in shapes | lm.shapes)}))
+sys.exit(code)
+"""
+
+
+def load_script(path):
+    """A script of the checkout as a module (its ``main`` not run)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(Path(path).stem,
+                                                  ROOT / path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def example_launches(script, flags) -> dict:
+    """The kernel launches of one example at ``flags``, from its plans and
+    configs (independent of the counters): the quickstart runs the local
+    executor over its two MobileNet plans, each once and eager
+    (``kernel_records``); the serving example decodes every prompt and
+    generated position through ``flash_decode_paged`` in each layer and
+    prefills the prompt once through ``flash_attention_bh``; the training
+    example runs ``train_flash_launches`` a step."""
+    import argparse
+    name = Path(script).stem
+    if name == "torch_quickstart":
+        from repro_torch.configs.edge_models import mobilenet_v1
+        from repro_torch.core import AnalyticEstimator, Testbed, chain
+        from repro_torch.core.dpp import plan_search
+        est, tb = AnalyticEstimator(), Testbed(nodes=4, bandwidth_gbps=1.0)
+        conv = fc = 0
+        for g in (chain("mb_prefix", mobilenet_v1(width=56).layers[:9]),
+                  mobilenet_v1(width=56)):
+            c, f = kernel_records(g, plan_search(g, est, tb).plan, tb.nodes)
+            conv, fc = conv + c, fc + f
+        return {"conv2d_shard": conv, "matmul_tiled": fc}
+    if name == "torch_serve_llm":
+        from repro_torch.configs.registry import get_config
+        ap = argparse.ArgumentParser()
+        for flag in ("--arch", "--batch", "--prompt-len", "--gen"):
+            ap.add_argument(flag)
+        a, _ = ap.parse_known_args(flags)
+        n = get_config(a.arch).reduced().n_layers
+        return {"flash_decode_paged": n * (int(a.prompt_len) + int(a.gen)),
+                "flash_attention_bh": n}
+    if name == "torch_train_lm":
+        from repro_torch.configs.base import ModelConfig
+        ap = argparse.ArgumentParser()
+        ap.add_argument("--steps")
+        a, _ = ap.parse_known_args(flags)
+        cfg = ModelConfig(**load_script(script).CONFIG)
+        return {"flash_attention_bh":
+                train_flash_launches(cfg) * int(a.steps)}
+    return {}
+
+
+def hillclimb_checks(recs, card) -> None:
+    """Every row of every pair counted; pair A's chunked rows below the
+    recurrent ones in bytes; pair C's ep rows apart from its tp rows in
+    collective bytes and below them in collective time (the reference's
+    order), each ep row with an all-to-all; no row of pair B with one (its
+    experts do not divide the model axis)."""
+    from repro_torch.runtime.shard_plan import Strategy
+    hc = load_script(HILLCLIMB)
+    for pair, rows in hc.EXPERIMENTS.items():
+        got = [r["label"] for r in recs[pair]]
+        check(got == [r[2] for r in rows], f"phase 17: hillclimb {pair} "
+              f"counted {got}, not every row")
+    a = {r["label"]: r for r in recs["A"]}
+    for label, r in a.items():
+        base = "zamba2 baseline recurrent" if label.startswith("zamba2") \
+            else "baseline recurrent scan"
+        if "chunked" in label:
+            check(r["hlo_bytes"] < a[base]["hlo_bytes"], f"phase 17: "
+                  f"pair A {label} counts {r['hlo_bytes']:.6g} bytes, not "
+                  f"below {base}'s {a[base]['hlo_bytes']:.6g}")
+    c = recs["C"]
+    ep = [r for r in c if r["strategy"]["moe"] == "ep"]
+    tp = [r for r in c if r["strategy"]["moe"] == "tp"]
+    check(ep and tp, "phase 17: pair C has no ep or no tp row")
+    for e in ep:
+        check("all-to-all" in e["coll_bytes"], f"phase 17: pair C "
+              f"{e['label']}: no all-to-all")
+        for t in tp:
+            check(e["coll_bytes"] != t["coll_bytes"], f"phase 17: pair C "
+                  f"{e['label']} and {t['label']} move the same bytes")
+            check(t["t_collective_s"] > e["t_collective_s"], f"phase 17: "
+                  f"pair C {t['label']} below {e['label']} in collective "
+                  f"time, the reference's reverse")
+    for r in recs["B"]:
+        check("all-to-all" not in r["coll_bytes"], f"phase 17: pair B "
+              f"{r['label']} has an all-to-all")
+    for pair in ("A", "B", "C", "D"):
+        for r in recs[pair]:
+            kinds = ", ".join(f"{k} {v:.4g}"
+                              for k, v in sorted(r["coll_bytes"].items()))
+            print(f"phase 17: hillclimb {pair} {r['label']:32s} "
+                  f"{short_strategy(Strategy(**r['strategy']))} "
+                  f"flops {r['hlo_flops']:.4g} bytes {r['hlo_bytes']:.4g} "
+                  f"coll {sum(r['coll_bytes'].values()):.4g} ({kinds}) "
+                  f"t_coll {r['t_collective_s']:.4g} s, "
+                  f"{r['bottleneck']}-bound [{card}]", flush=True)
+
+
+def phase_scripts(errs, card) -> dict:
+    """Phase 17: the four examples on the card, one subprocess each at
+    reduced flags (exit 0, the headline printed, each kernel's launches
+    equal to the count its plans and config give, every eager call held
+    against its plain version, the largest differences kept in
+    ``errs``), while the hillclimb's four pairs run beside them, one
+    subprocess a pair, counted on fake CUDA tensors.  Returns the
+    launches by kernel, summed over the examples."""
+    import os
+    import shutil
+    t_phase = time.perf_counter()
+    out_dir = ROOT / "experiments" / "torch_hillclimb"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]))
+    climbs = {pair: subprocess.Popen(
+        [sys.executable, str(ROOT / HILLCLIMB), pair], cwd=str(ROOT),
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for pair in ("A", "B", "C", "D")}
+    total = {name: 0 for name in kernel_wrappers()}
+    try:
+        for script, flags, marker in EXAMPLES:
+            t0 = time.perf_counter()
+            res = subprocess.run(
+                [sys.executable, "-c", SCRIPT_RUNNER, str(ROOT),
+                 str(ROOT / script), *flags], cwd=str(ROOT), env=env,
+                capture_output=True, text=True, timeout=600)
+            secs = time.perf_counter() - t0
+            check(res.returncode == 0, f"phase 17: {script} exited "
+                  f"{res.returncode}:\n{res.stdout[-2000:]}\n"
+                  f"{res.stderr[-3000:]}")
+            lines = res.stdout.splitlines()
+            got = json.loads(next(ln for ln in lines
+                                  if ln.startswith("PHASE17 "))
+                             .split(" ", 1)[1])
+            launches, held = got["launches"], got["held"]
+            want = example_launches(script, flags)
+            check_counts(f"phase 17: {script}", launches, want)
+            # every LM call is eager; a captured segment program's
+            # replays launch without a call, its first call was held
+            check(all((held[k] > 0) == (n > 0) and held[k] <= n
+                      for k, n in launches.items())
+                  and all(held[k] == launches[k] for k in
+                          ("flash_attention_bh", "flash_decode_paged")),
+                  f"phase 17: {script}: launches {launches}, calls held "
+                  f"against plain {held}")
+            for k, n in launches.items():
+                total[k] += n
+                if n:
+                    errs[k] = max(errs[k], got["errs"][k])
+            head = [ln.strip() for ln in lines if marker in ln]
+            check(head, f"phase 17: {script} printed no {marker!r} line")
+            print(f"phase 17: {script} {' '.join(flags)}: exit 0 in "
+                  f"{secs:.1f} s; {' | '.join(head)}; launches "
+                  f"{ {k: v for k, v in launches.items() if v} } as its "
+                  f"plans and config give; calls held against their "
+                  f"plain versions {held} (TOL f32, BF16_TOL bf16; max abs "
+                  f"{ {k: got['errs'][k] for k, v in launches.items() if v} })"
+                  f" at {len(got['shapes'])} call shapes: "
+                  f"{'; '.join(got['shapes'][:8])} [{card}]", flush=True)
+        recs = {}
+        for pair, proc in climbs.items():
+            text, _ = proc.communicate(timeout=900)
+            check(proc.returncode == 0 and "FAILED" not in text,
+                  f"phase 17: hillclimb {pair} exited {proc.returncode}:"
+                  f"\n{text[-3000:]}")
+            recs[pair] = json.loads((out_dir / f"{pair}.json").read_text())
+    finally:
+        for proc in climbs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    hillclimb_checks(recs, card)
+    print(f"phase 17: {time.perf_counter() - t_phase:.1f} s; launches "
+          f"over the examples {total} [{card}]", flush=True)
+    return total
 
 
 def run(dev) -> dict:
@@ -4154,6 +4502,8 @@ def run(dev) -> dict:
     lm["flash_attention_bh"].update(phase_train(dev, errs, card))
     for kname, fields in phase_lm_dryrun(dev, card).items():
         lm[kname].update(fields)
+    for kname, n in phase_scripts(errs, card).items():
+        lm.setdefault(kname, {})["scripts_launches"] = n
     for r in rows:
         r.pop("mesh_inputs")
 
@@ -4209,7 +4559,8 @@ def run(dev) -> dict:
           f"phase 15's {TRAIN_ARCH} bf16 step of {TRAIN_BATCH} x "
           f"{TRAIN_SEQ} tokens (its calls with lse, graph replay) beside "
           "the plain flash backward and SDPA's forward with lse; "
-          "dryrun_launches: phase 16b's live steps under the op counter",
+          "dryrun_launches: phase 16b's live steps under the op counter; "
+          "scripts_launches: phase 17's four examples",
           flush=True)
     return {"kernels": kernels}
 

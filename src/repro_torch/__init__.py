@@ -49,16 +49,22 @@ paged-decode kernels:
     res = serve.main(["--arch", "llama3-8b", "--full"])   # bf16 on the card
     model = Model(get_config("olmo-1b").reduced(), device="cpu")
 
-Entry points run on the card (``device="cuda"``) unless the caller asks
-for ``device="cpu"``.  Deeper layers stay importable from the subpackages
+``baselines`` is a module, importable from here but kept out of
+``__all__``: ``from repro_torch import *`` brings no module, as the JAX
+package's does not.  Entry points run on the card (``device="cuda"``)
+unless the caller asks for ``device="cpu"``.  Deeper layers stay importable from the subpackages
 ``repro_torch.core``, ``repro_torch.gbdt``, ``repro_torch.sim``,
 ``repro_torch.models``,
 ``repro_torch.cluster``, ``repro_torch.kernels``, ``repro_torch.runtime``,
 ``repro_torch.launch`` and ``repro_torch.configs``.
 """
-from repro_torch.core import (AnalyticEstimator, GBDTEstimator, Mode, Plan,
-                              Scheme, Testbed, baselines, exhaustive_search,
+from repro_torch.core import (AnalyticEstimator, ConvT, GBDTEstimator,
+                              LayerSpec, Mode, ModelGraph, Objective, Plan,
+                              Scheme, SearchResult, Testbed, Topology,
+                              baselines, chain, exhaustive_search,
                               fixed_plan, plan_search)
+from repro_torch.cluster import (ClusterSpec, cluster_plan_search,
+                                 homogeneous, mixed_fast_slow)
 from repro_torch.configs.registry import ARCH_IDS, get_config
 from repro_torch.launch import make_nodes_mesh
 from repro_torch.models import Model, params_from_numpy
@@ -74,13 +80,18 @@ from repro_torch.runtime import (EXECUTORS, DecodeSession, ExecConfig,
                                  weights_from_numpy)
 
 __all__ = [
-    "plan_search", "AnalyticEstimator", "Testbed", "Session", "ExecConfig",
-    "ExecStats", "init_weights", "weights_from_numpy", "run_reference",
-    "fixed_plan", "Plan", "Scheme", "Mode", "DecodeSession",
-    "TransformerSpec", "PagedKVCache", "decode_graph", "prefill_graph",
-    "init_transformer", "transformer_weights_from_numpy",
-    "reference_decode", "greedy_decode", "plan_decode", "EXECUTORS",
-    "make_nodes_mesh", "GBDTEstimator", "exhaustive_search", "baselines",
+    # the JAX package's surface
+    "AnalyticEstimator", "ConvT", "LayerSpec", "Mode", "ModelGraph",
+    "Objective", "Plan", "Scheme", "SearchResult", "Testbed", "Topology",
+    "chain", "fixed_plan", "plan_search",
+    "ClusterSpec", "cluster_plan_search", "homogeneous", "mixed_fast_slow",
+    "ExecConfig", "Session", "ExecStats", "init_weights", "run_reference",
+    "DecodeSession", "TransformerSpec", "PagedKVCache", "decode_graph",
+    "prefill_graph", "init_transformer", "reference_decode",
+    "greedy_decode", "plan_decode",
+    # the port's own
+    "weights_from_numpy", "transformer_weights_from_numpy", "EXECUTORS",
+    "make_nodes_mesh", "GBDTEstimator", "exhaustive_search",
     "TraceConfig", "train_estimators", "Model", "params_from_numpy",
     "ARCH_IDS", "get_config",
 ]

@@ -78,7 +78,7 @@ SHAPES: Dict[str, Tuple[int, int, str]] = {
 LONG_WINDOW = 4_096   # sliding window used by all archs at 500k context
 
 #: the collective kinds a record names (the reference's HLO op names)
-COLL_KINDS = ("all-gather", "all-reduce", "reduce-scatter")
+COLL_KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all")
 #: row-parallel projections: a TP spec on their input dim sums partial
 #: outputs across the model axis
 _ROW_PARALLEL = ("wo", "w_down", "cm_v", "w_out")
@@ -205,14 +205,15 @@ def argument_bytes(inputs: StepInputs, mesh) -> int:
 
 
 def count_step(cfg, model: Model, shape, mesh, st: Strategy, *,
-               accum: int = 1):
+               accum: int = 1, fold_loops: bool = True):
     """Build ``shape``'s step on ``model`` (fake or real tensors) and run
     it once under an :class:`OpCounter` over ``mesh``, its arguments
     registered at their per-card shares and the activation-sharding
-    callback recording re-layouts.  Returns ``(counter, inputs, seconds,
-    sp)``, ``sp`` whether activations were sequence-sharded."""
+    callback recording re-layouts; ``fold_loops=False`` runs every step
+    of the SSM time loops.  Returns ``(counter, inputs, seconds, sp)``,
+    ``sp`` whether activations were sequence-sharded."""
     inputs = build_inputs(cfg, model, shape, mesh, st, accum)
-    counter = OpCounter(chips=mesh.size)
+    counter = OpCounter(chips=mesh.size, fold_loops=fold_loops)
     for name, t, spec in _pairs(inputs):
         traffic = _model_only(spec, mesh) if name in ("params", "opt") \
             else spec
@@ -255,9 +256,23 @@ def collectives(cfg, inputs: StepInputs, mesh, st: Strategy, sp: bool,
       (the backward's is the input gradient of the column-parallel
       projections); in training, the gradient of each leaf replicated
       over the data axes.
+    * MoE layers (``first_dense`` layers have none) move their expert
+      buffers ``[E, G·C, d]`` (:func:`expert_buffer_bytes`) in two passes
+      of a train step, the forward and the backward, not the three of a
+      checkpointed leaf: the reference's compiled step moves them in its
+      forward scan and its backward scan only.  Experts split over
+      ``model`` (``moe="ep"``: ``model`` on the expert dim of ``w_down
+      [E, f, d]``): an ``all-to-all`` sends each routed slot of the
+      card's rows to its expert's card and back, the dispatch and the
+      combine, one buffer each.  Experts split inside (``moe="tp"``:
+      ``model`` on ``f``): the reference's slot index ``e·G·C + g·C +
+      pos`` keeps XLA from splitting the scatter by the data axis, so
+      every card holds the buffer of the global batch's rows: an
+      ``all-gather`` over the data axes assembles it, and the
+      row-parallel FFN's partial sums are ``all-reduce``-d over
+      ``model`` at that size.
 
-    An axis of one card moves nothing.  MoE's expert dispatch (an
-    all-to-all on a real mesh) is not priced."""
+    An axis of one card moves nothing."""
     mode, seq, batch = (inputs.meta[k] for k in ("mode", "seq", "batch"))
     dpn = _dpn(mesh)
     m = mesh.shape["model"]
@@ -285,6 +300,16 @@ def collectives(cfg, inputs: StepInputs, mesh, st: Strategy, sp: bool,
 
     for name, t in inputs.args["params"].items():
         spec = inputs.specs["params"][name]
+        if name.endswith(".moe.w_down") and t.dim() == 3 and m > 1:
+            moe_passes = 2 if mode == "train" else 1
+            if "model" in axes((spec[0],) if spec else ()):
+                out["all-to-all"] += 2 * moe_passes * expert_buffer_bytes(
+                    cfg, mode, seq, b_local)
+            elif "model" in axes(spec):
+                glob = moe_passes * expert_buffer_bytes(cfg, mode, seq, batch)
+                out["all-reduce"] += glob
+                if b_local < batch:
+                    out["all-gather"] += glob
         apps = n_shared if name.startswith("shared_attn.") else 1
         gathered = math.prod(local_shape(t.shape, _model_only(spec, mesh),
                                          mesh)) * t.element_size()
@@ -325,6 +350,18 @@ def collectives(cfg, inputs: StepInputs, mesh, st: Strategy, sp: bool,
                 * act
         prev = spec
     return {k: v for k, v in out.items() if v}
+
+
+def expert_buffer_bytes(cfg, mode: str, seq: int, groups: int) -> float:
+    """One MoE layer's expert buffer ``[E, G·C, d]`` on a card: ``groups``
+    batch rows, each with ``C`` slots an expert (``models/ffn.py::moe``:
+    ``max(1, int(S·K·capacity_factor / E))``, 1 in decode, whose step
+    calls it with ``capacity=1``)."""
+    m = cfg.moe
+    cap = 1 if mode == "decode" else max(
+        1, int(seq * m.top_k * m.capacity_factor / m.n_experts))
+    return m.n_experts * groups * cap * cfg.d_model \
+        * getattr(torch, cfg.dtype).itemsize
 
 
 def run_one(arch: str, shape: str, *, multi_pod: bool = False,
@@ -393,9 +430,7 @@ def _output_bytes(cfg, inputs: StepInputs, mesh) -> int:
 
 
 def main(argv=None) -> list:
-    """The CLI; returns the records it made.  With ``--all``, a
-    combination the counter cannot count (ROADMAP A 7.4) is printed as
-    not counted and the rest go on; alone, it raises."""
+    """The CLI; returns the records it made."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCH_IDS)
     ap.add_argument("--shape", choices=tuple(SHAPES))
@@ -437,14 +472,9 @@ def main(argv=None) -> list:
     for arch, shape, mp in combos:
         print(f"== dryrun {arch} {shape} mesh={'2x16x16' if mp else '16x16'}",
               flush=True)
-        try:
-            records.append(run_one(arch, shape, multi_pod=mp,
-                                   strategy=strategy,
-                                   cfg_transform=cfg_transform))
-        except NotImplementedError as e:
-            if not args.all:
-                raise
-            print(f"== not counted: {e}", flush=True)
+        records.append(run_one(arch, shape, multi_pod=mp,
+                               strategy=strategy,
+                               cfg_transform=cfg_transform))
     if args.out:
         with open(args.out, "w") as f:
             json.dump(records, f, indent=1, default=str)

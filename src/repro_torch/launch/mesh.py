@@ -13,7 +13,10 @@ after another on the calling stream (:meth:`NodesMesh.run`), which is
 also how the local executors run the nodes' parts.
 
 A mesh over several cards (one node a card) is not ported: it raises
-``NotImplementedError`` naming ROADMAP.md queue A 10.
+``NotImplementedError`` naming ROADMAP.md queue A 10.  No port is owed of
+the reference's ``requested_host_devices``: it parses ``XLA_FLAGS`` for
+the count of fake CPU devices JAX was asked for, and nothing of the port
+sets or reads that flag.
 
 The LM planner's meshes (the port of ``make_production_mesh`` and
 ``make_local_mesh``) are :class:`ShapeMesh` objects: axis names and sizes,
@@ -110,6 +113,16 @@ class NodesMesh:
             torch.cuda.current_stream(self.device).wait_event(ev)
             t.record_stream(self.streams[nd])
         return t.clone()
+
+
+def require_device(name: str) -> torch.device:
+    """``name`` as a device for a command-line script; ``"cuda"`` without
+    a card raises rather than running on the CPU."""
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass --device cpu "
+                           "to run on the CPU")
+    return dev
 
 
 def _canonical(d) -> torch.device:

@@ -36,15 +36,29 @@ no memory) or on real tensors (the same ops, run):
   makes the outputs' shapes, on real ones the kernel (or, on the CPU, the
   plain version) runs with the counter looking away.
 * **Loops.** The SSM blocks' Python time loops (the reference's
-  ``lax.scan``) run one iteration under a counter whose ``fold_loops`` is
-  on (:func:`time_loop`), its counts multiplied by the trip count: every
-  iteration has the same shapes, so the count is exact (the counterpart
-  of ``known_trip_count``).  Only without autograd: under it (a train
-  step of an ssm or hybrid arch) the loop raises ``NotImplementedError``
-  (ROADMAP A 7.4), since its backward would run outside the fold.  On
-  real tensors the later steps' outputs
-  are then the first step's: a count, not a result (``fold_loops=False``
-  runs every step).
+  ``lax.scan``) run four iterations under a counter whose ``fold_loops``
+  is on (:func:`time_loop`): the first, one standing for S - 3 middle
+  ones (its counts multiplied by S - 3), and the last two.  Every iteration has
+  the same shapes, so the count is exact (the counterpart of
+  ``known_trip_count``).  Under autograd the fold covers the backward too:
+  each folded iteration's autograd nodes are known by their sequence
+  numbers, and whatever a node runs in the backward (its gradient and the
+  adds that sum it into an input's gradient) counts times its iteration's
+  multiplier (:func:`torch._C._current_autograd_node`).  The first and the
+  last iteration are run for real because their backward differs from a
+  middle one's: the first reads a state that needs no gradient, the last
+  writes a state nothing reads.  So is the one before the last: an
+  input's gradient is summed in the order the backward reaches the steps,
+  last first, and the first gradient to arrive is stored, not added; when
+  the last step gives none (the decay that only updates the state), it is
+  this step's.  :func:`unfold` stretches the per-step
+  outputs back to S without summing S - 2 gradients into the middle one,
+  and a remat recompute in the backward folds its loop the same way (its
+  ops count by the loop's own multipliers, not the node that set it off).
+  So a folded count equals the count of every step run (``fold_loops=
+  False``) in FLOPs, bytes and kernel units; ``peak_bytes`` is lower, since
+  fewer steps' tensors live.  On real tensors the later steps' outputs are
+  then the first ones': a count, not a result.
 * **Data-dependent sizes.** ``nonzero`` and indexing by a boolean mask
   (MoE's capacity drop) on fake tensors give their largest result, every
   element kept; on real tensors, what the data keeps.
@@ -65,6 +79,7 @@ is counted like the forward.
 from __future__ import annotations
 
 import contextlib
+from bisect import bisect_right
 from typing import Dict, Optional
 
 import numpy as np
@@ -117,37 +132,88 @@ def active() -> Optional["OpCounter"]:
     return None
 
 
+def _next_seq() -> int:
+    """The sequence number the next autograd node made on this thread
+    gets."""
+    return torch.autograd._get_sequence_nr()
+
+
 @contextlib.contextmanager
 def time_loop(trips: int):
     """``with time_loop(S) as steps: for t in steps: ...``: yields
-    ``range(S)``; under a counter whose ``fold_loops`` is on, ``range(1)``
-    with the counts inside multiplied by ``S``.  Every iteration of the
-    loop must have the same shapes; :func:`unfold` then stretches the
-    per-step outputs back to ``S``."""
+    ``range(S)``; under a counter whose ``fold_loops`` is on and ``S > 4``,
+    the steps ``0, 1, S - 2, S - 1``, the second counted ``S - 3`` times
+    (see the module docstring).  Every iteration of the loop must have the same
+    shapes; :func:`unfold` then stretches the per-step outputs back to
+    ``S``."""
     c = active()
-    if c is None or not c.fold_loops or trips <= 1:
+    if c is None or not c.fold_loops or trips <= 4:
         yield range(trips)
         return
-    if torch.is_grad_enabled():
-        # the backward of the one step would run outside this context,
-        # counted once, and its outputs' S copies would add S gradients
-        raise NotImplementedError(
-            "the op counter folds a time loop only without autograd: the "
-            "train step of an ssm or hybrid arch is not counted (ROADMAP "
-            "A 7.4)")
-    c.mult *= trips
+    base = c.mult
     try:
-        yield range(1)
+        yield c._folded(trips, base)
     finally:
-        c.mult /= trips
+        c.mult = base
 
 
-def unfold(per_step: list, trips: int) -> list:
-    """The outputs of a :func:`time_loop`, one per step: ``per_step``
-    itself, or its one folded iteration repeated ``trips`` times."""
+def _join_folded(join, dim: int, trips: int, per_step) -> torch.Tensor:
+    """``join`` of a folded loop's four per-step outputs stretched back to
+    ``trips`` steps, the second repeated, counted as that one op over
+    ``trips`` inputs (one op, as the loop's own join; a fake op over
+    thousands of inputs would cost seconds to make)."""
+    c = active()
+    first = per_step[0]
+    c._inside += 1
+    try:
+        idx = torch.ones((trips,), dtype=torch.long, device=first.device)
+        idx[0], idx[-2], idx[-1] = 0, 2, 3
+        out = torch.stack(list(per_step), dim).index_select(dim, idx)
+        if join is torch.cat:
+            out = out.flatten(dim, dim + 1)
+    finally:
+        c._inside -= 1
+    full = [first, *[per_step[1]] * (trips - 3), *per_step[2:]]
+    op = aten.cat.default if join is torch.cat else aten.stack.default
+    c._count(op, (full, dim), {}, out)
+    c._results(out)
+    return out
+
+
+class _Join(torch.autograd.Function):
+    """:func:`_join_folded` under autograd.  Its backward hands each
+    folded iteration the gradient of one step (a view, as the join's own
+    backward gives it), so the repeated middle output gets one step's
+    gradient, not the sum of ``trips - 3``."""
+
+    @staticmethod
+    def forward(ctx, join, dim, trips, *ys):
+        ctx.dim, ctx.trips = dim, trips
+        ctx.size = ys[0].shape[dim] if join is torch.cat else None
+        return _join_folded(join, dim, trips, ys)
+
+    @staticmethod
+    def backward(ctx, g):
+        steps = (0, 1, ctx.trips - 2, ctx.trips - 1)
+        if ctx.size is None:
+            grads = [g.select(ctx.dim, i) for i in steps]
+        else:
+            grads = [g.narrow(ctx.dim, i * ctx.size, ctx.size)
+                     for i in steps]
+        return (None, None, None, *grads)
+
+
+def unfold(per_step: list, trips: int, join=torch.stack,
+           dim: int = 0) -> torch.Tensor:
+    """``join(outputs, dim)`` of a :func:`time_loop`'s outputs, one per
+    step: ``per_step`` itself, or its four folded iterations with the
+    second repeated ``trips - 3`` times (``join`` is ``torch.stack`` or
+    ``torch.cat``)."""
     if len(per_step) == trips:
-        return per_step
-    return per_step * (trips // len(per_step))
+        return join(per_step, dim)
+    if torch.is_grad_enabled() and any(y.requires_grad for y in per_step):
+        return _Join.apply(join, dim, trips, *per_step)
+    return _join_folded(join, dim, trips, per_step)
 
 
 def attention_pairs(S: int, causal: bool, window: Optional[int],
@@ -220,6 +286,9 @@ class OpCounter(TorchDispatchMode):
         self.by_op: Dict[str, list] = {}
         self.relayouts: list = []
         self.mult = 1.0
+        #: sequence-number ranges of folded iterations' autograd nodes,
+        #: ``(start, end, multiplier)`` in the order they were made
+        self._folds: list = []
         self._inside = 0
         self._div: Dict[StorageWeakRef, float] = {}
         self._live: Dict[StorageWeakRef, int] = {}
@@ -235,6 +304,37 @@ class OpCounter(TorchDispatchMode):
     def relayout(self, shape, spec) -> None:
         """A re-layout point of the activation-sharding callback."""
         self.relayouts.append((tuple(shape), spec))
+
+    # ---- loop folds ---------------------------------------------------
+    def _folded(self, trips: int, base: float):
+        """The iterations of a folded :func:`time_loop`: sets the
+        multiplier of each and, when autograd records outside a backward
+        (not a remat recompute, whose nodes never run), remembers the
+        sequence numbers of the nodes the middle one makes."""
+        for t, k in ((0, 1), (1, trips - 3), (trips - 2, 1), (trips - 1, 1)):
+            self.mult = base * k
+            record = (k != 1 and torch.is_grad_enabled()
+                      and torch._C._current_autograd_node() is None)
+            lo = _next_seq()
+            yield t
+            if record and _next_seq() > lo:
+                self._folds.append((lo, _next_seq(), k))
+
+    def _scale(self) -> float:
+        """The multiplier of an op now: the loop's, times that of the
+        autograd node running it when that node belongs to a folded
+        iteration (in a backward, where grad mode is off; a recompute
+        turns it on)."""
+        if not self._folds or torch.is_grad_enabled():
+            return self.mult
+        node = torch._C._current_autograd_node()
+        if node is None:
+            return self.mult
+        seq = node._sequence_nr()
+        i = bisect_right(self._folds, seq, key=lambda f: f[0]) - 1
+        if i >= 0 and seq < self._folds[i][1]:
+            return self.mult * self._folds[i][2]
+        return self.mult
 
     # ---- accounting ---------------------------------------------------
     def _bytes(self, t: torch.Tensor) -> float:
@@ -263,9 +363,9 @@ class OpCounter(TorchDispatchMode):
             self._sweep()
             self.peak_bytes = max(self.peak_bytes, self._live_bytes)
 
-    def add(self, flops: float, nbytes: float) -> None:
-        self.flops += flops * self.mult / self.chips
-        self.bytes += nbytes * self.mult
+    def add(self, flops: float, nbytes: float, mult: float = 1.0) -> None:
+        self.flops += flops * mult / self.chips
+        self.bytes += nbytes * mult
 
     def _count(self, func, args, kwargs, out) -> None:
         packet = func.overloadpacket
@@ -308,11 +408,12 @@ class OpCounter(TorchDispatchMode):
             flops = 0.0
         else:
             flops = float(sum(t.numel() for t in outs))
-        self.add(flops, nbytes)
+        mult = self._scale()
+        self.add(flops, nbytes, mult)
         tally = self.by_op.setdefault(str(packet), [0, 0.0, 0.0])
         tally[0] += 1
-        tally[1] += flops * self.mult / self.chips
-        tally[2] += nbytes * self.mult
+        tally[1] += flops * mult / self.chips
+        tally[2] += nbytes * mult
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -333,8 +434,9 @@ class OpCounter(TorchDispatchMode):
 
     # ---- kernel units -------------------------------------------------
     def _unit(self, name: str, flops: float, nbytes: float, run, fake):
-        self.units[name] = self.units.get(name, 0) + int(self.mult)
-        self.add(flops, nbytes)
+        mult = self._scale()
+        self.units[name] = self.units.get(name, 0) + int(mult)
+        self.add(flops, nbytes, mult)
         self._inside += 1
         try:
             out = fake() if fake is not None else run()

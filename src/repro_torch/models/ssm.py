@@ -6,7 +6,8 @@ read and write per chunk; exact up to float rounding) and an O(1)-state
 single-token decode step.  No Pallas kernel exists for them: they are plain
 torch, and the reference's ``lax.scan`` over time (or over chunks) is a
 Python loop here, one step a token on the host.  Under the dry run's op
-counter each loop runs one step, counted its trip count of times
+counter each loop runs four steps, the second counted for all the middle
+ones, forward and backward
 (:func:`repro_torch.launch.op_cost.time_loop`): every step has the same
 shapes.
 """
@@ -72,7 +73,7 @@ def _mamba2_core(cfg, p: Mamba2, xbc, b, c, dtv,
             h = h * decay[..., None, None] \
                 + dx[..., None] * bt[:, None, None, :]
             ys.append(torch.einsum("bhdn,bn->bhd", h, ct))
-    y = torch.stack(unfold(ys, S), dim=1)                 # [B,S,H,hd]
+    y = unfold(ys, S, torch.stack, 1)                 # [B,S,H,hd]
     y = y + p.d_skip[None, None, :, None] * xh
     return y.reshape(B_, S, d_inner).to(xbc.dtype), h
 
@@ -123,7 +124,7 @@ def _mamba2_chunked(cfg, p: Mamba2, xbc, b, c, dtv, h0, chunk: int):
             h = torch.exp(Ac)[..., None, None] * h + torch.einsum(
                 "buh,buhd,bun->bhdn", wgt, xb, bb)
             ys.append(intra + inter)
-    y = torch.cat(unfold(ys, nc), dim=1)[:, :S]
+    y = unfold(ys, nc, torch.cat, 1)[:, :S]
     y = y + p.d_skip[None, None, :, None] * xh[:, :S]
     return y.reshape(B_, S, d_inner).to(xbc.dtype), h
 
@@ -208,7 +209,7 @@ def _rwkv6_core(cfg, p: RWKV6, r, k, v, w, s0):
             ys.append(torch.einsum("bhk,bhkv->bhv", rt,
                                    s + u[None, :, :, None] * kv))
             s = wt[..., :, None] * s + kv
-    return torch.stack(unfold(ys, S), dim=1), s            # [B,S,H,hd]
+    return unfold(ys, S, torch.stack, 1), s            # [B,S,H,hd]
 
 
 def _rwkv6_proj(cfg, p: RWKV6, x):
@@ -268,7 +269,7 @@ def _rwkv6_chunked(cfg, p: RWKV6, r, k, v, w, s0, chunk: int):
             s = torch.exp(Lc)[..., None] * s + torch.einsum("buhk,buhv->bhkv",
                                                             kk, vb)
             ys.append(intra + inter)
-    return torch.cat(unfold(ys, nc), dim=1)[:, :S], s
+    return unfold(ys, nc, torch.cat, 1)[:, :S], s
 
 
 def rwkv6_time_mix(cfg, p: RWKV6, x: torch.Tensor) -> torch.Tensor:

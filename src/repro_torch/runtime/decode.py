@@ -31,7 +31,9 @@ and the head-output and FFN gathers concatenate the nodes' outputs into
 one tensor after the join; a replicated layer runs on every node, each
 writing its own pools, as the reference's mesh step does.  The paged
 cache's pools are the mesh's pools, so nothing is stacked, padded or
-mirrored back.
+mirrored back: no port is owed of the reference's ``_stack_pools`` and
+its mirror-back of the stacked pools, which exist because ``shard_map``
+takes and returns the carried pools as one ``[N, ...]`` array.
 ``ExecConfig(backend="cuda")`` runs each node's decode attention through
 the hand-written kernel :func:`repro_torch.kernels.flash_decode_paged`
 (its plain version on CPU tensors); ``backend="torch"`` runs the plain

@@ -49,6 +49,13 @@ copied into the reassembled tensor as soon as it is computed, before the
 next replay overwrites it.  On CPU tensors a program runs its records
 eagerly.  ``jit_segments=False`` runs every record eagerly on the card as
 well.
+
+No port is owed of the reference's ``_apply_local``: it is the eager XLA
+lowering of a segment (each record a separate jitted call), JAX mechanism
+with no PyTorch counterpart; the port's eager path runs the same records
+as its captured one (:func:`_compiled_segment` with ``jit_segments=
+False``).  ``run_partitioned`` is ported as the reference's deprecated shim
+over ``Session``.
 """
 from __future__ import annotations
 
@@ -638,6 +645,41 @@ def _merge_comm_bytes(l: LayerSpec, prods: Sequence[int],
                            for o in owned[n])
                 total += DTYPE_BYTES * (_rect_elems(need) - held)
     return total
+
+
+def run_partitioned(graph: ModelGraph, weights, x, plan: Plan, nodes: int,
+                    jit_segments: bool = True,
+                    backend: str = "cuda",
+                    executor: str = "local",
+                    mesh=None,
+                    instrument: bool = False,
+                    overlap: bool = True,
+                    stage_timeout_s: Optional[float] = None,
+                    stage_retries: int = 0,
+                    fallback: str = "raise",
+                    device: str = "cuda"
+                    ) -> Tuple[torch.Tensor, ExecStats]:
+    """Deprecated kwarg-sprawl entry point — use
+    :class:`repro_torch.runtime.session.Session` with
+    :class:`repro_torch.runtime.session.ExecConfig`.
+
+    Equivalent to ``Session(graph, weights, plan, nodes,
+    ExecConfig(backend=..., executor=..., ..., device=...),
+    mesh=mesh).run(x)``; kept as a thin shim so the JAX package's callers
+    keep working, at the cost of rebuilding the Session (and, for the mesh
+    executor, the mesh) on every call."""
+    import warnings
+    warnings.warn(
+        "run_partitioned is deprecated; build a repro_torch.runtime."
+        "session.Session with an ExecConfig and call session.run(x)",
+        DeprecationWarning, stacklevel=2)
+    from repro_torch.runtime.session import ExecConfig, Session
+    cfg = ExecConfig(backend=backend, executor=executor,
+                     jit_segments=jit_segments, instrument=instrument,
+                     overlap=overlap, stage_timeout_s=stage_timeout_s,
+                     stage_retries=stage_retries, fallback=fallback,
+                     device=device)
+    return Session(graph, weights, plan, nodes, cfg, mesh=mesh).run(x)
 
 
 def _run_partitioned_local(graph: ModelGraph, weights, x: torch.Tensor,

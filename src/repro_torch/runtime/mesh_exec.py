@@ -32,7 +32,11 @@ driving all devices.  The port keeps that single controller on one card
 
 State between stages holds each node's own tensors (no zero-padded
 ``[N, ...]`` stacks: those exist in the reference only because
-``shard_map`` needs uniform shapes).
+``shard_map`` needs uniform shapes).  No port is owed of that padding nor
+of ``_MeshRun.serialize``, which orders the reference's stage programs
+on the CPU host platform, whose fake devices share one thread pool and
+rendezvous inside ``shard_map``: both are JAX mechanism, and the port has
+neither the uniform-shape rule nor the shared pool.
 
 **Overlapped boundaries** (``overlap=True``, the default): a segment whose
 exit boundary is permute-compatible computes its border strips first —

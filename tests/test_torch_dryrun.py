@@ -5,8 +5,9 @@ reference where the two compute the same thing.
 
 * The counter's cases are ``tests/test_hlo_cost.py``'s: a loop of 23
   matmuls, nested loops, a batched einsum, an in-place slice write; then
-  the kernel wrappers as one unit each, the SSM loops counted once times
-  their trip count, a real step against the same step on fake tensors,
+  the kernel wrappers as one unit each, the SSM loops folded (their
+  train steps in ``tests/test_torch_dryrun_train.py``), a real step
+  against the same step on fake tensors,
   and a reduced llama3 forward against the reference's ``analyze_hlo`` of
   its jitted forward.
 * The dry run's records pass ``tests/test_dryrun.py``'s assertions.
@@ -177,17 +178,21 @@ def test_ssm_loops_counted_once_times_trip_count(arch, chunk):
     assert counts[0] == counts[1]
 
 
-def test_folded_loop_under_autograd_raises():
-    """The fold covers no backward: a counted SSM train step raises
-    (ROADMAP A 7.4) instead of counting the loop's backward once."""
+def test_folded_loop_under_autograd_counts():
+    """The fold covers the backward (ROADMAP A 7.4): a counted SSM train
+    step with the loops folded counts what the same step counts with
+    every step run (the production combinations in
+    ``tests/test_torch_dryrun_train.py``)."""
     cfg = dataclasses.replace(get_config("rwkv6-3b").reduced(),
                               dtype="float32")
-    model = Model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A 7.4"):
-        dryrun.count_step(cfg, model, (16, 2, "train"), make_local_mesh(),
-                          Strategy())
-    with pytest.raises(NotImplementedError, match="A 7.4"):
-        dryrun.run_one("zamba2-1.2b", "train_4k", verbose=False)
+    counts = []
+    for fold in (False, True):
+        model = Model(cfg, device="cpu")
+        c, _, _, _ = dryrun.count_step(cfg, model, (16, 2, "train"),
+                                       make_local_mesh(), Strategy(),
+                                       fold_loops=fold)
+        counts.append((c.flops, c.bytes, c.units))
+    assert counts[0] == counts[1]
 
 
 @pytest.mark.parametrize("mode", ["train", "prefill", "decode"])

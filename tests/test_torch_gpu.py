@@ -1702,13 +1702,14 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
 
 @pytest.mark.parametrize("arch,mode", [
     ("llama3-8b", "train"), ("llama3-8b", "prefill"), ("llama3-8b", "decode"),
-    ("zamba2-1.2b", "prefill"), ("zamba2-1.2b", "decode")])
+    ("zamba2-1.2b", "prefill"), ("zamba2-1.2b", "decode"),
+    ("rwkv6-3b", "train"), ("zamba2-1.2b", "train")])
 def test_dry_run_counts_equal_the_live_step(cuda, arch, mode):
     """The dry run's op counter on a reduced bf16 step: the step on fake
-    CUDA tensors and the same step run on the card count the same FLOPs,
-    bytes and kernel units, and the card's run launched the kernels that
-    many times (Zamba2's time loop folded; its train step is not counted,
-    ROADMAP A 7.4)."""
+    CUDA tensors (the SSM time loops folded, in training the backward
+    too) and the same step run on the card with every step of the loops
+    run count the same FLOPs, bytes and kernel units, and the card's run
+    launched the kernels that many times."""
     import dataclasses
     from torch._subclasses.fake_tensor import FakeTensorMode
     from repro_torch.configs.registry import get_config
@@ -1726,10 +1727,12 @@ def test_dry_run_counts_equal_the_live_step(cuda, arch, mode):
     wrappers = {"flash_attention_bh": flash_attention_bh,
                 "flash_decode_paged": flash_decode_paged}
     before = {k: f.launches for k, f in wrappers.items()}
-    live, _, _, _ = dryrun.count_step(cfg, model, shape, mesh, Strategy())
+    live, _, _, _ = dryrun.count_step(cfg, model, shape, mesh, Strategy(),
+                                      fold_loops=False)
     torch.cuda.synchronize()
     assert (live.flops, live.bytes, live.units) == (fake.flops, fake.bytes,
                                                     fake.units)
-    assert live.units and all(n > 0 for n in live.units.values())
+    assert all(n > 0 for n in live.units.values())
+    assert bool(live.units) == (arch != "rwkv6-3b")   # RWKV has no attention
     assert {k: f.launches - before[k] for k, f in wrappers.items()} == {
         k: live.units.get(k, 0) for k in wrappers}

@@ -1,5 +1,7 @@
-"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor any module of the JAX package ``repro``.
+"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and the
+port's example scripts (``examples/torch_*.py``,
+``experiments/torch_hillclimb.py``) import neither JAX nor any module of
+the JAX package ``repro``.
 
 The import check runs in a subprocess, because this test process may have
 JAX loaded already; the source scan catches imports on paths the import
@@ -16,6 +18,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 SMOKE = ROOT / "chip_smoke.py"
+SCRIPTS = [ROOT / "examples" / f"torch_{n}.py"
+           for n in ("quickstart", "plan_edge_cnn", "serve_llm", "train_lm")] \
+    + [ROOT / "experiments" / "torch_hillclimb.py"]
 
 _FORBIDDEN = re.compile(r"^\s*(?:from|import)\s+(jax|repro)(?:[.\s,]|$)",
                         re.MULTILINE)
@@ -29,9 +34,11 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
             repro_torch.__path__, "repro_torch."))
         for m in mods:
             importlib.import_module(m)
-        spec = importlib.util.spec_from_file_location(
-            "chip_smoke", {str(SMOKE)!r})
-        spec.loader.exec_module(importlib.util.module_from_spec(spec))
+        for i, path in enumerate([{str(SMOKE)!r}]
+                                 + {[str(p) for p in SCRIPTS]!r}):
+            spec = importlib.util.spec_from_file_location(f"script{{i}}",
+                                                          path)
+            spec.loader.exec_module(importlib.util.module_from_spec(spec))
         bad = sorted(k for k in sys.modules
                      if k.split(".")[0] in ("jax", "jaxlib", "repro"))
         print(json.dumps({{"mods": mods, "bad": bad}}))
@@ -62,8 +69,8 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
 
 
 def test_port_sources_have_no_jax_or_repro_imports():
-    files = sorted(PORT.rglob("*.py")) + [SMOKE]
-    assert len(files) > 10
+    files = sorted(PORT.rglob("*.py")) + [SMOKE] + SCRIPTS
+    assert len(files) > 10 and all(f.exists() for f in SCRIPTS)
     offenders = {}
     for f in files:
         hits = _FORBIDDEN.findall(f.read_text())

@@ -14,13 +14,20 @@ def _redirect(name, globals=None, locals=None, fromlist=(), level=0):
     return builtins.__import__(name, globals, locals, fromlist, level)
 
 
-def port_namespace(ref_module: str) -> dict:
+def port_namespace(ref_module: str, edits=()) -> dict:
     """The globals of ``tests/<ref_module>.py`` executed on the port.  The
-    result is a dict, not a module, so pytest collects nothing from it."""
+    result is a dict, not a module, so pytest collects nothing from it.
+    ``edits`` are ``(old, new)`` replacements of the source, each of which
+    must occur: where the port's API rightly differs from the reference's
+    (a caller states each and why)."""
     path = Path(__file__).with_name(f"{ref_module}.py")
+    src = path.read_text()
+    for old, new in edits:
+        assert old in src, f"{ref_module}.py has no {old!r}"
+        src = src.replace(old, new)
     ns = {"__name__": f"{ref_module}_on_the_port", "__file__": str(path),
           "__builtins__": dict(vars(builtins), __import__=_redirect)}
-    exec(compile(path.read_text(), str(path), "exec"), ns)
+    exec(compile(src, str(path), "exec"), ns)
     leaked = sorted(k for k, v in ns.items()
                     if str(getattr(v, "__module__", "")).startswith("repro.")
                     or getattr(v, "__name__", "") == "repro")
