@@ -92,32 +92,44 @@ seeds:
   registry gives it (bf16, 32 layers, d 4096, 32 heads over 8 KV heads,
   d_ff 14336, vocab 128256; ~8.03 B parameters made on the card from
   seed 0) through ``repro_torch.launch.serve.main`` (4 x 16 prompt
-  tokens fed through ``decode_step``, 16 generated greedily), each decode
-  attention through ``flash_decode_paged`` (bf16, grouped heads) on the
-  cache read in place, then ``prefill`` of the served 4 x 32 tokens and
-  of 1 x 4096 through ``flash_attention_bh``: every step's logits within
-  5e-2 of scale of the forward's, greedy tokens equal where the margin
-  is clear, every kernel call of the eager runs held against its plain
-  version; (c) all ten registry archs reduced in f32 on the card (decode
-  equal to the forward, the same weights on the CPU, the window-4 ring
-  buffer, 2 and 1 KV heads); (d) walls, and both attention kernels at
-  the LM's shapes beside plain, library (gather + SDPA with
-  ``enable_gqa``; SDPA) and bound, on the kernels line as ``lm_*``;
+  tokens fed through the decode step, 16 generated greedily, every step
+  one replay of the captured decode program after its eager first call
+  and its capture), each decode attention through ``flash_decode_paged``
+  (bf16, grouped heads) on the cache read in place, ``kv_len`` from
+  device memory, then ``generate`` eagerly on the same prompts: tokens
+  and all 32 steps' logits bit-equal; then ``prefill`` of the served 4 x
+  32 tokens and of 1 x 4096 through ``flash_attention_bh``: every step's
+  logits within 5e-2 of scale of the forward's, greedy tokens equal
+  where the margin is clear, every kernel call made outside a capture
+  held against its plain version; (c) all ten registry archs reduced in
+  f32 on the card (decode equal to the forward, the same weights on the
+  CPU, the window-4 ring buffer, 2 and 1 KV heads; the captured decode
+  bit-equal to the eager one); (d) the eager and the replayed step's
+  walls in turns over the dry run's roofline, a profile of each, and both
+  attention kernels at the LM's shapes beside plain, library (gather +
+  SDPA with ``enable_gqa``; SDPA) and bound, on the kernels line as
+  ``lm_*``;
 * the LM training path (phase 15) — (a) olmo-1b as the registry gives
   it (bf16, 16 layers, d 2048, 16 heads, d_ff 8192, vocab 50304, tied;
   ~1.177 B parameters made on the card from seed 0) trained 8 steps of
-  4 x 2048 tokens through ``repro_torch.launch.train.main``: finite
-  losses, the last below the first, ``flash_attention_bh`` launched
-  twice a layer a step (forward and the remat recompute, counted from
-  the config); (d) the warm step's walls, tokens/s and model-flops
-  share, one warm step under ``torch.profiler``, the AdamW pass, the
-  kernel with its log-sum-exp and the plain flash backward at the
-  step's shape (the ``train_*`` fields of the kernels line); (b)
+  4 x 2048 tokens through ``repro_torch.launch.train.main``, every step
+  one replay of the captured train step after its eager first call and
+  its capture: finite losses, the last below the first,
+  ``flash_attention_bh`` launched twice a layer a step (forward and the
+  remat recompute, counted from the config), then the same 8 steps with
+  the eager step from the same seed: losses and weights bit-equal (or,
+  where two eager runs differ, within their spread); (d) both runs'
+  walls, the eager and the replayed step in turns over the dry run's
+  roofline, tokens/s and model-flops share, one warm step of each under
+  ``torch.profiler``, the AdamW pass, the kernel with its log-sum-exp and
+  the plain flash backward at the step's shape (the ``train_*`` fields
+  of the kernels line); (b)
   olmo-1b's widths at 2 layers, f32 and bf16: every gradient through
   the kernel forward (each call's out and lse held against plain)
   against the plain forward under autograd; (c) the ten registry archs
   reduced, f32, one train step (``accum`` 2 on llama3-8b) against the
-  same weights and batch on the CPU.
+  same weights and batch on the CPU, and three steps through the
+  captured train program against three eager steps.
 * the LM planner and its dry run (phase 16) — (a) ``choose_strategy`` for
   the ten archs x (train, prefill, decode) on the H100 production mesh
   (16 x 16, shape only) beside the v5e constants', every parameter and
@@ -129,8 +141,10 @@ seeds:
   same op counter: FLOPs, bytes and kernel units equal to the fake run's,
   launches equal to the config's (32 flash, 32 decode, 32 flash),
   argument bytes equal to the live tensors', the FLOPs within 5% of a
-  count from the config, every warm wall (timed without the counter) at
-  or above the roofline's max(t_compute, t_memory); the host cost of the
+  count from the config, every warm wall (timed without the counter;
+  the eager step and, for train and decode, the replayed captured step,
+  in turns) at or above the roofline's max(t_compute, t_memory); the
+  host cost of the
   counter hook beside a ``torch.library.custom_op``; (c) the production
   dry runs through ``serve.main(["--dry-run", ...])`` and
   ``train.main([..., "--dry-run"])`` under ``tests/test_dryrun.py``'s
@@ -143,9 +157,11 @@ seeds:
 * the example scripts (phase 17) — ``examples/torch_quickstart.py``,
   ``torch_plan_edge_cnn.py``, ``torch_serve_llm.py`` and
   ``torch_train_lm.py`` run on the card as subprocesses at reduced flags,
-  each exiting 0 with its headline printed, every kernel call held
-  against its plain version on the same inputs (TOL in f32, BF16_TOL in
-  bf16) and each kernel's launches equal to the count its plans and
+  each exiting 0 with its headline printed, every kernel call made
+  outside a capture held against its plain version on the same inputs
+  (TOL in f32, BF16_TOL in bf16; the LM examples' steps are captured
+  programs, whose first call is eager) and each kernel's launches equal
+  to the count its plans and
   config give (quickstart: ``kernel_records`` of its two MobileNet plans;
   serving: layers x (prompt + generated) decode calls and a prefill call
   a layer; training: ``train_flash_launches`` a step);
@@ -612,6 +628,24 @@ def wall_ms(run, reps):
         run()
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
+    return walls
+
+
+def walls_in_turns(runs, reps):
+    """Host-clock ms of ``reps`` synchronised calls of each callable in
+    ``runs`` (name: callable), taken in turns, the order reversed every
+    other round (a b, b a, a b, ...), so that the host's drift falls on
+    all of them alike: {name: [ms, ...]}."""
+    import torch
+    names = list(runs)
+    walls = {n: [] for n in names}
+    for i in range(reps):
+        for n in (names if i % 2 == 0 else names[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[n]()
+            torch.cuda.synchronize()
+            walls[n].append((time.perf_counter() - t0) * 1e3)
     return walls
 
 
@@ -2995,6 +3029,7 @@ LM_LONG = 4096                  # the B = 1 prefill (the chunked range)
 LM_DECODE_KEYS = 4096           # the long-context decode kernel case
 LM_DECODE_TOL = 1e-3            # the reference's decode == forward (f32)
 LM_WALL_REPS = 5
+LM_PROMPT = 4                   # 14c: prompt tokens, the rest generated
 
 
 class LMRecorder:
@@ -3004,9 +3039,15 @@ class LMRecorder:
     before) and hold each call at once against its plain version on the
     card: bf16 within BF16_TOL of scale, f32 within TOL; a flash call that
     writes its log-sum-exp (a training forward) has it held within TOL of
-    the plain one, whatever the dtype (both score in f32).  Installed with
-    ``with``; ``calls`` and ``err`` per kernel, ``lse_calls``,
-    ``lse_err`` and the held ``shapes`` (kernel, out shape, dtype)."""
+    the plain one, whatever the dtype (both score in f32).  A call made
+    while a CUDA graph is being captured (a captured LM step's) is passed
+    through and not held: its outputs do not exist yet, and a hold would
+    read them to the host inside the capture.  The program's first call,
+    eager, is held; its replays are held bit-equal to the eager step by
+    the phases.  Installed with ``with``; ``calls`` and ``err`` per kernel
+    (held calls only), ``lse_calls``, ``lse_err``, the held ``shapes``
+    (kernel, out shape, dtype) and ``captured``, the calls passed through
+    inside a capture."""
 
     def __init__(self):
         self.calls = {"flash_attention_bh": 0, "flash_decode_paged": 0}
@@ -3014,6 +3055,7 @@ class LMRecorder:
         self.abs = dict(self.err)
         self.lse_calls, self.lse_err = 0, 0.0
         self.shapes = set()
+        self.captured = {"flash_attention_bh": 0, "flash_decode_paged": 0}
 
     def _hold(self, kname, out, plain):
         import torch
@@ -3027,6 +3069,7 @@ class LMRecorder:
         self.abs[kname] = max(self.abs[kname], abs_err(out, plain))
 
     def __enter__(self):
+        import torch
         import repro_torch.models.attention as lm_attn
         from repro_torch.kernels.ref import flash_decode_paged_ref
         self.mod = lm_attn
@@ -3035,6 +3078,10 @@ class LMRecorder:
         flash, decode = self.saved
 
         def rec_flash(q, k, v, *, causal, window, scale, return_lse=False):
+            if torch.cuda.is_current_stream_capturing():
+                self.captured["flash_attention_bh"] += 1
+                return flash(q, k, v, causal=causal, window=window,
+                             scale=scale, return_lse=return_lse)
             if not return_lse:
                 out = flash(q, k, v, causal=causal, window=window,
                             scale=scale)
@@ -3056,6 +3103,9 @@ class LMRecorder:
 
         def rec_decode(q, kp, vp, table, kv_len, **kw):
             out = decode(q, kp, vp, table, kv_len, **kw)
+            if torch.cuda.is_current_stream_capturing():
+                self.captured["flash_decode_paged"] += 1
+                return out
             self._hold("flash_decode_paged", out, flash_decode_paged_ref(
                 q, kp, vp, table, kv_len, **kw))
             return out
@@ -3256,10 +3306,14 @@ def phase_lm_reduced(dev, rec, card):
     off): decode equal to the forward (the reference's 1e-3), the card's
     logits within TOL of scale of the same weights and tokens on the CPU
     (plain versions), the sliding-window ring buffer, and GQA variants
-    with 2 and 1 KV heads (so ``groups`` > 1 runs in f32)."""
+    with 2 and 1 KV heads (so ``groups`` > 1 runs in f32); in each case
+    ``serve.generate`` through the captured decode program (LM_PROMPT
+    prompt tokens, the rest generated; across the wrap of the ring buffer
+    in the window cases) bit-equal to the eager ``generate``."""
     import copy
     import torch
     from repro_torch.configs.registry import ARCH_IDS, get_config
+    from repro_torch.launch import serve
     from repro_torch.models.transformer import Model
 
     seq, cases = 10, []
@@ -3308,24 +3362,66 @@ def phase_lm_reduced(dev, rec, card):
               f"forward {d}")
         worst["decode_vs_forward"] = max(worst["decode_vs_forward"], d)
         worst["card_vs_cpu"] = max(worst["card_vs_cpu"], e_fwd, e_dec)
-        del model, cpu
+        prompts = batch["tokens"][:, :LM_PROMPT]
+        audio = batch.get("audio_embeds")
+        with rec:
+            runs = [serve.generate(model, prompts, steps - LM_PROMPT, audio,
+                                   eager=eager) for eager in (False, True)]
+        torch.cuda.synchronize()
+        check(torch.equal(runs[0].tokens, runs[1].tokens)
+              and len(runs[0].step_logits) == steps
+              and all(torch.equal(a, b) for a, b in zip(
+                  runs[0].step_logits, runs[1].step_logits)),
+              f"phase 14c {name}: the captured decode differs from the "
+              f"eager one")
+        del model, cpu, runs
     print(f"phase 14c: {len(cases)} reduced f32 cases on the card (10 "
           f"archs, llama3-8b at 2 and 1 KV heads, window 4 on llama3-8b "
           f"and zamba2): decode against the forward max abs "
           f"{worst['decode_vs_forward']:.3g} (< {LM_DECODE_TOL}), card "
           f"against the CPU's plain versions {worst['card_vs_cpu']:.3g} of "
-          f"scale (< {TOL}) [{card}]", flush=True)
+          f"scale (< {TOL}); generate through the captured decode program "
+          f"({LM_PROMPT} prompt tokens, the rest generated) bit-equal to "
+          f"the eager generate in every case, tokens and logits [{card}]",
+          flush=True)
     return worst
+
+
+def lm_roofline_ms(arch, shape) -> float:
+    """The dry run's roofline, max(t_compute, t_memory) in ms, of one
+    step of ``arch`` at ``shape`` (seq, batch, mode) on the one-card
+    mesh (counted on fake tensors, the H100's constants)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_local_mesh
+    rec = dryrun.run_one(arch, shape, mesh=make_local_mesh(), verbose=False)
+    return max(rec["t_compute_s"], rec["t_memory_s"]) * 1e3
+
+
+def step_walls_text(walls, roof, unit="step") -> str:
+    """Each of ``walls`` (name: ms list) as median [min, max] and over the
+    roofline ``roof`` ms."""
+    parts = []
+    for name, w in walls.items():
+        med, lo, hi = spread(w)
+        parts.append(f"{name} {unit} {med:.3f} [{lo:.3f}, {hi:.3f}] ms = "
+                     f"{med / roof:.2f}x the roofline")
+    return "; ".join(parts)
 
 
 def phase_lm(dev, errs, card):
     """Phase 14: the LM substrate's serving path.  (b) llama3-8b at full
-    width in bf16 through ``repro_torch.launch.serve.main`` and
-    ``prefill``, every attention call held against its plain version;
-    (c) the ten archs reduced in f32; (d) walls and the attention kernels
-    at the LM's shapes.  Returns the kernels line's lm_* figures."""
+    width in bf16 through ``repro_torch.launch.serve.main``, every step
+    one replay of the captured decode program (its eager first call held
+    against plain), then ``generate`` eagerly on the same prompts with
+    every kernel call held against plain: tokens and every step's logits
+    bit-equal; ``prefill``; (c) the ten archs reduced in f32, captured
+    decode and train steps against eager; (d) the eager and the replayed
+    step's walls in turns over the dry run's roofline, and the attention
+    kernels at the LM's shapes.  Returns the kernels line's lm_*
+    figures."""
     import torch
     from repro_torch.launch import serve
+    from repro_torch.runtime.steps import capture_decode_step
 
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
@@ -3334,8 +3430,10 @@ def phase_lm(dev, errs, card):
     B, P, G = (int(args[k]) for k in ("--batch", "--prompt-len", "--gen"))
     argv = [*LM_SERVE, "--full"]
     zero_counts()
+    rec_prog = LMRecorder()
     t0 = time.perf_counter()
-    res = serve.main(argv)
+    with rec_prog:
+        res = serve.main(argv)
     torch.cuda.synchronize()
     served_s = time.perf_counter() - t0
     model, cfg = res.model, res.model.cfg
@@ -3348,6 +3446,11 @@ def phase_lm(dev, errs, card):
     counts = read_counts()
     check_counts("phase 14 serve", counts,
                  {"flash_decode_paged": cfg.n_layers * steps})
+    check(rec_prog.calls["flash_decode_paged"] == cfg.n_layers
+          and rec_prog.captured["flash_decode_paged"] == cfg.n_layers,
+          f"phase 14b: the program's eager call held {rec_prog.calls}, "
+          f"its capture passed {rec_prog.captured} through; "
+          f"{cfg.n_layers} each expected")
     lm = {"flash_decode_paged": {"lm_launches":
                                  counts["flash_decode_paged"]},
           "flash_attention_bh": {"lm_launches": 0}}
@@ -3356,22 +3459,36 @@ def phase_lm(dev, errs, card):
           f"over {cfg.n_kv} KV heads, hd {cfg.hd}, d_ff {cfg.d_ff}, vocab "
           f"{cfg.vocab}: {n_params / 1e9:.3f} B parameters made on the card "
           f"from seed 0; {B} x ({P} prompt + {G} generated) tokens in "
-          f"{served_s:.1f} s (weights included); prompt "
-          f"{res.prefill_ms:.1f} ms, {res.decode_ms_per_token:.3f} ms a "
-          f"generated token (eager, first run); launches {counts} [{card}]",
+          f"{served_s:.1f} s (weights included), every step through one "
+          f"captured decode program (its first call eager, its second the "
+          f"capture); prompt {res.prefill_ms:.1f} ms (warm-up and capture "
+          f"included), {res.decode_ms_per_token:.3f} ms a generated token "
+          f"(replays); launches {counts} (the program's counts: its eager "
+          f"call's {cfg.n_layers} held against plain, max "
+          f"{rec_prog.err['flash_decode_paged']:.3g} of scale) [{card}]",
           flush=True)
 
-    # the same decode again with every kernel call held against plain
+    # the same prompts eagerly, every kernel call held against plain: the
+    # captured run's tokens and logits, bit for bit
     rec = LMRecorder()
     with rec:
-        again = serve.generate(model, res.prompts, G)
+        eager = serve.generate(model, res.prompts, G, eager=True)
     torch.cuda.synchronize()
-    check(torch.equal(again.tokens, res.tokens) and all(
-        torch.equal(a, b) for a, b in zip(again.step_logits,
-                                          res.step_logits)),
-          "phase 14b: a second eager decode differs from the first")
+    n_equal = sum(torch.equal(a, b) for a, b in zip(eager.step_logits,
+                                                    res.step_logits))
+    check(torch.equal(eager.tokens, res.tokens) and n_equal == steps
+          and len(res.step_logits) == steps,
+          f"phase 14b: the captured decode differs from the eager one: "
+          f"tokens equal {torch.equal(eager.tokens, res.tokens)}, "
+          f"{n_equal} of {steps} steps' logits bit-equal")
     check(rec.calls["flash_decode_paged"] == cfg.n_layers * steps,
           f"phase 14b: {rec.calls} recorded decode calls")
+    print(f"phase 14b: generate(eager=True) on the same prompts: tokens "
+          f"and all {steps} steps' logits bit-equal to the captured run's; "
+          f"{rec.calls['flash_decode_paged']} eager decode calls held "
+          f"against plain (max {rec.err['flash_decode_paged']:.3g} of "
+          f"scale); eager {eager.decode_ms_per_token:.3f} ms a generated "
+          f"token [{card}]", flush=True)
 
     # prefill forwards: the served tokens, then B = 1 at LM_LONG
     toks = torch.cat([res.prompts, res.tokens], dim=1)
@@ -3424,40 +3541,53 @@ def phase_lm(dev, errs, card):
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB [{card}]",
           flush=True)
 
-    # walls: decode steps one by one, then the two forwards
-    cache = model.cache_init(B, steps)
+    # walls: the eager step and the replayed step in turns, each on its
+    # own cache filled with the same prompt, then one step of each under
+    # the profiler, then the two forwards
+    caches = [model.cache_init(B, steps) for _ in range(2)]
+    prog = capture_decode_step(model, caches[1], B)
     for t in range(P):
-        _, cache = model.decode_step(cache, res.prompts[:, t:t + 1], t)
-    step_walls = []
-    for i in range(G):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        model.decode_step(cache, res.tokens[:, i:i + 1], P + i)
-        torch.cuda.synchronize()
-        step_walls.append((time.perf_counter() - t0) * 1e3)
+        model.decode_step(caches[0], res.prompts[:, t:t + 1], t)
+        prog(caches[1], res.prompts[:, t:t + 1], t)
+    walls = {"eager": [], "replayed": []}
+    for i, t in enumerate(range(P, steps)):
+        tok = res.tokens[:, i:i + 1]
+        w = walls_in_turns({
+            "eager": lambda: model.decode_step(caches[0], tok, t),
+            "replayed": lambda: prog(caches[1], tok, t)}, 1)
+        for k in walls:
+            walls[k] += w[k]
     last = res.tokens[:, -1:]
-    n_k, dev_ms, busy_ms, by_name = device_profile(
-        lambda: model.decode_step(cache, last, steps - 1), 3)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
-    print(f"phase 14d: one warm eager decode step (torch.profiler over 3): "
-          f"{profile_text(n_k, dev_ms, busy_ms, spread(step_walls)[0])}; "
-          "largest: " + "; ".join(f"{k[:60]} {v:.3f} ms" for k, v in top)
-          + f" [{card}]", flush=True)
+    prof = {"eager": device_profile(
+                lambda: model.decode_step(caches[0], last, steps - 1), 3),
+            "replayed": device_profile(
+                lambda: prog(caches[1], last, steps - 1), 3)}
+    roof = lm_roofline_ms("llama3-8b", (steps, B, "decode"))
+    for name, (n_k, dev_ms, busy_ms, by_name) in prof.items():
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+        print(f"phase 14d: one warm {name} decode step (torch.profiler over "
+              f"3): {profile_text(n_k, dev_ms, busy_ms, spread(walls[name])[0])}"
+              f"{'' if name == 'eager' else ', one graph launch a step'}; "
+              "largest: " + "; ".join(f"{k[:60]} {v:.3f} ms" for k, v in top)
+              + f" [{card}]", flush=True)
     fwd_walls = wall_ms(lambda: model.prefill({"tokens": toks}),
                         LM_WALL_REPS)
     long_walls = wall_ms(lambda: model.prefill({"tokens": long_toks}),
                          LM_WALL_REPS)
-    print("phase 14d: warm eager walls (ms, median [min, max]): decode "
-          "step {:.3f} [{:.3f}, {:.3f}] over {} steps ({:.1f} tokens/s at "
-          "batch {}); prefill {} x {} {:.3f} [{:.3f}, {:.3f}]; prefill 1 x "
-          "{} {:.3f} [{:.3f}, {:.3f}] [{}]".format(
-              *spread(step_walls), G, B * 1e3 / spread(step_walls)[0], B, B,
-              steps, *spread(fwd_walls), LM_LONG, *spread(long_walls), card),
-          flush=True)
+    med = {k: spread(w)[0] for k, w in walls.items()}
+    print(f"phase 14d: warm decode step walls in turns over {G} positions "
+          f"(ms, median [min, max]): {step_walls_text(walls, roof)} (the "
+          f"dry run's roofline {roof:.4f} ms at B {B}, capacity {steps}); "
+          f"{B * 1e3 / med['eager']:.1f} tokens/s eager, "
+          f"{B * 1e3 / med['replayed']:.1f} replayed; eager over replayed "
+          f"{med['eager'] / med['replayed']:.2f}x; prefill {B} x {steps} "
+          "{:.3f} [{:.3f}, {:.3f}]; prefill 1 x {} {:.3f} [{:.3f}, {:.3f}] "
+          "[{}]".format(*spread(fwd_walls), LM_LONG, *spread(long_walls),
+                        card), flush=True)
     for kname in ("flash_decode_paged", "flash_attention_bh"):
-        errs[kname] = max(errs[kname], rec.abs[kname])
+        errs[kname] = max(errs[kname], rec.abs[kname], rec_prog.abs[kname])
     served = dict(batch=B, prompt=P, gen=G)
-    del res, again, full, cache, toks, long_toks
+    del res, eager, full, caches, prog, toks, long_toks
     kern = phase_lm_kernels(dev, cfg, served, card)
     del model
     torch.cuda.empty_cache()
@@ -3475,10 +3605,12 @@ def phase_lm(dev, errs, card):
 #: phase 15: olmo-1b trained at full width in bf16 through the launcher
 TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = "olmo-1b", 8, 4, 2048
 TRAIN_WARM = 2                  # steps left out of the warm walls
+TRAIN_TURNS = 3                 # 15d: eager and replayed steps in turns
 #: 15b: olmo-1b's widths at 2 layers, kernel forward against plain
 GRAD_LAYERS, GRAD_BATCH, GRAD_SEQ = 2, 2, 2048
 #: 15c: the reduced archs' batch (rows, tokens); llama3-8b with accum 2
 REDUCED_BATCH, REDUCED_SEQ, ACCUM_ARCH = 4, 24, "llama3-8b"
+REDUCED_STEPS = 3               # 15c: captured against eager steps
 TRAIN_SCHED = dict(peak_lr=1e-3, warmup=0, total=4)   # lr = peak at step 0
 ADAMW_TOL = 1e-6                # AdamW on the same gradients, of scale
 
@@ -3538,8 +3670,10 @@ def kernel_share(by_name):
     return flash, blas, sum(by_name.values()) - flash - blas
 
 
-def phase_train_walls(dev, res, card):
-    """Phase 15d: the warm full-width step's walls, one warm step under
+def phase_train_walls(dev, res, eager_ms, card):
+    """Phase 15d: the full-width step's walls, train.main's replays beside
+    the eager run's steps, then the replayed and the eager step in turns
+    over the dry run's roofline, one warm step of each under
     ``torch.profiler``, the AdamW pass alone, the flash kernel at the
     step's shape (forward with lse) and the plain flash backward, each a
     step's worth; returns the kernels line's train_* fields."""
@@ -3551,32 +3685,48 @@ def phase_train_walls(dev, res, card):
 
     model, cfg = res.model, res.model.cfg
     med, lo, hi = spread(res.step_ms[TRAIN_WARM:])
+    emed, elo, ehi = spread(eager_ms[TRAIN_WARM:])
     flops = 6.0 * res.n_params * res.tokens_per_step
-    print(f"phase 15d: warm eager step (steps {TRAIN_WARM}..{TRAIN_STEPS - 1})"
-          f" median {med:.1f} ms [{lo:.1f}, {hi:.1f}], first "
-          f"{res.step_ms[0]:.1f} ms; {res.tokens_per_step / med * 1e3:.0f} "
-          f"tokens/s; model-flops share 6 N T / (step x 989 TFLOP/s) = "
-          f"{flops / (med / 1e3) / PEAK_BF16_FLOPS * 100:.1f}% (N "
+    print(f"phase 15d: train.main's replayed steps ({TRAIN_WARM}.."
+          f"{TRAIN_STEPS - 1}) median {med:.1f} ms [{lo:.1f}, {hi:.1f}], "
+          f"its first (the program's eager warm-up) {res.step_ms[0]:.1f} "
+          f"ms and second (the capture, then a replay) "
+          f"{res.step_ms[1]:.1f} ms; the eager run's steps "
+          f"{emed:.1f} ms [{elo:.1f}, {ehi:.1f}]; "
+          f"{res.tokens_per_step / med * 1e3:.0f} tokens/s replayed, "
+          f"{res.tokens_per_step / emed * 1e3:.0f} eager; model-flops share "
+          f"6 N T / (step x 989 TFLOP/s) = "
+          f"{flops / (med / 1e3) / PEAK_BF16_FLOPS * 100:.1f}% replayed (N "
           f"{res.n_params}, T {res.tokens_per_step}); peak memory "
-          f"{res.peak_bytes / 2 ** 30:.2f} GiB [{card}]", flush=True)
+          f"{res.peak_bytes / 2 ** 30:.2f} GiB (train.main) [{card}]",
+          flush=True)
 
     step = make_train_step(model, total=TRAIN_STEPS,
                            warmup=max(1, TRAIN_STEPS // 10))
     batch = train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, 1, dev)
     opt = res.opt_state
-
-    def one():
-        step(model, opt, batch)
-    walls = wall_ms(one, 1)
-    n_k, dev_ms, busy_ms, by_name = device_profile(one, 1)
-    flash_ms, blas_ms, other_ms = kernel_share(by_name)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    print(f"phase 15d: one warm step under torch.profiler: "
-          f"{profile_text(n_k, dev_ms, busy_ms, walls[0])}; "
-          f"flash_attention_bh {flash_ms:.2f} ms, cuBLAS {blas_ms:.2f} ms, "
-          f"the rest {other_ms:.2f} ms; largest: "
-          + "; ".join(f"{k[:60]} {v:.2f} ms" for k, v in top)
-          + f" [{card}]", flush=True)
+    runs = {"eager": lambda: step(model, opt, batch),
+            "replayed": lambda: res.program(model, opt, batch)}
+    walls = walls_in_turns(runs, TRAIN_TURNS)
+    roof = lm_roofline_ms(TRAIN_ARCH, (TRAIN_SEQ, TRAIN_BATCH, "train"))
+    meds = {k: spread(w)[0] for k, w in walls.items()}
+    print(f"phase 15d: warm step walls in turns: "
+          f"{step_walls_text(walls, roof)} (the dry run's roofline "
+          f"{roof:.3f} ms); eager over replayed "
+          f"{meds['eager'] / meds['replayed']:.3f}x [{card}]", flush=True)
+    shares = {}
+    for name, run in runs.items():
+        n_k, dev_ms, busy_ms, by_name = device_profile(run, 1)
+        flash_ms, blas_ms, other_ms = kernel_share(by_name)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+        shares[name] = (dev_ms, flash_ms)
+        print(f"phase 15d: one warm {name} step under torch.profiler: "
+              f"{profile_text(n_k, dev_ms, busy_ms, meds[name])}; "
+              f"flash_attention_bh {flash_ms:.2f} ms, cuBLAS {blas_ms:.2f} "
+              f"ms, the rest {other_ms:.2f} ms; largest: "
+              + "; ".join(f"{k[:60]} {v:.2f} ms" for k, v in top)
+              + f" [{card}]", flush=True)
+    dev_ms, flash_ms = shares["replayed"]
 
     _, grads = loss_and_grads(model, batch)
     params = dict(model.named_parameters())
@@ -3632,7 +3782,8 @@ def phase_train_walls(dev, res, card):
                                     if ms is not None) * launches,
             "train_profile_ms": flash_ms if dev_ms is not None else None,
             "train_plain_bwd_ms": bwd_ms * cfg.n_layers,
-            "train_step_ms": med}
+            "train_step_ms": meds["replayed"],
+            "train_eager_step_ms": meds["eager"]}
 
 
 def train_library_ms(q, k, v, scale) -> dict:
@@ -3725,6 +3876,25 @@ def phase_train_grads(dev, card):
     return worst
 
 
+def reduced_train_run(model, batch, accum, captured):
+    """REDUCED_STEPS steps on ``batch`` of a copy of ``model`` from fresh
+    AdamW state, through the captured train program or the eager step:
+    (losses, weights)."""
+    import copy
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime.steps import capture_train_step, make_train_step
+    m = copy.deepcopy(model)
+    opt = adamw_init(dict(m.named_parameters()))
+    kw = dict(accum=accum, **TRAIN_SCHED)
+    step = (capture_train_step(m, opt, batch, **kw) if captured
+            else make_train_step(m, **kw))
+    losses = []
+    for _ in range(REDUCED_STEPS):
+        opt, met = step(m, opt, batch)
+        losses.append(float(met["loss"]))
+    return losses, weights_of(m)
+
+
 def phase_train_reduced(dev, card):
     """Phase 15c: the ten registry archs reduced, f32 on the card (TF32
     off) against the same weights and batch on the CPU: the loss and every
@@ -3732,7 +3902,9 @@ def phase_train_reduced(dev, card):
     CPU's gradients within ADAMW_TOL of scale on both, and one
     ``make_train_step`` step each (every weight within ``2 lr (1 + 0.1
     |p|)`` of the CPU's: AdamW's sign sensitivity, see
-    ``tests/test_torch_train.py``)."""
+    ``tests/test_torch_train.py``); then REDUCED_STEPS steps through the
+    captured train program against as many eager steps, losses and
+    weights held by :func:`hold_runs`."""
     import copy
     import torch
     from repro_torch.configs.registry import ARCH_IDS, get_config
@@ -3741,6 +3913,7 @@ def phase_train_reduced(dev, card):
     from repro_torch.runtime.steps import loss_and_grads, make_train_step
 
     worst = {"loss": 0.0, "grad": 0.0, "adamw": 0.0, "step": 0.0}
+    held = {}
     lr = cosine_schedule(0, **TRAIN_SCHED)
     for i, arch in enumerate(ARCH_IDS):
         cfg = dataclasses.replace(get_config(arch).reduced(),
@@ -3786,6 +3959,10 @@ def phase_train_reduced(dev, card):
         for key, e in (("loss", e_loss), ("grad", e_grad), ("adamw", e_ada),
                        ("step", e_step)):
             worst[key] = max(worst[key], e)
+        held[arch] = hold_runs(
+            f"phase 15c {arch}", reduced_train_run(model, batch, accum, True),
+            reduced_train_run(model, batch, accum, False),
+            lambda: reduced_train_run(model, batch, accum, False))
         del cpu, model
     print(f"phase 15c: {len(ARCH_IDS)} reduced archs f32, B{REDUCED_BATCH} "
           f"S{REDUCED_SEQ} ({ACCUM_ARCH} with accum 2), card against CPU: "
@@ -3794,15 +3971,78 @@ def phase_train_reduced(dev, card):
           f"{worst['adamw']:.3g} (< {ADAMW_TOL}); one full step's weights "
           f"apart by at most {worst['step']:.3g} (lr {float(lr)}) [{card}]",
           flush=True)
+    n_bit = sum(h == "bit-equal" for h in held.values())
+    print(f"phase 15c: {REDUCED_STEPS} steps through the captured train "
+          f"program against {REDUCED_STEPS} eager steps, losses and "
+          f"weights: {n_bit} of {len(held)} archs bit-equal"
+          + "".join(f"; {a} {h}" for a, h in held.items()
+                    if h != "bit-equal") + f" [{card}]", flush=True)
     return worst
+
+
+def eager_train(cfg, dev, steps, batch, seq):
+    """``train.main``'s run with the eager step in place of its program:
+    the same weights (a generator seeded 0), batches
+    (``SyntheticLMDataset(seed=0)``) and schedule.  Returns (losses, step
+    walls in ms, the model)."""
+    import torch
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime.steps import make_train_step
+    model = Model(cfg, device=dev)
+    model.init(torch.Generator(device=dev).manual_seed(0))
+    ds = SyntheticLMDataset(vocab=cfg.vocab, seq_len=seq,
+                            global_batch=batch, seed=0)
+    step = make_train_step(model, total=steps, warmup=max(1, steps // 10))
+    opt = adamw_init(dict(model.named_parameters()))
+    losses, walls = [], []
+    for _, b in zip(range(steps), ds):
+        b = {k: torch.from_numpy(v).long().to(dev) for k, v in b.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt, m = step(model, opt, b)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    return losses, walls, model
+
+
+def weights_of(model) -> dict:
+    return {n: p.detach() for n, p in model.named_parameters()}
+
+
+def hold_runs(what, captured, eager, again):
+    """Hold a captured run (losses, weights) to an eager run from the same
+    start: bit-equal, or, where a second eager run (``again()``, made only
+    then) is not bit-equal to the first, within twice their spread (the
+    largest difference of a loss and of a weight).  Returns a text."""
+    def apart(a, b):
+        dl = max(abs(x - y) for x, y in zip(a[0], b[0]))
+        dw = max(float((a[1][n].float() - b[1][n].float()).abs().max())
+                 for n in a[1])
+        return dl, dw
+    d = apart(captured, eager)
+    if d == (0.0, 0.0):
+        return "bit-equal"
+    spread_ = apart(again(), eager)
+    check(spread_ != (0.0, 0.0) and d[0] <= 2 * spread_[0]
+          and d[1] <= 2 * spread_[1],
+          f"{what}: the captured run is {d} (loss, weight) from the eager "
+          f"one, two eager runs {spread_} apart")
+    return (f"within the spread of two eager runs: loss {d[0]:.3g} and "
+            f"weight {d[1]:.3g} from the eager run, two eager runs "
+            f"{spread_[0]:.3g} and {spread_[1]:.3g} apart")
 
 
 def phase_train(dev, errs, card):
     """Phase 15: the LM training path.  (a) olmo-1b at full width in bf16
-    through ``repro_torch.launch.train.main``; (d) its walls and profile;
-    (b) gradients through the kernel forward against the plain forward;
-    (c) the ten reduced archs' train step against the CPU.  Returns the
-    kernels line's train_* fields."""
+    through ``repro_torch.launch.train.main``, every step one replay of
+    the captured train step, then the same run with the eager step: losses
+    and weights held equal; (d) the walls and profiles of both; (b)
+    gradients through the kernel forward against the plain forward; (c)
+    the ten reduced archs' train step against the CPU, and captured
+    against eager.  Returns the kernels line's train_* fields."""
     import torch
     from repro_torch.configs.registry import get_config
     from repro_torch.launch import train
@@ -3825,6 +4065,10 @@ def phase_train(dev, errs, card):
     check(want == train_flash_launches(cfg) * TRAIN_STEPS,
           "phase 15a: launches a step disagree with the layer count")
     check_counts("phase 15a train", counts, {"flash_attention_bh": want})
+    check(res.program.program.graph is not None
+          and res.program.program.calls == TRAIN_STEPS,
+          "phase 15a: train.main's steps did not run through one captured "
+          "program")
     check(all(math.isfinite(x) for x in res.losses),
           f"phase 15a: non-finite loss {res.losses}")
     check(res.losses[-1] < res.losses[0], f"phase 15a: the loss did not "
@@ -3834,11 +4078,29 @@ def phase_train(dev, errs, card):
           f"{cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, tied "
           f"{cfg.tie_embeddings}: {res.n_params} parameters made on the "
           f"card from seed 0; {TRAIN_STEPS} steps of {TRAIN_BATCH} x "
-          f"{TRAIN_SEQ} tokens in {run_s:.1f} s (weights included); losses "
+          f"{TRAIN_SEQ} tokens in {run_s:.1f} s (weights included), every "
+          f"step through one captured train program (its first call eager, "
+          f"its second the capture); losses "
           + ", ".join(f"{x:.4f}" for x in res.losses) + "; lrs "
           + ", ".join(f"{x:.3g}" for x in res.lrs)
-          + f"; launches {counts} [{card}]", flush=True)
-    fields = phase_train_walls(dev, res, card)
+          + f"; launches {counts} through the program's counts [{card}]",
+          flush=True)
+    losses, eager_ms, emodel = eager_train(cfg, dev, TRAIN_STEPS,
+                                           TRAIN_BATCH, TRAIN_SEQ)
+    eager = (losses, weights_of(emodel))
+
+    def again():
+        a_losses, _, a_model = eager_train(cfg, dev, TRAIN_STEPS,
+                                           TRAIN_BATCH, TRAIN_SEQ)
+        return a_losses, weights_of(a_model)
+    held = hold_runs("phase 15a", (res.losses, weights_of(res.model)),
+                     eager, again)
+    print(f"phase 15a: {TRAIN_STEPS} eager steps from the same seed: losses "
+          + ", ".join(f"{x:.4f}" for x in losses) + f"; the captured run's "
+          f"losses and weights {held} [{card}]", flush=True)
+    del emodel, eager
+    torch.cuda.empty_cache()
+    fields = phase_train_walls(dev, res, eager_ms, card)
     del res
     torch.cuda.empty_cache()
     grads = phase_train_grads(dev, card)
@@ -4128,11 +4390,18 @@ def phase_dryrun_live(dev, card):
                   f"{counter.flops} against {ana} analytic, {e:.3%}")
             ana_text = (f"FLOPs {(counter.flops - ana) / ana:+.3%} of the "
                         f"analytic {ana:.6g}")
-        walls = wall_ms(inputs.step, DRY_WALL_REPS)
+        runs = {"eager": inputs.step}
+        prog = step_program(model, inputs, batch, mode)
+        if prog is not None:
+            runs["replayed"] = prog
+            prog()
+            prog()          # the program's warm-up, then its capture
+        walls = walls_in_turns(runs, DRY_WALL_REPS)
         roof = max(rec["t_compute_s"], rec["t_memory_s"]) * 1e3
-        check(min(walls) >= roof, f"phase 16b {name}: a warm wall "
-              f"{min(walls):.3f} ms below the roofline {roof:.3f} ms")
-        med = spread(walls)[0]
+        for kind, w in walls.items():
+            check(min(w) >= roof, f"phase 16b {name}: a warm {kind} wall "
+                  f"{min(w):.3f} ms below the roofline {roof:.3f} ms")
+        med = spread(walls["eager"])[0]
         print(f"phase 16b: {name} ({arch} {cfg.dtype} {mode}, "
               f"{cfg.n_layers} layers, B {batch}, "
               f"{'capacity' if mode == 'decode' else 'S'} {seq}; strategy "
@@ -4149,10 +4418,14 @@ def phase_dryrun_live(dev, card):
               f"allocator's peak over the arguments {peak / 2**30:.3f} GiB; "
               f"roofline {roof:.3f} ms ({rec['bottleneck']}: compute "
               f"{rec['t_compute_s'] * 1e3:.3f}, memory "
-              f"{rec['t_memory_s'] * 1e3:.3f}), warm wall median {med:.3f} "
-              f"ms [{min(walls):.3f}, {max(walls):.3f}] = "
-              f"{med / roof:.2f}x the roofline [{card}]", flush=True)
-        del inputs, counter
+              f"{rec['t_memory_s'] * 1e3:.3f}); warm walls in turns: "
+              f"{step_walls_text(walls, roof)}" + (
+                  f"; eager over replayed "
+                  f"{med / spread(walls['replayed'])[0]:.2f}x"
+                  if "replayed" in walls else
+                  " (a prefill has no captured program)")
+              + f" [{card}]", flush=True)
+        del inputs, counter, prog, runs
         if mode == "decode":
             costs = hook_costs(dev)
             print(f"phase 16b: host us a call of flash_decode_paged at 32 "
@@ -4165,6 +4438,26 @@ def phase_dryrun_live(dev, card):
     del model
     torch.cuda.empty_cache()
     return total
+
+
+def step_program(model, inputs, batch, mode):
+    """The step of a dry-run case as its captured program, a callable of
+    no arguments: the train step on the case's optimizer state and batch
+    (``capture_train_step`` with ``make_train_step``'s defaults, as the
+    dry run builds it), or the decode step at the cache's last position;
+    None for a prefill."""
+    from repro_torch.runtime.steps import (capture_decode_step,
+                                           capture_train_step)
+    args = inputs.args
+    if mode == "train":
+        prog = capture_train_step(model, args["opt"], args["batch"])
+        return lambda: prog(model, args["opt"], args["batch"])
+    if mode == "decode":
+        cache, tok = args["cache"], args["tokens"]
+        last = inputs.meta["capacity"] - 1
+        prog = capture_decode_step(model, cache, batch)
+        return lambda: prog(cache, tok, last)
+    return None
 
 
 def phase_dryrun_production(card):
@@ -4312,6 +4605,23 @@ def example_launches(script, flags) -> dict:
     return {}
 
 
+def example_held(script, flags) -> dict:
+    """The LM kernels' calls an example makes eagerly (what LMRecorder
+    holds): the serving example's decode program's first call (a layer
+    each) and its fused prefill; the training example's program's first
+    step.  The rest run inside the programs' graphs."""
+    name = Path(script).stem
+    launches = example_launches(script, flags)
+    if name == "torch_serve_llm":
+        return {"flash_decode_paged": launches["flash_attention_bh"],
+                "flash_attention_bh": launches["flash_attention_bh"]}
+    if name == "torch_train_lm":
+        from repro_torch.configs.base import ModelConfig
+        cfg = ModelConfig(**load_script(script).CONFIG)
+        return {"flash_attention_bh": train_flash_launches(cfg)}
+    return {"flash_attention_bh": 0, "flash_decode_paged": 0}
+
+
 def hillclimb_checks(recs, card) -> None:
     """Every row of every pair counted; pair A's chunked rows below the
     recurrent ones in bytes; pair C's ep rows apart from its tp rows in
@@ -4398,14 +4708,15 @@ def phase_scripts(errs, card) -> dict:
             launches, held = got["launches"], got["held"]
             want = example_launches(script, flags)
             check_counts(f"phase 17: {script}", launches, want)
-            # every LM call is eager; a captured segment program's
-            # replays launch without a call, its first call was held
+            # a captured program's replays (a segment's, an LM step's)
+            # launch without a call; its first call, eager, was held
+            want_held = example_held(script, flags)
             check(all((held[k] > 0) == (n > 0) and held[k] <= n
                       for k, n in launches.items())
-                  and all(held[k] == launches[k] for k in
-                          ("flash_attention_bh", "flash_decode_paged")),
+                  and all(held[k] == n for k, n in want_held.items()),
                   f"phase 17: {script}: launches {launches}, calls held "
-                  f"against plain {held}")
+                  f"against plain {held}, the LM's eager calls "
+                  f"{want_held}")
             for k, n in launches.items():
                 total[k] += n
                 if n:

@@ -3,8 +3,9 @@ prefill + KV-cache decode.
 
 The counterpart of ``examples/serve_llm.py``: batched prompts fed through
 the decode step token by token (per-layer cache pages), then greedy
-generation.  The decode attention runs through the hand-written paged
-decode kernel.  The example then runs the fused prefill over the prompts
+generation; on the card the step is one captured program
+(``serve.generate``), as the reference jits its step.  The decode
+attention runs through the hand-written paged decode kernel.  The example then runs the fused prefill over the prompts
 (self-attention through the flash kernel) and checks that its last
 position's logits agree with the decode-fed ones (but for MoE, whose
 prefill drops the tokens past an expert's capacity).  The weights are drawn

@@ -4,7 +4,9 @@ for a few hundred steps.
 The counterpart of ``examples/train_lm.py``, on the port's full substrate:
 synthetic data pipeline, AdamW + cosine schedule, remat'd blocks (each
 under non-reentrant activation checkpointing), self-attention through the
-hand-written flash kernel, checkpointing to the reference's pytree.  One
+hand-written flash kernel, checkpointing to the reference's pytree; the
+step is one captured program (``capture_train_step``: one CUDA graph a
+step on the card), as the reference jits its step.  One
 process on one device: ``--devices N`` with ``N > 1`` (the reference's
 data parallelism over fake CPU devices) raises, since a mesh over several
 cards is ROADMAP A 10.  The weights are drawn from torch's generator
@@ -29,7 +31,7 @@ from repro_torch.data import SyntheticLMDataset
 from repro_torch.launch import require_device
 from repro_torch.models.transformer import Model, params_to_numpy
 from repro_torch.optim import adamw_init
-from repro_torch.runtime.steps import make_train_step
+from repro_torch.runtime.steps import capture_train_step
 
 
 #: ~100M params: 12L x d768 (GQA 12h/4kv), vocab 32k
@@ -62,14 +64,16 @@ def main(argv=None) -> int:
 
     ds = SyntheticLMDataset(vocab=cfg.vocab, seq_len=args.seq,
                             global_batch=args.batch, seed=0)
-    step_fn = make_train_step(model, peak_lr=3e-4, warmup=20,
-                              total=args.steps)
     opt = adamw_init(dict(model.named_parameters()))
+    step_fn = None
 
     t0 = time.time()
     losses = []
     for i, b in zip(range(args.steps), ds):
         batch = {k: torch.from_numpy(v).long().to(dev) for k, v in b.items()}
+        if step_fn is None:
+            step_fn = capture_train_step(model, opt, batch, peak_lr=3e-4,
+                                         warmup=20, total=args.steps)
         opt, metrics = step_fn(model, opt, batch)
         losses.append(float(metrics["loss"]))
         if i % 20 == 0 or i == args.steps - 1:

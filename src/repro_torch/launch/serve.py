@@ -9,9 +9,12 @@ with random weights and prompts from seed 0, the prompt fed through
 text stream (no vision tokens), an encdec fills its cross-attention cache
 from stub audio first.  Logs ``serve.timing`` through
 :mod:`repro_torch.obs.log` (``REPRO_LOG``).  Runs on the card unless
-``--device cpu``; the decode steps are eager (one captured graph a step is
-an open item).  ``--dtype float32`` serves a bf16 config in f32 (the
-conformance tests' setting).  ``--dry-run`` counts the production-mesh
+``--device cpu``.  On the card every step, prompt and generated, replays
+one captured decode program for the batch and the cache's capacity
+(:func:`repro_torch.runtime.steps.capture_decode_step`), as the
+reference's launcher runs one ``jax.jit(model.decode_step)``; the greedy
+argmax runs between replays.  ``--dtype float32`` serves a bf16 config
+in f32 (the conformance tests' setting).  ``--dry-run`` counts the production-mesh
 step of ``--shape`` (default ``decode_32k``) without running it, through
 :func:`repro_torch.launch.dryrun.main`, and returns its records.
 """
@@ -28,13 +31,16 @@ import torch
 from ..configs.registry import get_config
 from ..models.transformer import Model
 from ..obs.log import log
+from ..runtime.steps import capture_decode_step
 
 
 @dataclasses.dataclass
 class ServeResult:
     """What one serve run made: the model, the prompts ``[B, P]``, the
     generated tokens ``[B, gen]``, each step's logits ``[B, V]`` (the
-    prompt's steps first), and the host-clock walls (card synchronised)."""
+    prompt's steps first), and the host-clock walls (card synchronised):
+    the prompt's steps (with a program's warm-up and capture) and the
+    generated steps a token."""
     model: Model
     prompts: torch.Tensor
     tokens: torch.Tensor
@@ -50,23 +56,29 @@ def _sync(device: torch.device) -> None:
 
 @torch.no_grad()
 def generate(model: Model, prompts: torch.Tensor, n_gen: int,
-             audio: Optional[torch.Tensor] = None) -> ServeResult:
-    """Feed ``prompts`` through ``decode_step`` one position at a time,
+             audio: Optional[torch.Tensor] = None, *,
+             eager: bool = False) -> ServeResult:
+    """Feed ``prompts`` through the decode step one position at a time,
     then generate ``n_gen`` tokens greedily, on a cache of exactly the
-    positions it needs (the window's, where the config has one).  No
-    autograd graph is built, whether or not the weights require
-    gradients."""
+    positions it needs (the window's, where the config has one).  The step
+    is one program for the batch and capacity
+    (:func:`~repro_torch.runtime.steps.capture_decode_step`: captured on
+    the card), or with ``eager`` ``model.decode_step`` itself, a Python
+    call per op.  No autograd graph is built, whether or not the weights
+    require gradients."""
     cfg, dev = model.cfg, model.device
     B, P = prompts.shape
     cache = model.cache_init(B, capacity=cfg.attn_window or (P + n_gen))
     if cfg.family == "encdec":
         cache["xlayers"] = model.encode_cross(audio)
+    step = model.decode_step if eager else capture_decode_step(model,
+                                                               cache, B)
     logits, step_logits = None, []
     _sync(dev)
     t0 = time.perf_counter()
     for t in range(P):
-        logits, cache = model.decode_step(cache, prompts[:, t:t + 1], t)
-        step_logits.append(logits[:, -1])
+        logits, cache = step(cache, prompts[:, t:t + 1], t)
+        step_logits.append(logits[:, -1].clone())
     tok = torch.argmax(logits[:, -1], dim=-1, keepdim=True)
     _sync(dev)
     tp = time.perf_counter() - t0
@@ -74,8 +86,8 @@ def generate(model: Model, prompts: torch.Tensor, n_gen: int,
     out = []
     for i in range(n_gen):
         out.append(tok)
-        logits, cache = model.decode_step(cache, tok, P + i)
-        step_logits.append(logits[:, -1])
+        logits, cache = step(cache, tok, P + i)
+        step_logits.append(logits[:, -1].clone())
         tok = torch.argmax(logits[:, -1], dim=-1, keepdim=True)
     _sync(dev)
     td = time.perf_counter() - t0

@@ -11,14 +11,20 @@ reference.  The schedule warms up over a tenth of the steps and ends at
 ``--steps``.  Logs ``train.start``, ``train.step`` and ``train.checkpoint``
 through :mod:`repro_torch.obs.log` (``REPRO_LOG``); ``--ckpt`` writes the
 trained weights as the reference's pytree (``params_to_numpy``) with
-``save_pytree``.  Runs on the card unless ``--device cpu``; the step is
-eager (one captured graph a step is an open item).  ``--dtype float32``
-trains a bf16 config in f32.  ``--dry-run`` counts the production-mesh
+``save_pytree``.  Runs on the card unless ``--device cpu``.  On the card
+every step replays one captured train step for the batch shape and
+``--accum`` (:func:`repro_torch.runtime.steps.capture_train_step`: the
+checkpointed forward, the backward, the schedule and AdamW in one CUDA
+graph), as the reference's launcher runs one ``jax.jit(make_train_step(
+...))``; the loop reads each step's loss and learning rate before the
+next replay overwrites them.  ``--dtype float32`` trains a bf16 config in
+f32.  ``--dry-run`` counts the production-mesh
 step of ``--shape`` (default ``train_4k``) without running it, through
 :func:`repro_torch.launch.dryrun.main`.
 
 :func:`main` returns a :class:`TrainResult` (losses, learning rates, each
-step's wall with the card synchronised, peak device memory), or with
+step's wall with the card synchronised: on the card the first is the
+program's warm-up, the second its capture; peak device memory), or with
 ``--dry-run`` the dry run's records.
 """
 from __future__ import annotations
@@ -27,7 +33,7 @@ import argparse
 import dataclasses
 import sys
 import time
-from typing import List
+from typing import Any, List
 
 import torch
 
@@ -37,7 +43,7 @@ from ..data import SyntheticLMDataset
 from ..models.transformer import Model, params_to_numpy
 from ..obs.log import log
 from ..optim import adamw_init
-from ..runtime.steps import make_train_step
+from ..runtime.steps import capture_train_step
 
 
 @dataclasses.dataclass
@@ -45,8 +51,11 @@ class TrainResult:
     """What one training run made: the trained model and its optimizer
     state, each step's loss and learning rate (floats read after the
     step), each step's host-clock wall in ms (the device synchronised
-    before and after), the tokens a step, the parameter count and the peak
-    device memory in bytes (None on the CPU)."""
+    before and after; on the card the first two steps hold the program's
+    warm-up and capture), the tokens a step, the parameter count, the peak
+    device memory in bytes (None on the CPU) and the step program it ran
+    (:class:`~repro_torch.runtime.steps.TrainProgram`; None for no
+    step)."""
     model: Model
     opt_state: dict
     losses: List[float]
@@ -55,6 +64,7 @@ class TrainResult:
     tokens_per_step: int
     n_params: int
     peak_bytes: int | None
+    program: Any = None
 
 
 def _sync(device: torch.device) -> None:
@@ -97,10 +107,8 @@ def main(argv=None):
 
     ds = SyntheticLMDataset(vocab=cfg.vocab, seq_len=args.seq,
                             global_batch=args.batch, seed=0)
-    step = make_train_step(model, total=args.steps,
-                           warmup=max(1, args.steps // 10),
-                           accum=args.accum)
     opt = adamw_init(dict(model.named_parameters()))
+    step = None
     dt = getattr(torch, cfg.dtype)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
@@ -115,6 +123,10 @@ def main(argv=None):
         if cfg.family == "encdec":
             batch["audio_embeds"] = torch.zeros(
                 (args.batch, cfg.enc_seq, cfg.d_model), dtype=dt, device=dev)
+        if step is None:
+            step = capture_train_step(model, opt, batch, total=args.steps,
+                                      warmup=max(1, args.steps // 10),
+                                      accum=args.accum)
         _sync(dev)
         ts = time.perf_counter()
         opt, m = step(model, opt, batch)
@@ -131,7 +143,7 @@ def main(argv=None):
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" \
         else None
     return TrainResult(model, opt, losses, lrs, walls, args.batch * args.seq,
-                       n, peak)
+                       n, peak, step)
 
 
 if __name__ == "__main__":

@@ -289,12 +289,44 @@ def gqa_cache_init(cfg, batch: int, capacity: int, dtype: torch.dtype,
             else table}
 
 
-def gqa_decode(cfg, p: Attention, x: torch.Tensor, cache: dict, t: int,
-               rope_pos: Optional[int] = None) -> Tuple[torch.Tensor, dict]:
-    """One-token step.  x [B,1,d]; ``t`` the cache position; ``rope_pos``
-    overrides the rotary coordinate (VLM text streams are offset from cache
-    slots by the vision prefix).  Keys are rope'd before caching, so the
-    ring buffer (sliding window) needs only the valid prefix: softmax is
+def live_keys(t, capacity: int):
+    """``kv_len = min(t + 1, capacity)``: an int, or for a tensor ``t`` the
+    one-element int32 tensor on its device that the decode kernel reads
+    there."""
+    if isinstance(t, torch.Tensor):
+        return torch.clamp(t + 1, max=capacity).to(torch.int32).reshape(1)
+    return min(t + 1, capacity)
+
+
+def write_slot(buf: torch.Tensor, dim: int, slot, val: torch.Tensor) -> None:
+    """``buf``'s index ``slot`` along ``dim`` set to ``val`` (``val`` has
+    size 1 along ``dim``): a slice copy for an int slot, an ``index_copy_``
+    at a device slot (no host read)."""
+    if isinstance(slot, torch.Tensor):
+        buf.index_copy_(dim, slot.reshape(1).long(), val)
+    else:
+        buf.select(dim, slot).copy_(val.select(dim, 0))
+
+
+def rope_positions(t, batch: int, device) -> torch.Tensor:
+    """The int32 rotary coordinate ``[batch, 1, 1]`` of a one-token step
+    at ``t``: filled from a host int, or broadcast from a 0-d tensor."""
+    if isinstance(t, torch.Tensor):
+        return t.to(torch.int32).reshape(1, 1, 1).expand(batch, 1, 1)
+    return torch.full((batch, 1, 1), t, dtype=torch.int32, device=device)
+
+
+def gqa_decode(cfg, p: Attention, x: torch.Tensor, cache: dict, t,
+               rope_pos=None) -> Tuple[torch.Tensor, dict]:
+    """One-token step.  x [B,1,d]; ``t`` the cache position, an int or a
+    0-d integer tensor on the cache's device (the reference's traced
+    ``jnp.int32``: the slot write, the live length and the rotary
+    coordinate are then read from device memory, so one captured step
+    serves every position; ``Model.decode_step`` bounds an int ``t``,
+    the caller a tensor one); ``rope_pos`` (of ``t``'s kind) overrides the
+    rotary coordinate (VLM text streams are offset from cache slots by the
+    vision prefix).  Keys are rope'd before caching, so the ring buffer
+    (sliding window) needs only the valid prefix: softmax is
     permutation-invariant over slots.  The cache is updated in place (the
     reference returns a new one) and returned."""
     B = x.shape[0]
@@ -304,23 +336,20 @@ def gqa_decode(cfg, p: Attention, x: torch.Tensor, cache: dict, t: int,
     q, k, v = _heads(q, H, hd), _heads(k, KV, hd), _heads(v, KV, hd)
     if cfg.rope_kind in ("rope", "mrope"):
         # decode treats all streams as text -> plain rope is exact for mrope
-        rp = t if rope_pos is None else rope_pos
-        posb = torch.full((B, 1, 1), rp, dtype=torch.int32, device=x.device)
+        posb = rope_positions(t if rope_pos is None else rope_pos, B,
+                              x.device)
         q = apply_rope(q, posb, cfg.rope_theta)
         k = apply_rope(k, posb, cfg.rope_theta)
 
     slot = t % cap if cfg.attn_window is not None else t
-    if not 0 <= slot < cap:
-        raise ValueError(f"decode position {t} outside a cache of {cap} "
-                         f"keys with no window")
-    cache["k"][:, :, slot] = k[:, :, 0]
-    cache["v"][:, :, slot] = v[:, :, 0]
+    write_slot(cache["k"], 2, slot, k)
+    write_slot(cache["v"], 2, slot, v)
 
     table = cache["table"]
     ps = cap // table.numel()
     pools = [cache[n].view(B * KV, cap // ps, ps, hd) for n in ("k", "v")]
     out = flash_decode_paged(q.reshape(B * H, hd).contiguous(), *pools,
-                             table, min(t + 1, cap), groups=H // KV,
+                             table, live_keys(t, cap), groups=H // KV,
                              scale=1.0 / math.sqrt(hd))
     return out.reshape(B, 1, H * hd) @ p.wo, cache
 
@@ -394,11 +423,12 @@ def mla_cache_init(cfg, batch: int, capacity: int, dtype: torch.dtype,
                                   device=device)}
 
 
-def mla_decode(cfg, p: MLA, x: torch.Tensor, cache: dict, t: int,
-               rope_pos: Optional[int] = None) -> Tuple[torch.Tensor, dict]:
+def mla_decode(cfg, p: MLA, x: torch.Tensor, cache: dict, t,
+               rope_pos=None) -> Tuple[torch.Tensor, dict]:
     """Absorbed decode: scores and values computed in the latent space —
-    the cache stays [B,S,kv_lora+rope], the MLA memory win.  The cache is
-    updated in place and returned."""
+    the cache stays [B,S,kv_lora+rope], the MLA memory win.  ``t`` and
+    ``rope_pos`` as :func:`gqa_decode`'s.  The cache is updated in place
+    and returned."""
     m = cfg.mla
     B = x.shape[0]
     H = cfg.n_heads
@@ -407,18 +437,14 @@ def mla_decode(cfg, p: MLA, x: torch.Tensor, cache: dict, t: int,
 
     q = ((x @ p.w_dq) @ p.w_uq).reshape(B, 1, H, qk_head).transpose(1, 2)
     q_nope, q_rope = q[..., :m.qk_nope], q[..., m.qk_nope:]
-    posb = torch.full((B, 1, 1), t if rope_pos is None else rope_pos,
-                      dtype=torch.int32, device=x.device)
+    posb = rope_positions(t if rope_pos is None else rope_pos, B, x.device)
     q_rope = apply_rope(q_rope, posb, cfg.rope_theta)
     c_new = x @ p.w_dkv                                    # [B,1,kvl]
     kr_new = apply_rope((x @ p.w_kr)[:, None], posb,
                         cfg.rope_theta)[:, 0]              # [B,1,rope]
     slot = t % cap if cfg.attn_window is not None else t
-    if not 0 <= slot < cap:
-        raise ValueError(f"decode position {t} outside a cache of {cap} "
-                         f"keys with no window")
-    cache["c_kv"][:, slot] = c_new[:, 0]
-    cache["k_rope"][:, slot] = kr_new[:, 0]
+    write_slot(cache["c_kv"], 1, slot, c_new)
+    write_slot(cache["k_rope"], 1, slot, kr_new)
     c_kv, k_rope = cache["c_kv"], cache["k_rope"]
 
     q_lat = torch.einsum("bhqd,hdl->bhql", q_nope, p.w_uk)
@@ -427,7 +453,7 @@ def mla_decode(cfg, p: MLA, x: torch.Tensor, cache: dict, t: int,
               + torch.einsum("bhqd,bsd->bhqs", q_rope.float(),
                              k_rope.float()))
     scores = scores / math.sqrt(qk_head)
-    valid = torch.arange(cap, device=x.device) < min(t + 1, cap)
+    valid = torch.arange(cap, device=x.device) < live_keys(t, cap)
     scores = torch.where(valid, scores, NEG_INF)
     w = torch.softmax(scores, dim=-1).to(x.dtype)
     out_lat = torch.einsum("bhqs,bsl->bhql", w, c_kv)

@@ -14,7 +14,6 @@ from __future__ import annotations
 import math
 from typing import Optional, Tuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -140,27 +139,35 @@ def apply_mrope(x: torch.Tensor, pos3: torch.Tensor, theta: float,
         raise ValueError(f"mrope sections {sections} do not sum to hd/2 "
                          f"for hd {hd}")
     freqs = rope_freqs(hd, theta, x.device)
-    sel = torch.as_tensor(np.concatenate(
-        [np.full((s,), i) for i, s in enumerate(sections)]), device=x.device)
-    pos_sel = pos3.transpose(1, 2)[..., sel]                 # [B, S, hd/2]
-    return _rotate(x, pos_sel.float()[:, None] * freqs)
+    # frequency slot j reads the stream whose section holds it: stream i's
+    # coordinates repeated over its section (no index tensor from the host)
+    B, _, S = pos3.shape
+    pos_sel = torch.cat([pos3[:, i, :, None].expand(B, S, s)
+                         for i, s in enumerate(sections)], dim=-1)
+    return _rotate(x, pos_sel.float()[:, None] * freqs)       # [B, S, hd/2]
 
 
-def sinusoidal_pos_at(t: int, d: int, device) -> torch.Tensor:
+def sinusoidal_pos_at(t, d: int, device) -> torch.Tensor:
     """Sinusoidal embedding [d] for one position, in f32 (the reference
-    computes this one in f32 and :func:`sinusoidal_pos` in float64)."""
+    computes this one in f32 and :func:`sinusoidal_pos` in float64).  ``t``
+    is an int or a 0-d integer tensor on ``device``, read where it lies (a
+    captured decode step reads its position from device memory)."""
     i = torch.arange(d // 2, dtype=torch.float32, device=device)
-    ang = torch.tensor(float(t), dtype=torch.float32, device=device) \
-        / (10000 ** (2 * i / d))
+    pos = t.float() if isinstance(t, torch.Tensor) else \
+        torch.tensor(float(t), dtype=torch.float32, device=device)
+    ang = pos / (10000 ** (2 * i / d))
     return torch.cat([torch.sin(ang), torch.cos(ang)])
 
 
 def sinusoidal_pos(seq: int, d: int, device) -> torch.Tensor:
-    pos = np.arange(seq)[:, None]
-    i = np.arange(d // 2)[None, :]
+    """Sinusoidal embeddings [seq, d] in f32, computed in float64 as the
+    reference computes them in numpy; made on ``device`` (no host data
+    inside a step, which a captured train step could not copy)."""
+    f64 = torch.float64
+    pos = torch.arange(seq, dtype=f64, device=device)[:, None]
+    i = torch.arange(d // 2, dtype=f64, device=device)[None, :]
     ang = pos / (10000 ** (2 * i / d))
-    out = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
-    return torch.as_tensor(out, dtype=torch.float32, device=device)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).float()
 
 
 # ---------------------------------------------------------------------------

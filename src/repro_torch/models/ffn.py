@@ -3,8 +3,9 @@ the port of the JAX package's ``models/ffn.py``.
 
 The MoE dispatch is gather/scatter with a fixed per-expert capacity, per
 group (a batch row): token->slot positions come from an exclusive
-cumulative count per expert; overflow tokens drop through an out-of-range
-slot (standard capacity-factor semantics).  Expert compute is three batched
+cumulative count per expert; overflow tokens drop into a spare row past
+the buffer, as the reference's out-of-range slot drops them (standard
+capacity-factor semantics).  Expert compute is three batched
 products over an ``[E, G*C, d]`` buffer.
 """
 from __future__ import annotations
@@ -90,7 +91,9 @@ def moe(cfg, p: MoE, x: torch.Tensor,
 
     C = capacity or max(1, int(S * K * m.capacity_factor / E))
     flat_e = idx.reshape(G, S * K)                             # [G,S*K]
-    onehot = F.one_hot(flat_e, E)                              # [G,S*K,E]
+    # one-hot by comparison (F.one_hot checks its range on the host)
+    onehot = (flat_e[..., None]
+              == torch.arange(E, device=x.device)).long()      # [G,S*K,E]
     pos_in_e = torch.cumsum(onehot, dim=1) - onehot            # exclusive
     pos = pos_in_e.gather(2, flat_e[..., None])[..., 0]        # [G,S*K]
     keep = (pos < C).reshape(-1)
@@ -100,9 +103,13 @@ def moe(cfg, p: MoE, x: torch.Tensor,
             + torch.clamp(pos, max=C - 1)).reshape(-1)
 
     src = xt.repeat_interleave(K, dim=1).reshape(-1, d)        # [G*S*K,d]
-    buf = torch.zeros((E * G * C, d), dtype=x.dtype, device=x.device)
-    buf[slot[keep]] = src[keep]            # kept slots are distinct; drop
-    ebuf = buf.reshape(E, G * C, d)
+    # kept slots are distinct; a dropped entry goes to the spare row past
+    # E*G*C (the reference's out-of-range index under mode="drop"), so the
+    # scatter has no mask and reads nothing to the host
+    n = E * G * C
+    buf = torch.zeros((n + 1, d), dtype=x.dtype, device=x.device)
+    buf.index_put_((torch.where(keep, slot, n),), src)
+    ebuf = buf[:n].reshape(E, G * C, d)
 
     h = F.silu(torch.einsum("ecd,edf->ecf", ebuf, p.w_gate)) \
         * torch.einsum("ecd,edf->ecf", ebuf, p.w_up)

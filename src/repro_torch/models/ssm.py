@@ -159,13 +159,17 @@ def mamba2_state_init(cfg, batch: int, dtype: torch.dtype, device) -> dict:
 
 def mamba2_decode(cfg, p: Mamba2, x: torch.Tensor,
                   state: dict) -> Tuple[torch.Tensor, dict]:
-    """One token.  x [B,1,d]; returns a new state."""
+    """One token.  x [B,1,d]; ``state`` is updated in place (its own
+    tensors, so a captured step leaves it where the next replay reads it;
+    the reference returns a new state) and returned."""
     z, xi, b, c, dtv = _mamba2_split(cfg, p, x)
     hist = torch.cat([state["conv"], xi], dim=1)          # [B,d_conv,din]
     xconv = torch.einsum("bkd,kd->bd", hist, p.conv_w)[:, None, :]
     xbc = F.silu(xconv + p.conv_b)
     y, hT = _mamba2_core(cfg, p, xbc, b, c, dtv, state["h"])
-    return (y * F.silu(z)) @ p.w_out, {"h": hT, "conv": hist[:, 1:, :]}
+    state["h"].copy_(hT)
+    state["conv"].copy_(hist[:, 1:, :])
+    return (y * F.silu(z)) @ p.w_out, state
 
 
 # ---------------------------------------------------------------------------
@@ -290,9 +294,12 @@ def rwkv6_state_init(cfg, batch: int, device) -> dict:
 
 def rwkv6_decode(cfg, p: RWKV6, x: torch.Tensor,
                  state: dict) -> Tuple[torch.Tensor, dict]:
+    """One token.  x [B,1,d]; ``state`` is updated in place, as
+    :func:`mamba2_decode`'s, and returned."""
     r, k, v, g, w = _rwkv6_proj(cfg, p, x)
     ys, sT = _rwkv6_core(cfg, p, r, k, v, w, state["s"])
-    return _rwkv6_out(cfg, p, ys, g), {"s": sT}
+    state["s"].copy_(sT)
+    return _rwkv6_out(cfg, p, ys, g), state
 
 
 def rwkv6_channel_mix(cfg, p: RWKV6, x: torch.Tensor) -> torch.Tensor:

@@ -25,7 +25,9 @@ calls (the sharding context's re-layout points,
 has them: at each block's entry and after each stack of blocks; they are
 the identity unless the dry run installs a callback, and stand outside
 a block's checkpoint, so the recompute does not call them again.  Decode
-updates the cache in place.  Every family is here: dense, vlm, moe (with
+updates the cache in place, every entry in its own tensors, and takes
+its position as an int or a 0-d device tensor, so a captured step
+(``runtime.steps.capture_decode_step``) replays at every position.  Every family is here: dense, vlm, moe (with
 ``first_dense`` and MLA), ssm (RWKV-6), hybrid (Zamba2: one shared
 attention block after every ``hybrid_attn_every`` Mamba2 blocks) and
 encdec (Whisper).
@@ -421,12 +423,42 @@ class Model(torch.nn.Module):
         return [dict(zip(("xk", "xv"), A.cross_kv(self.cfg, p.xattn, enc)))
                 for p in self.blocks]
 
+    def capacity(self, cache) -> Optional[int]:
+        """The keys ``cache`` holds a layer (None for RWKV's states)."""
+        for key in ("layers", "attn_layers", "first_layers"):
+            for c in cache.get(key, ()):
+                if "k" in c:
+                    return c["k"].shape[2]
+                if "c_kv" in c:
+                    return c["c_kv"].shape[1]
+        return None
+
+    def check_position(self, cache, t: int) -> None:
+        """``ValueError`` unless host position ``t`` has a slot in
+        ``cache`` (RWKV's states have none to miss): with no window,
+        ``0 .. capacity - 1`` (the reference's
+        ``dynamic_update_slice`` clamps the write into the last slot, a
+        divergence kept on purpose).  :meth:`decode_step` runs it before
+        any write; a captured step reads its position from device memory,
+        so its caller runs it before each replay."""
+        cap = self.capacity(cache)
+        if cap is not None and (t < 0 or (self.cfg.attn_window is None
+                                          and t >= cap)):
+            raise ValueError(f"decode position {t} outside a cache of "
+                             f"{cap} keys with no window")
+
     @torch.no_grad()
     def decode_step(self, cache, tok: torch.Tensor,
-                    t: int) -> Tuple[torch.Tensor, Dict[str, Any]]:
-        """tok [B,1] int; ``t`` the position (a Python int).  Returns
-        (logits [B,1,V], the cache, updated in place)."""
+                    t) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """tok [B,1] int; ``t`` the position, a Python int or a 0-d integer
+        tensor on the model's device (the reference's traced ``jnp.int32``:
+        nothing then reads it on the host, so one captured step serves
+        every position, :func:`repro_torch.runtime.steps.
+        capture_decode_step`).  Returns (logits [B,1,V], the cache, updated
+        in place: every family's entries keep their tensors)."""
         cfg = self.cfg
+        if not isinstance(t, torch.Tensor):
+            self.check_position(cache, t)
         x = self.tok_emb[tok]
         fam = cfg.family
         if fam in ("dense", "vlm", "moe"):
@@ -450,10 +482,9 @@ class Model(torch.nn.Module):
             for p, c_ in zip(self.blocks, cache["layers"]):
                 x = body(cfg, x, p, c_)
         elif fam == "ssm":
-            for i, p in enumerate(self.blocks):
-                a, cache["layers"][i] = S.rwkv6_decode(
-                    cfg, p.tmix, apply_norm(cfg, x, p.ln1),
-                    cache["layers"][i])
+            for p, c_ in zip(self.blocks, cache["layers"]):
+                a, _ = S.rwkv6_decode(cfg, p.tmix, apply_norm(cfg, x, p.ln1),
+                                      c_)
                 x = x + a
                 x = x + S.rwkv6_channel_mix(cfg, p.tmix,
                                             apply_norm(cfg, x, p.ln2))
@@ -469,9 +500,8 @@ class Model(torch.nn.Module):
         cfg = self.cfg
         every = cfg.hybrid_attn_every or cfg.n_layers
         pa, ai = self.shared_attn, 0
-        for i, p in enumerate(self.blocks):
-            a, cache["layers"][i] = S.mamba2_decode(
-                cfg, p.mamba, apply_norm(cfg, x, p.ln), cache["layers"][i])
+        for i, (p, c_) in enumerate(zip(self.blocks, cache["layers"])):
+            a, _ = S.mamba2_decode(cfg, p.mamba, apply_norm(cfg, x, p.ln), c_)
             x = x + a
             if (i + 1) % every == 0 or i == cfg.n_layers - 1:
                 a, _ = A.gqa_decode(cfg, pa.attn, apply_norm(cfg, x, pa.ln1),

@@ -37,20 +37,19 @@ def adamw_update(grads: Mapping[str, torch.Tensor], state: Dict[str, Any],
     """One AdamW step of every parameter named in ``params`` by its
     gradient in ``grads`` (the parameter's dtype or f32), the gradients
     first scaled so their global f32 norm is at most ``grad_clip``.  ``lr``
-    is a float or a 0-d tensor.  Updates the parameters and ``state``'s
-    moments in place, sets its step to step + 1, and returns ``(params,
-    state)``."""
-    step = state["step"] + 1
+    is a float or a 0-d tensor.  Updates the parameters, ``state``'s
+    moments and its step counter in place (the same tensors, so a captured
+    step advances them on every replay; nothing is read to the host or
+    made from host data) and returns ``(params, state)``."""
+    state["step"].add_(1)
     # global-norm clip (fp32)
     gsq = sum(torch.sum(torch.square(grads[n].float())) for n in params)
     gnorm = torch.sqrt(gsq)
     scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
 
-    stepf = step.float()
-    c1 = 1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32,
-                                      device=stepf.device), stepf)
-    c2 = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32,
-                                      device=stepf.device), stepf)
+    stepf = state["step"].float()
+    c1 = 1.0 - torch.pow(b1, stepf)
+    c2 = 1.0 - torch.pow(b2, stepf)
     for n, p in params.items():
         g = grads[n].float() * scale
         m, v = state["m"][n], state["v"][n]
@@ -60,5 +59,4 @@ def adamw_update(grads: Mapping[str, torch.Tensor], state: Dict[str, Any],
         vh = v / c2
         delta = mh / (torch.sqrt(vh) + eps) + weight_decay * p.float()
         p.copy_((p.float() - lr * delta).to(p.dtype))
-    state["step"] = step
     return params, state

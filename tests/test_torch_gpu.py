@@ -1736,3 +1736,165 @@ def test_dry_run_counts_equal_the_live_step(cuda, arch, mode):
     assert bool(live.units) == (arch != "rwkv6-3b")   # RWKV has no attention
     assert {k: f.launches - before[k] for k, f in wrappers.items()} == {
         k: live.units.get(k, 0) for k in wrappers}
+
+
+# ---------------------------------------------------------------------------
+# The LM decode and train steps as captured programs
+# ---------------------------------------------------------------------------
+
+def _reduced_model(arch, cuda, seed=0, **kw):
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.transformer import Model
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32",
+                              **kw)
+    if cfg.family == "vlm":
+        cfg = dataclasses.replace(cfg, vision_tokens=0)
+    return Model(cfg, device=cuda).init(
+        torch.Generator(device=cuda).manual_seed(seed))
+
+
+def _gqa_decode_layers(cfg) -> int:
+    """Self-attention layers a decode step runs through the decode kernel
+    (MLA and RWKV run none; Zamba2 its shared block once a group)."""
+    if cfg.mla or cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return -(-cfg.n_layers // (cfg.hybrid_attn_every or cfg.n_layers))
+    return cfg.n_layers
+
+
+@pytest.mark.parametrize("arch,kw", [
+    ("llama3-8b", {}), ("qwen2-vl-7b", {}), ("deepseek-v2-236b", {}),
+    ("rwkv6-3b", {}), ("zamba2-1.2b", {}), ("whisper-small", {}),
+    ("llama3-8b", {"attn_window": 4})])
+def test_captured_decode_is_bit_equal_to_the_eager_step(cuda, arch, kw):
+    """One reduced arch of each family (f32): the program (eager first
+    call, then capture and replays) against ``model.decode_step`` with int
+    positions on a second cache, the same tokens: every step's logits and
+    the final caches bit-equal; the decode kernel launched once a GQA
+    layer a step through the program's counts; the windowed case wraps."""
+    from repro_torch.runtime.steps import capture_decode_step
+    model = _reduced_model(arch, cuda, **kw)
+    cfg = model.cfg
+    steps, B = 12, 2
+    g = torch.Generator(device=cuda).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (B, steps), generator=g, device=cuda)
+    caches = [model.cache_init(B, cfg.attn_window or steps)
+              for _ in range(2)]
+    if cfg.family == "encdec":
+        audio = torch.randn((B, cfg.enc_seq, cfg.d_model), generator=g,
+                            device=cuda) * 0.02
+        for c in caches:
+            c["xlayers"] = model.encode_cross(audio)
+    eager = [model.decode_step(caches[0], toks[:, t:t + 1], t)[0].clone()
+             for t in range(steps)]
+    prog = capture_decode_step(model, caches[1], B)
+    n0 = flash_decode_paged.launches
+    got = [prog(caches[1], toks[:, t:t + 1], t)[0].clone()
+           for t in range(steps)]
+    torch.cuda.synchronize()
+    assert prog.program.graph is not None and prog.program.calls == steps
+    assert flash_decode_paged.launches - n0 == \
+        _gqa_decode_layers(cfg) * steps
+    for t, (a, b) in enumerate(zip(eager, got)):
+        assert torch.equal(a, b), t
+    for key in ("layers", "attn_layers", "first_layers"):
+        for ca, cb in zip(caches[0].get(key, ()), caches[1].get(key, ())):
+            for n in ca:
+                assert torch.equal(ca[n], cb[n]), (key, n)
+
+
+def _train_runs(model, batches, program, accum):
+    """Losses, learning rates and final weights of one run of ``batches``
+    through the captured train program or the eager step, from a copy of
+    ``model``."""
+    import copy
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime.steps import capture_train_step, make_train_step
+    m = copy.deepcopy(model)
+    opt = adamw_init(dict(m.named_parameters()))
+    kw = dict(peak_lr=1e-3, warmup=1, total=8, accum=accum)
+    step = (capture_train_step(m, opt, batches[0], **kw) if program
+            else make_train_step(m, **kw))
+    losses, lrs = [], []
+    for b in batches:
+        opt, met = step(m, opt, b)
+        losses.append(float(met["loss"]))
+        lrs.append(float(met["lr"]))
+    torch.cuda.synchronize()
+    return losses, lrs, {n: p.detach().clone()
+                         for n, p in m.named_parameters()}, step, opt
+
+
+@pytest.mark.parametrize("arch,accum", [
+    ("llama3-8b", 2), ("olmo-1b", 1), ("granite-moe-3b-a800m", 1),
+    ("deepseek-v2-236b", 1), ("rwkv6-3b", 1), ("zamba2-1.2b", 1),
+    ("whisper-small", 1), ("qwen2-vl-7b", 1)])
+def test_captured_train_step_equals_the_eager_step(cuda, arch, accum):
+    """Four steps from the same weights (f32): the program (eager first
+    step, then capture and replays) against the eager step; losses,
+    learning rates and weights bit-equal, wherever two eager runs are
+    bit-equal to each other (else within their spread); the step counter
+    advanced in place on every replay; the flash kernel's launches
+    counted on the replays."""
+    model = _reduced_model(arch, cuda, seed=2)
+    cfg = model.cfg
+    g = torch.Generator(device=cuda).manual_seed(3)
+    batches = []
+    for _ in range(4):
+        toks = torch.randint(0, cfg.vocab, (4, 16), generator=g,
+                             device=cuda)
+        b = {"tokens": toks, "labels": toks}
+        if cfg.family == "encdec":
+            b["audio_embeds"] = torch.randn(
+                (4, cfg.enc_seq, cfg.d_model), generator=g,
+                device=cuda) * 0.02
+        if cfg.family == "vlm":
+            b["vision_embeds"] = torch.zeros((4, 0, cfg.d_model),
+                                             device=cuda)
+        batches.append(b)
+    e1 = _train_runs(model, batches, False, accum)
+    e2 = _train_runs(model, batches, False, accum)
+    n0 = flash_attention_bh.launches
+    c = _train_runs(model, batches, True, accum)
+    launches = flash_attention_bh.launches - n0
+    prog, opt = c[3], c[4]
+    assert prog.program.graph is not None and prog.program.calls == 4
+    assert int(opt["step"]) == 4 and opt["step"] is prog.opt_state["step"]
+    every = cfg.hybrid_attn_every or cfg.n_layers
+    per_step = (0 if cfg.mla or cfg.family == "ssm" else
+                -(-cfg.n_layers // every) if cfg.family == "hybrid" else
+                2 * (cfg.n_layers + cfg.n_enc_layers))
+    assert launches == 4 * accum * per_step
+    assert c[1] == e1[1]
+    same = e1[0] == e2[0] and all(torch.equal(e1[2][n], e2[2][n])
+                                  for n in e1[2])
+    if same:
+        assert c[0] == e1[0]
+        for n in e1[2]:
+            assert torch.equal(c[2][n], e1[2][n]), n
+    else:
+        for n in e1[2]:
+            spread = float((e1[2][n] - e2[2][n]).abs().max())
+            assert float((c[2][n] - e1[2][n]).abs().max()) <= 2 * spread, n
+
+
+def test_a_capture_that_reads_the_host_raises(cuda, monkeypatch):
+    """A decode step that reads its position on the host (``int(t)``) runs
+    eagerly at its first call and fails its capture at the second: the
+    program raises, and does not fall back to the eager step."""
+    import repro_torch.models.attention as lm_attn
+    from repro_torch.runtime.steps import capture_decode_step
+    model = _reduced_model("llama3-8b", cuda)
+    cache = model.cache_init(1, 4)
+    prog = capture_decode_step(model, cache, 1)
+    live = lm_attn.live_keys
+    monkeypatch.setattr(lm_attn, "live_keys",
+                        lambda t, cap: live(int(t), cap))
+    tok = torch.zeros((1, 1), dtype=torch.long, device=cuda)
+    prog(cache, tok, 0)
+    with pytest.raises(RuntimeError):
+        prog(cache, tok, 1)
+    assert prog.program.graph is None
+    torch.cuda.synchronize()
