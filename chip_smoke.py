@@ -17,6 +17,27 @@ seeds:
   eager records' (``jit_segments=False``), each output checked against
   the unpartitioned reference and each ``ExecStats`` against the eager
   and the generic ``backend="torch"`` runs;
+* the two shard kernels in bf16 and fp16 (phase 2's half grid) — every
+  case of phase 2 with both operands in bf16 and in fp16, and a half
+  input with f32 weights, an f32 input with bf16 weights and bf16 with
+  fp16 at each geometry's first pad signature and the FC shapes: the
+  output in the input's dtype and within one ulp of the plain version
+  (``hold_ulp``; past one ulp only where an element cancels, within
+  ``SUM_SLACK`` of its sum of |x * w|), one launch a call, the largest
+  ulps and the share of elements that differ printed;
+* the CNN/bert path in bf16 (phase 4b) — phase 3's models, plans and
+  seeds with the weights and input cast to bf16: eager records, then the
+  segment programs' eager, capturing and replaying runs, bit-equal,
+  launches equal to ``kernel_records``, ``ExecStats`` equal to the f32
+  run's, every call made outside a capture within one ulp of plain, the
+  output within 2e-2 of scale of the f32 run, of ``run_reference`` in
+  bf16 and of ``backend="torch"`` in bf16; the mesh executor, overlap on
+  and off, bit-equal across its runs and within 2e-2 of the local bf16
+  output; the warm replayed run in bf16 and f32 in turns with the idle
+  share, and each kernel's bf16 calls of one pass beside plain, library
+  (``F.pad`` + ``F.conv2d``, ``torch.matmul``, both in bf16) and the
+  bound at 2-byte operands and 989 TFLOP/s (the ``bf16_*`` fields of the
+  kernels line);
 * the decode path — ``plan_decode`` -> ``greedy_decode(DecodeSession(...,
   ExecConfig(backend="cuda")))`` at OLMo-1B's widths and depth (16 layers,
   d 2048, 16 heads, d_ff 8192, vocab 50304) over 4 nodes, a 480-token
@@ -241,7 +262,7 @@ FLASH_CASES = (
     ("zamba2-1.2b window", 1, 32, 32, 8192, 64, True, 4096, "float32"),
     ("unaligned non-causal", 1, 16, 16, 2000, 128, False, None, "float32"),
 )
-BF16_TOL = 2e-2                 # the reference's bf16 attention tolerance
+BF16_TOL = 2e-2                 # the reference's bf16 tolerance
 #: dense conv shards of the 4-node main path with few output pixels:
 #: rows, width, cin, cout, k, stride, padding of the layer
 SKINNY_CONVS = (
@@ -251,6 +272,12 @@ SKINNY_CONVS = (
     (5, 14, 256, 512, 3, 2, 1),     # resnet18 layer4 transition
     (2, 7, 1024, 1024, 1, 1, 0),    # mobilenet pw13
 )
+#: FC shapes of phase 2: m, cin, cout (bert-base's whole sequence and
+#: 4-node shards, the classifier heads)
+FC_SHAPES = ((128, 768, 2304), (128, 2304, 768), (128, 768, 3072),
+             (128, 3072, 768), (32, 768, 2304), (32, 2304, 768),
+             (32, 768, 3072), (32, 3072, 768), (1, 1024, 1000),
+             (1, 512, 1000), (1, 2048, 1000), (1, 200, 100))
 TOP_SHAPES = 5                  # recorded call shapes printed per kernel
 STAGES_SHOWN = 4                # instrumented mesh stages printed per run
 DECODE_TOL = 1e-5               # the reference's decode-kernel tolerance
@@ -500,24 +527,31 @@ def library_conv(x, w, pads, stride, depthwise):
                     groups=groups)
 
 
+def nbytes_of(*tensors) -> float:
+    """Bytes of the tensors at their element sizes: each read or written
+    once."""
+    return float(sum(t.numel() * t.element_size() for t in tensors))
+
+
 def conv_work(x, w, out, depthwise):
     """(bytes, flops) one conv shard call must move and do."""
     k = w.shape[0]
     ho, wo, cout = out.shape
     cin = x.shape[2]
     flops = 2.0 * ho * wo * cout * k * k * (1 if depthwise else cin)
-    return 4.0 * (x.numel() + w.numel() + out.numel()), flops
+    return nbytes_of(x, w, out), flops
 
 
 def matmul_work(x, w, out):
     m, k = x.shape
-    return 4.0 * (x.numel() + w.numel() + out.numel()), \
-        2.0 * m * k * w.shape[1]
+    return nbytes_of(x, w, out), 2.0 * m * k * w.shape[1]
 
 
-def bound_ms(nbytes, flops):
+def bound_ms(nbytes, flops, peak_flops=PEAK_F32_FLOPS):
+    """The least time for the work: bytes over the memory rate or flops
+    over ``peak_flops`` (f32 on CUDA cores by default), the larger."""
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -525,6 +559,77 @@ def bound_ms(nbytes, flops):
 # ---------------------------------------------------------------------------
 # Phases
 # ---------------------------------------------------------------------------
+
+def grid_geometries():
+    """Each conv geometry (type, k, stride, padding) of the edge models at
+    its first full-width layer."""
+    from repro_torch.configs.edge_models import EDGE_MODELS
+    from repro_torch.core.graph import ConvT
+    first = {}
+    for name, f in EDGE_MODELS.items():
+        for l in f().layers:
+            if l.conv_t in (ConvT.CONV, ConvT.POINTWISE, ConvT.DWCONV):
+                first.setdefault((l.conv_t, l.k, l.s, l.p), l)
+    return sorted(first.items())
+
+
+def conv_grid_cases(dev, gen, xd=None, wd=None):
+    """The full-width conv shards of phase 2 in dtypes ``xd`` and ``wd``
+    (default f32): every geometry at its first full-width layer x every
+    shard pad signature x (a strided view, a contiguous input), dense
+    weights as an OutC channel view; then the ``SKINNY_CONVS`` shapes.
+    Yields (description, x, w, kwargs); the first count of cases is the
+    geometries'."""
+    import torch
+    from repro_torch.core.graph import ConvT, shard_halo_pads
+    from repro_torch.kernels.conv2d import shard_out_shape
+    xd = xd or torch.float32
+    wd = wd or torch.float32
+    for (t, k, s, p), l in grid_geometries():
+        dw = t == ConvT.DWCONV
+        if dw:
+            w = torch.randn((k, k, 1, l.in_c), generator=gen,
+                            device=dev).to(wd)
+        else:
+            w = (torch.randn((k, k, l.in_c, l.out_c + 3), generator=gen,
+                             device=dev)
+                 / (k * k * l.in_c) ** 0.5).to(wd)[..., 1:1 + l.out_c]
+        for pads in shard_halo_pads(p):
+            big = torch.randn((l.in_h + 2, l.in_w + 2, l.in_c + 1),
+                              generator=gen, device=dev).to(xd)
+            view = big[1:1 + l.in_h, 2:2 + l.in_w, :l.in_c]
+            for x in (view, view.contiguous()):
+                yield (f"{t.name} k{k} s{s} p{p} pads={pads}", x, w,
+                       dict(pads=pads, stride=s, depthwise=dw))
+    for rows, width, cin, cout, k, s, p in SKINNY_CONVS:
+        w = (torch.randn((k, k, cin, cout), generator=gen, device=dev)
+             / (k * k * cin) ** 0.5).to(wd)
+        big = torch.randn((rows + 2, width + 2, cin), generator=gen,
+                          device=dev).to(xd)
+        view = big[1:1 + rows, 1:1 + width]
+        for pads in shard_halo_pads(p):
+            if min(shard_out_shape(rows, width, k, s, pads)) <= 0:
+                continue
+            for x in (view, view.contiguous()):
+                yield (f"[{rows},{width},{cin}] k{k} s{s} -> {cout} "
+                       f"pads={pads}", x, w, dict(pads=pads, stride=s))
+
+
+def fc_grid_cases(dev, gen, xd=None, wd=None):
+    """The FC shapes of phase 2 (bert-base's whole sequence and 4-node
+    shards, the classifier heads), each with its whole weight and a
+    4-node column view: (description, x, w)."""
+    import torch
+    xd = xd or torch.float32
+    wd = wd or torch.float32
+    for m, cin, cout in FC_SHAPES:
+        x = torch.randn((m, cin), generator=gen, device=dev).to(xd)
+        w = (torch.randn((cin, cout), generator=gen, device=dev)
+             / cin ** 0.5).to(wd)
+        share = -(-cout // NODES)
+        for wv in (w, w[:, share:2 * share]):
+            yield f"[{m},{cin}]@{tuple(wv.shape)}", x, wv
+
 
 def phase_kernel_grid(dev, errs):
     """Each kernel against its plain version on the card at the shapes of
@@ -534,88 +639,163 @@ def phase_kernel_grid(dev, errs):
     the bert-base (whole sequence and 4-node shards) and classifier-head
     FC shapes (whole and column-sliced weights)."""
     import torch
-    from repro_torch.configs.edge_models import EDGE_MODELS
-    from repro_torch.core.graph import ConvT, shard_halo_pads
-    from repro_torch.kernels.conv2d import conv2d_shard, shard_out_shape
+    from repro_torch.kernels.conv2d import conv2d_shard
     from repro_torch.kernels.ops import matmul_tiled
     from repro_torch.kernels.ref import conv2d_shard_ref, matmul_ref
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    first = {}
-    for name, f in EDGE_MODELS.items():
-        for l in f().layers:
-            if l.conv_t in (ConvT.CONV, ConvT.POINTWISE, ConvT.DWCONV):
-                first.setdefault((l.conv_t, l.k, l.s, l.p), l)
-    n = 0
-    for (t, k, s, p), l in sorted(first.items()):
-        dw = t == ConvT.DWCONV
-        if dw:
-            w = torch.randn((k, k, 1, l.in_c), generator=gen, device=dev)
-        else:
-            w = (torch.randn((k, k, l.in_c, l.out_c + 3), generator=gen,
-                             device=dev)
-                 / (k * k * l.in_c) ** 0.5)[..., 1:1 + l.out_c]
-        for pads in shard_halo_pads(p):
-            big = torch.randn((l.in_h + 2, l.in_w + 2, l.in_c + 1),
-                              generator=gen, device=dev)
-            view = big[1:1 + l.in_h, 2:2 + l.in_w, :l.in_c]
-            for x in (view, view.contiguous()):
-                out = conv2d_shard(x, w, pads=pads, stride=s, depthwise=dw)
-                ref = conv2d_shard_ref(x, w, pads=pads, stride=s,
-                                       depthwise=dw)
-                torch.cuda.synchronize()
-                e = rel_err(out, ref)
-                check(e < TOL, f"conv2d_shard {t.name} k{k} s{s} p{p} "
-                               f"pads={pads}: scale-normalised error {e}")
-                errs["conv2d_shard"] = max(errs["conv2d_shard"],
-                                           abs_err(out, ref))
-                n += 1
-    n_first = n
-    for rows, width, cin, cout, k, s, p in SKINNY_CONVS:
-        w = (torch.randn((k, k, cin, cout), generator=gen, device=dev)
-             / (k * k * cin) ** 0.5)
-        big = torch.randn((rows + 2, width + 2, cin), generator=gen,
-                          device=dev)
-        view = big[1:1 + rows, 1:1 + width]
-        for pads in shard_halo_pads(p):
-            if min(shard_out_shape(rows, width, k, s, pads)) <= 0:
-                continue
-            for x in (view, view.contiguous()):
-                out = conv2d_shard(x, w, pads=pads, stride=s)
-                ref = conv2d_shard_ref(x, w, pads=pads, stride=s)
-                torch.cuda.synchronize()
-                e = rel_err(out, ref)
-                check(e < TOL, f"conv2d_shard [{rows},{width},{cin}] k{k} "
-                               f"s{s} -> {cout} pads={pads}: "
-                               f"scale-normalised error {e}")
-                errs["conv2d_shard"] = max(errs["conv2d_shard"],
-                                           abs_err(out, ref))
-                n += 1
+    n = n_first = 0
+    n_geoms = len(grid_geometries())
+    for desc, x, w, kw in conv_grid_cases(dev, gen):
+        out = conv2d_shard(x, w, **kw)
+        ref = conv2d_shard_ref(x, w, **kw)
+        torch.cuda.synchronize()
+        e = rel_err(out, ref)
+        check(e < TOL, f"conv2d_shard {desc}: scale-normalised error {e}")
+        errs["conv2d_shard"] = max(errs["conv2d_shard"], abs_err(out, ref))
+        n += 1
+        n_first += not desc.startswith("[")
     print(f"phase 2: conv2d_shard == plain on {n} full-width cases "
-          f"({n_first} over {len(first)} geometries x pad signatures x 2 "
+          f"({n_first} over {n_geoms} geometries x pad signatures x 2 "
           f"layouts, {n - n_first} over {len(SKINNY_CONVS)} skinny shard "
           f"shapes); max abs err {errs['conv2d_shard']:.3g}", flush=True)
-    shapes = [(128, 768, 2304), (128, 2304, 768), (128, 768, 3072),
-              (128, 3072, 768), (32, 768, 2304), (32, 2304, 768),
-              (32, 768, 3072), (32, 3072, 768), (1, 1024, 1000),
-              (1, 512, 1000), (1, 2048, 1000), (1, 200, 100)]
     n = 0
-    for m, cin, cout in shapes:
-        x = torch.randn((m, cin), generator=gen, device=dev)
-        w = torch.randn((cin, cout), generator=gen, device=dev) / cin ** 0.5
-        share = -(-cout // NODES)
-        for wv in (w, w[:, share:2 * share]):
-            out = matmul_tiled(x, wv)
-            ref = matmul_ref(x, wv)
-            torch.cuda.synchronize()
-            e = rel_err(out, ref)
-            check(e < TOL, f"matmul_tiled [{m},{cin}]@{tuple(wv.shape)}: "
-                           f"scale-normalised error {e}")
-            errs["matmul_tiled"] = max(errs["matmul_tiled"],
-                                       abs_err(out, ref))
-            n += 1
+    for desc, x, wv in fc_grid_cases(dev, gen):
+        out = matmul_tiled(x, wv)
+        ref = matmul_ref(x, wv)
+        torch.cuda.synchronize()
+        e = rel_err(out, ref)
+        check(e < TOL, f"matmul_tiled {desc}: scale-normalised error {e}")
+        errs["matmul_tiled"] = max(errs["matmul_tiled"], abs_err(out, ref))
+        n += 1
     print(f"phase 2: matmul_tiled == plain on {n} FC shapes; max abs err "
           f"{errs['matmul_tiled']:.3g}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# bf16 and fp16: the one-ulp rule
+# ---------------------------------------------------------------------------
+
+#: how far two f32 sums of one set of terms, taken in other orders (or
+#: with and without fused multiply-adds), may be apart, as a share of the
+#: sum of the terms' magnitudes: each rounding moves a sum by at most an
+#: ulp of a partial sum, so a 9-term depthwise sum by up to ~2^-20.8 of
+#: it (the long dense sums of phase 2 stay within 2^-22 on an H100)
+SUM_SLACK = 2.0 ** -20
+#: (x dtype, w dtype) pairs of phase 2's half grid beyond bf16 and fp16
+#: alone: a half x with f32 weights (the kernel's own), then two that the
+#: wrapper reaches through an exact upcast of the weight
+MIXED_PAIRS = (("bfloat16", "float32"), ("float16", "float32"),
+               ("float32", "bfloat16"), ("bfloat16", "float16"))
+
+
+def ulps(a, b):
+    """Units in the last place between two tensors of one floating dtype:
+    the distance of their bit patterns in the dtype's order."""
+    import torch
+    bits = {2: torch.int16, 4: torch.int32}[a.element_size()]
+    sign = 1 << (8 * a.element_size() - 1)
+
+    def order(t):
+        i = t.contiguous().view(bits).long()
+        return torch.where(i < 0, -(i & (sign - 1)), i)
+    return (order(a) - order(b)).abs()
+
+
+def new_ulp_stats() -> dict:
+    return dict(calls=0, elems=0, differ=0, max_ulp=0, cancel=0)
+
+
+def hold_ulp(what, out, plain, mag, stats) -> None:
+    """``out`` (the kernel's) in ``plain``'s dtype and within one ulp of it
+    at every element, save where the element cancels (its two f32 sums
+    may be more than one of its ulps apart): there within SUM_SLACK of
+    ``mag``, the f32 sum of |x * w| over its terms.  Both versions read
+    every element as f32, sum in f32 in their own orders and round
+    once.  Adds the call to ``stats``: elements, elements that differ,
+    the largest ulps, the cancellations past one ulp."""
+    check(out.dtype == plain.dtype and out.shape == plain.shape,
+          f"{what}: {out.dtype} {tuple(out.shape)} against plain "
+          f"{plain.dtype} {tuple(plain.shape)}")
+    u = ulps(out, plain)
+    diff = (out.float() - plain.float()).abs()
+    near = diff <= SUM_SLACK * mag.float()
+    bad = (u > 1) & ~near
+    top = int(u.max()) if u.numel() else 0
+    if bool(bad.any()):
+        share = float((diff[bad] / mag.float()[bad]).max())
+        raise SmokeFailure(
+            f"{what}: {int(bad.sum())} of {u.numel()} elements past one ulp "
+            f"of plain (largest {top} ulps) and {share:.3g} of their "
+            f"|x * w| sum apart (slack {SUM_SLACK:.3g})")
+    stats["calls"] += 1
+    stats["elems"] += u.numel()
+    stats["differ"] += int((u > 0).sum())
+    stats["max_ulp"] = max(stats["max_ulp"], top)
+    stats["cancel"] += int((u > 1).sum())
+
+
+def conv_mag(x, w, kw):
+    """The f32 sum of |x * w| over each output element's terms."""
+    from repro_torch.kernels.ref import conv2d_shard_ref
+    return conv2d_shard_ref(x.float().abs(), w.float().abs(), **kw)
+
+
+def ulp_text(st) -> str:
+    return (f"{st['calls']} calls, the largest difference {st['max_ulp']} "
+            f"ulps, {st['differ']} of {st['elems']} elements "
+            f"({st['differ'] / max(1, st['elems']) * 100:.4f}%) differ, "
+            f"{st['cancel']} past one ulp, each within {SUM_SLACK:.3g} of "
+            f"its sum of |x * w| (a cancellation; in an f32 output, the "
+            f"two f32 sums' orders)")
+
+
+def phase_kernel_grid_half(dev, ulp):
+    """Phase 2 in bf16 and fp16: every case of :func:`conv_grid_cases` and
+    :func:`fc_grid_cases` with both operands in the dtype, and the
+    ``MIXED_PAIRS`` at each geometry's first pad signature (both layouts),
+    the skinny shapes' and the FC shapes; each call's output in x's dtype,
+    within one ulp of the plain version (:func:`hold_ulp`), one launch a
+    call.  ``ulp`` gathers the counts per kernel and dtype pair."""
+    import torch
+    from repro_torch.kernels.conv2d import conv2d_shard
+    from repro_torch.kernels.ops import matmul_tiled
+    from repro_torch.kernels.ref import conv2d_shard_ref, matmul_ref
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    pairs = [(d, d) for d in ("bfloat16", "float16")] + list(MIXED_PAIRS)
+    t0 = time.perf_counter()
+    for xd, wd in pairs:
+        mixed = xd != wd
+        xt, wt = getattr(torch, xd), getattr(torch, wd)
+        seen = set()
+        st = ulp.setdefault(("conv2d_shard", xd, wd), new_ulp_stats())
+        for desc, x, w, kw in conv_grid_cases(dev, gen, xt, wt):
+            head = desc.split(" pads=")[0]
+            if mixed and (head, x.is_contiguous()) in seen:
+                continue
+            seen.add((head, x.is_contiguous()))
+            n0 = conv2d_shard.launches
+            out = conv2d_shard(x, w, **kw)
+            check(conv2d_shard.launches == n0 + 1,
+                  f"conv2d_shard {xd} x {wd} {desc}: not one launch")
+            hold_ulp(f"conv2d_shard {xd} x {wd} {desc}", out,
+                     conv2d_shard_ref(x, w, **kw), conv_mag(x, w, kw), st)
+        stm = ulp.setdefault(("matmul_tiled", xd, wd), new_ulp_stats())
+        for desc, x, wv in fc_grid_cases(dev, gen, xt, wt):
+            n0 = matmul_tiled.launches
+            out = matmul_tiled(x, wv)
+            check(matmul_tiled.launches == n0 + 1,
+                  f"matmul_tiled {xd} x {wd} {desc}: not one launch")
+            hold_ulp(f"matmul_tiled {xd} x {wd} {desc}", out,
+                     matmul_ref(x, wv), x.float().abs() @ wv.float().abs(),
+                     stm)
+        torch.cuda.synchronize()
+        for kname, s in (("conv2d_shard", st), ("matmul_tiled", stm)):
+            print(f"phase 2: {kname} x {xd}, w {wd} (out {xd}) == plain "
+                  f"within one ulp: {ulp_text(s)}", flush=True)
+    print(f"phase 2: the half grid took {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
 
 def wall_ms(run, reps):
@@ -965,6 +1145,245 @@ def top_shapes(name, conv_calls, mm_calls, card):
             print(f"phase 4: {name}: top {kname} shape: {desc}: {cnt} "
                   f"calls {ms:.4f} ms ({ms / cnt * 1e3:.1f} us a call; "
                   f"library {lib:.4f}) [{card}]", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# The CNN/bert main path in bf16
+# ---------------------------------------------------------------------------
+
+def half_recorders(calls, stats):
+    """Stand-ins for the engine's conv2d_shard and matmul_tiled that call
+    the wrappers (so launches count as before), hold each call made
+    outside a capture at once against its plain version at one ulp
+    (:func:`hold_ulp`, counted in ``stats``) and record its inputs and
+    output in ``calls``."""
+    import torch
+    from repro_torch.kernels.conv2d import conv2d_shard
+    from repro_torch.kernels.ops import matmul_tiled
+    from repro_torch.kernels.ref import conv2d_shard_ref, matmul_ref
+
+    def capturing(t):
+        return t.is_cuda and torch.cuda.is_current_stream_capturing()
+
+    def rec_conv(xs, w, **kwargs):
+        out = conv2d_shard(xs, w, **kwargs)
+        if not capturing(xs):
+            hold_ulp(f"conv2d_shard {tuple(xs.shape)} {tuple(w.shape)} "
+                     f"{kwargs}", out, conv2d_shard_ref(xs, w, **kwargs),
+                     conv_mag(xs, w, kwargs), stats["conv2d_shard"])
+            calls["conv2d_shard"].append((xs, w, kwargs, out))
+        return out
+
+    def rec_mm(xs, w):
+        out = matmul_tiled(xs, w)
+        if not capturing(xs):
+            hold_ulp(f"matmul_tiled {tuple(xs.shape)} {tuple(w.shape)}",
+                     out, matmul_ref(xs, w),
+                     xs.float().abs() @ w.float().abs(),
+                     stats["matmul_tiled"])
+            calls["matmul_tiled"].append((xs, w, out))
+        return out
+    return rec_conv, rec_mm
+
+
+def phase_main_path_bf16(dev, row, ulp, card):
+    """Phase 3's model, plan and seeds with the weights and input cast to
+    bf16 on ``Session(..., ExecConfig(backend="cuda"))``: the eager
+    records, then the segment programs' eager, capturing and replaying
+    runs, bit-equal to each other, launches equal to ``kernel_records``,
+    ``ExecStats`` equal to the f32 run's, every call made outside a
+    capture within one ulp of its plain version; the output within
+    BF16_TOL of scale of phase 3's f32 output, of ``run_reference`` in
+    bf16 and of ``backend="torch"`` in bf16.  Then the mesh executor,
+    overlap on and off: bit-equal across eager, capture and replay,
+    within BF16_TOL of the local bf16 output, launches equal to
+    ``mesh_kernel_records``, ``ExecStats`` equal, no fault.  Then the warm
+    replayed run in bf16 and in f32 in turns with the card's idle share,
+    and each kernel's bf16 calls of one pass (graph replay) beside plain,
+    library and bound.  Returns the timing row."""
+    import torch
+    from repro_torch import ExecConfig, Session, run_reference
+    from repro_torch.kernels.conv2d import conv2d_shard
+    from repro_torch.kernels.ops import matmul_tiled
+    from repro_torch.kernels.ref import conv2d_shard_ref, matmul_ref
+    from repro_torch.runtime import engine, mesh_exec
+
+    name = row["model"]
+    g, ws, x, plan, out32, st32, _, _ = row["mesh_inputs"]
+    t0 = time.perf_counter()
+    bf = torch.bfloat16
+    ws16 = [None if w is None else w.to(bf) for w in ws]
+    x16 = x.to(bf)
+    want = kernel_records(g, plan, NODES)
+    want_counts = {"conv2d_shard": want[0], "matmul_tiled": want[1]}
+    stats = {k: ulp.setdefault((k, "bfloat16", "main path"),
+                               new_ulp_stats())
+             for k in ("conv2d_shard", "matmul_tiled")}
+    calls = {"conv2d_shard": [], "matmul_tiled": []}
+    wrappers = engine.conv2d_shard, engine.matmul_tiled
+    sess_e = Session(g, ws16, plan, NODES,
+                     ExecConfig(backend="cuda", jit_segments=False))
+    sess_k = Session(g, ws16, plan, NODES, ExecConfig(backend="cuda"))
+    engine.clear_segment_cache()
+    engine.conv2d_shard, engine.matmul_tiled = half_recorders(calls, stats)
+    try:
+        zero_counts()
+        out_e, st_e = sess_e.run(x16)
+        torch.cuda.synchronize()
+        check_counts(f"{name} bf16 (eager records)", read_counts(),
+                     want_counts)
+        timed = {k: list(v) for k, v in calls.items()}
+        for run in ("eager", "capture", "replay"):
+            zero_counts()
+            out_k, st_k = sess_k.run(x16)
+            torch.cuda.synchronize()
+            check_counts(f"{name} bf16 ({run} run)", read_counts(),
+                         want_counts)
+            counts = read_counts()
+            check(torch.equal(out_k, out_e),
+                  f"{name} bf16: {run} run of the segment programs differs "
+                  f"from jit_segments=False by {abs_err(out_k, out_e)}")
+            check(st_k == st_e, f"{name} bf16: {run} run ExecStats {st_k} "
+                                f"!= {st_e}")
+    finally:
+        engine.conv2d_shard, engine.matmul_tiled = wrappers
+    out_t, st_t = Session(g, ws16, plan, NODES,
+                          ExecConfig(backend="torch")).run(x16)
+    ref16 = run_reference(g, ws16, x16)
+    torch.cuda.synchronize()
+    check(out_e.dtype == bf and tuple(out_e.shape) == tuple(out32.shape),
+          f"{name} bf16: output {out_e.dtype} {tuple(out_e.shape)}")
+    check(bool(torch.isfinite(out_e).all()), f"{name} bf16: non-finite")
+    errs16 = {"f32 run": rel_err(out_e, out32),
+              "run_reference bf16": rel_err(out_e, ref16),
+              "backend=torch bf16": rel_err(out_e, out_t)}
+    for what, e in errs16.items():
+        check(e < BF16_TOL, f"{name} bf16: {e:.3g} of scale from the {what}")
+    check(st_e == st32, f"{name} bf16: ExecStats {st_e} != the f32 run's "
+                        f"{st32}")
+    check(st_t == st_e, f"{name} bf16: backend=torch ExecStats {st_t}")
+    print(f"phase 4b: {name} bf16: launches conv2d_shard={want[0]} "
+          f"matmul_tiled={want[1]} == plan records on the eager-records, "
+          f"eager, capture and replay runs, the three bit-equal to the "
+          f"eager records; ExecStats equal to the f32 run's; of scale, "
+          + ", ".join(f"{e:.3g} from the {w}" for w, e in errs16.items())
+          + f"; calls held so far: conv2d_shard "
+          f"{ulp_text(stats['conv2d_shard'])}; matmul_tiled "
+          f"{ulp_text(stats['matmul_tiled'])}", flush=True)
+
+    # the mesh executor in bf16
+    for overlap in (True, False):
+        mwant = mesh_kernel_records(g, plan, NODES, overlap)
+        mcounts = {"conv2d_shard": mwant[0], "matmul_tiled": mwant[1]}
+        mesh_exec.clear_mesh_program_cache()
+        sess = Session(g, ws16, plan, NODES, ExecConfig(
+            backend="cuda", executor="mesh", overlap=overlap))
+        outs = []
+        mcalls = {"conv2d_shard": [], "matmul_tiled": []}
+        for run in ("eager", "capture", "replay"):
+            zero_counts()
+            if run == "eager":
+                engine.conv2d_shard, engine.matmul_tiled = \
+                    half_recorders(mcalls, stats)
+            try:
+                o, st = sess.run(x16)
+            finally:
+                engine.conv2d_shard, engine.matmul_tiled = wrappers
+            torch.cuda.synchronize()
+            check_counts(f"{name} bf16 mesh overlap={overlap} ({run} run)",
+                         read_counts(), mcounts)
+            check(st == st32 and st.failure_count == 0,
+                  f"{name} bf16 mesh overlap={overlap}: {run} run "
+                  f"ExecStats {st}, the local f32 run's {st32}")
+            outs.append(o)
+        check(all(torch.equal(o, outs[0]) for o in outs),
+              f"{name} bf16 mesh overlap={overlap}: eager, capture and "
+              f"replay runs differ")
+        e = rel_err(outs[0], out_e)
+        check(e < BF16_TOL, f"{name} bf16 mesh overlap={overlap}: {e:.3g} "
+                            f"of scale from the local bf16 output")
+        same = "bit-equal" if torch.equal(outs[0], out_e) else \
+            "not bit-equal"
+        print(f"phase 4b: {name} bf16 mesh overlap={overlap}: launches "
+              f"{mwant} == mesh_kernel_records on the eager, capture and "
+              f"replay runs, the three bit-equal, {e:.3g} of scale from "
+              f"the local bf16 output ({same}), ExecStats equal, "
+              f"failure_count 0; the eager run's "
+              f"{len(mcalls['conv2d_shard'])} + "
+              f"{len(mcalls['matmul_tiled'])} calls held at one ulp",
+              flush=True)
+        del mcalls, sess
+        mesh_exec.clear_mesh_program_cache()
+
+    # warm walls: the replayed programs in bf16 and in f32, in turns
+    sess32 = Session(g, ws, plan, NODES, ExecConfig(backend="cuda"))
+    for _ in range(2):
+        sess32.run(x)
+    walls = walls_in_turns({"bf16": lambda: sess_k.run(x16),
+                            "f32": lambda: sess32.run(x)}, SESSION_REPS)
+    prof = {"bf16": device_profile(lambda: sess_k.run(x16), 3),
+            "f32": device_profile(lambda: sess32.run(x), 3)}
+    out = {"model": name, "bf16_ms": spread(walls["bf16"]),
+           "f32_ms": spread(walls["f32"]), "launches": counts}
+    (bm_, blo, bhi), (fm, flo, fhi) = out["bf16_ms"], out["f32_ms"]
+    print(f"phase 4b: {name}: warm replayed Session.run bf16 {bm_:.3f} ms "
+          f"(range {blo:.3f}-{bhi:.3f}), f32 {fm:.3f} ms (range "
+          f"{flo:.3f}-{fhi:.3f}); medians of {SESSION_REPS} synchronised "
+          f"runs each, in turns; profiled: bf16 "
+          f"{profile_text(*prof['bf16'][:3], bm_)}; f32 "
+          f"{profile_text(*prof['f32'][:3], fm)} [{card}]", flush=True)
+    engine.clear_segment_cache()
+
+    # the bf16 calls of one pass: kernel, plain, library, bound
+    conv_calls, mm_calls = timed["conv2d_shard"], timed["matmul_tiled"]
+    if conv_calls:
+        nbytes = flops = 0.0
+        for xs, w, kw, o in conv_calls:
+            b, f = conv_work(xs, w, o, kw.get("depthwise", False))
+            nbytes += b
+            flops += f
+        out["conv2d_shard"] = dict(
+            calls=len(conv_calls), bytes=nbytes, flops=flops,
+            ms=graph_ms(lambda: [conv2d_shard(a, b, **c)
+                                 for a, b, c, _ in conv_calls]),
+            plain_ms=graph_ms(lambda: [conv2d_shard_ref(a, b, **c)
+                                       for a, b, c, _ in conv_calls]),
+            library_ms=graph_ms(lambda: [
+                library_conv(a, b, c["pads"], c["stride"],
+                             c.get("depthwise", False))
+                for a, b, c, _ in conv_calls]))
+    if mm_calls:
+        nbytes = flops = 0.0
+        for xs, w, o in mm_calls:
+            b, f = matmul_work(xs, w, o)
+            nbytes += b
+            flops += f
+        out["matmul_tiled"] = dict(
+            calls=len(mm_calls), bytes=nbytes, flops=flops,
+            ms=graph_ms(lambda: [matmul_tiled(a, b)
+                                 for a, b, _ in mm_calls]),
+            plain_ms=graph_ms(lambda: [matmul_ref(a, b)
+                                       for a, b, _ in mm_calls]),
+            library_ms=graph_ms(lambda: [torch.matmul(a, b)
+                                         for a, b, _ in mm_calls]))
+    parts = []
+    for kname in ("conv2d_shard", "matmul_tiled"):
+        r = out.get(kname)
+        if r:
+            bm, by = bound_ms(r["bytes"], r["flops"], PEAK_BF16_FLOPS)
+            f32 = row.get(kname, {})
+            parts.append(
+                f"{kname}: {r['calls']} calls, {r['ms']:.4f} ms (f32 "
+                f"{f32.get('ms', float('nan')):.4f}; plain "
+                f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f}, "
+                f"bound {bm:.4f} by {by}; {r['flops'] / 1e9:.3f} GFLOP, "
+                f"{r['bytes'] / 1e6:.2f} MB)")
+    del timed, calls, conv_calls, mm_calls
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 4b: {name} bf16 kernels a pass (graph replay): "
+          + "; ".join(parts) + f"; the model's phase took "
+          f"{out['seconds']:.1f} s [{card}]", flush=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4782,10 +5201,16 @@ def run(dev) -> dict:
 
     errs = {name: 0.0 for name in kernel_wrappers()}
     phase_kernel_grid(dev, errs)
+    ulp = {}
+    phase_kernel_grid_half(dev, ulp)
 
     totals = {"conv2d_shard": 0, "matmul_tiled": 0}
     rows = [phase_main_path(dev, name, kw, seed, totals, errs, card)
             for seed, (name, kw) in enumerate(MAIN_MODELS)]
+    t4b = time.perf_counter()
+    half = [phase_main_path_bf16(dev, row, ulp, card) for row in rows]
+    print(f"phase 4b: the bf16 main path took "
+          f"{time.perf_counter() - t4b:.1f} s", flush=True)
     phase_decode_grid(dev, errs)
     phase_decode_long(dev, errs, card)
     dec = phase_decode_path(dev, errs, card)
@@ -4844,6 +5269,21 @@ def run(dev) -> dict:
                 [r[kname] for r in rows if kname in r]
             bm, by = bound_ms(sum(r["bytes"] for r in rs),
                               sum(r["flops"] for r in rs))
+        if kname in ("conv2d_shard", "matmul_tiled"):
+            hs = [h[kname] for h in half if kname in h]
+            bm16, by16 = bound_ms(sum(r["bytes"] for r in hs),
+                                  sum(r["flops"] for r in hs),
+                                  PEAK_BF16_FLOPS)
+            held = [v for (k, xd, _), v in ulp.items()
+                    if k == kname and xd == "bfloat16"]
+            lm.setdefault(kname, {}).update(
+                bf16_ms=sum(r["ms"] for r in hs),
+                bf16_launches=sum(h["launches"][kname] for h in half),
+                bf16_plain_ms=sum(r["plain_ms"] for r in hs),
+                bf16_library_ms=sum(r["library_ms"] for r in hs),
+                bf16_bound_ms=bm16, bf16_bound_by=by16,
+                bf16_max_ulp=max(v["max_ulp"] for v in held),
+                bf16_past_one_ulp=sum(v["cancel"] for v in held))
         kernels.append({
             "name": kname, "route": "cuda", "source": source,
             "replaces": replaces, "launches": totals[kname],
@@ -4871,7 +5311,11 @@ def run(dev) -> dict:
           f"{TRAIN_SEQ} tokens (its calls with lse, graph replay) beside "
           "the plain flash backward and SDPA's forward with lse; "
           "dryrun_launches: phase 16b's live steps under the op counter; "
-          "scripts_launches: phase 17's four examples",
+          "scripts_launches: phase 17's four examples; bf16_* on "
+          "conv2d_shard and matmul_tiled: phase 4b's bf16 pass of the "
+          "three models (graph replay; bound at 2-byte operands and the "
+          "bf16 tensor-core peak), bf16_max_ulp and bf16_past_one_ulp "
+          "over every bf16 call of phases 2 and 4b",
           flush=True)
     return {"kernels": kernels}
 

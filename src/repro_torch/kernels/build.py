@@ -27,25 +27,35 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 #: the toolkit's conventional location, used when ``nvcc`` is not on PATH
 CUDA_NVCC = Path("/usr/local/cuda/bin/nvcc")
 
+#: ``--split-compile=0`` runs the device compiler's passes on as many
+#: threads as the host has cores: the shard kernels' sources hold ~130
+#: template instances each (every tile config, load route and dtype
+#: pair), and ``chip_smoke.py`` builds them inside its time limit
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+              "--split-compile=0")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 
+#: suffixes of the shard kernels' entry points by (x, w) dtype; the output
+#: is in x's dtype
+GEMM_SUFFIXES = ("f32", "bf16", "f16", "bf16_f32", "f16_f32")
+
 #: C entry points of each source: name -> argtypes (pointers and the
 #: stream as c_void_p, so 64-bit addresses are never truncated)
 SIGNATURES: Dict[str, Dict[str, List]] = {
     "conv2d_shard": {
-        "conv2d_shard_dense_f32": [_P] * 4 + [_I] * 10 + [_L] * 6
-        + [_I] * 5 + [_P],
-        "conv2d_shard_dw_f32": [_P, _P, _P] + [_I] * 9 + [_L] * 5 + [_P],
+        **{f"conv2d_shard_dense_{s}": [_P] * 4 + [_I] * 10 + [_L] * 6
+           + [_I] * 5 + [_P] for s in GEMM_SUFFIXES},
+        **{f"conv2d_shard_dw_{s}": [_P, _P, _P] + [_I] * 9 + [_L] * 5 + [_P]
+           for s in GEMM_SUFFIXES},
     },
     "matmul_tiled": {
-        "matmul_tiled_f32": [_P] * 4 + [_I] * 3 + [_L] * 3 + [_I] * 5
-        + [_P],
+        f"matmul_tiled_{s}": [_P] * 4 + [_I] * 3 + [_L] * 3 + [_I] * 5
+        + [_P] for s in GEMM_SUFFIXES
     },
     "flash_decode_paged": {
         "flash_decode_paged_f32": [_P] * 5 + [_I] * 6 + [_P] + [_I] * 5

@@ -22,10 +22,20 @@ tile loop of ``csrc/gemm_f32.cuh``, whose tile, K split and load widths
 the kernel's reduction pass); depthwise shards run their own kernel.
 ``conv2d_shard.launches`` counts the calls that ran the kernel, one per
 call.
+
+Dtypes (:func:`kernel_operands`), as the reference's kernel, which casts
+both operands to f32 and writes ``x.dtype``: ``x`` in f32, bf16 or fp16,
+``w`` in any of the three.  Each element is converted to f32 when the
+kernel reads it, sums are f32, and the output is written once in
+``x.dtype``, rounded to nearest even.  The kernel has an entry point for
+``w`` in ``x``'s dtype and for a 2-byte ``x`` with f32 ``w``; any other
+pair (an f32 ``x`` with half weights, bf16 with fp16) reaches it through
+an exact upcast of the weight to f32 in the wrapper.  Other dtypes (f64)
+are a ``TypeError`` on the card.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -50,10 +60,12 @@ def shard_out_shape(in_h: int, in_w: int, k: int, stride: int,
     return out_h, out_w
 
 
-def on_cpu(*tensors: torch.Tensor, dtypes=(torch.float32,)) -> bool:
+def on_cpu(*tensors: torch.Tensor, dtypes=(torch.float32,),
+           one_dtype: bool = True) -> bool:
     """True when every operand lies on the CPU (plain-version dispatch);
-    False when they all lie on one CUDA device with one dtype among
-    ``dtypes``; raises ``TypeError`` for any other placement or dtype."""
+    False when they all lie on one CUDA device, each in a dtype among
+    ``dtypes`` (all in one of them unless ``one_dtype`` is False); raises
+    ``TypeError`` for any other placement or dtype."""
     devs = {t.device for t in tensors}
     if all(d.type == "cpu" for d in devs):
         return True
@@ -61,10 +73,34 @@ def on_cpu(*tensors: torch.Tensor, dtypes=(torch.float32,)) -> bool:
         raise TypeError(f"kernel operands must all lie on the CPU or all on "
                         f"one CUDA device, got {sorted(map(str, devs))}")
     kinds = {t.dtype for t in tensors}
-    if len(kinds) != 1 or not kinds <= set(dtypes):
-        raise TypeError(f"this CUDA kernel takes one dtype among {dtypes}, "
-                        f"got {sorted(map(str, kinds))}")
+    if (one_dtype and len(kinds) != 1) or not kinds <= set(dtypes):
+        raise TypeError(f"this CUDA kernel takes "
+                        f"{'one dtype' if one_dtype else 'dtypes'} among "
+                        f"{dtypes}, got {sorted(map(str, kinds))}")
     return False
+
+
+#: the dtypes the two shard kernels take on the card, and the suffix of
+#: each one's entry points
+GEMM_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16",
+               torch.float16: "f16"}
+
+
+def kernel_operands(x: torch.Tensor, w: torch.Tensor
+                    ) -> Optional[Tuple[torch.Tensor, str]]:
+    """None when both operands lie on the CPU (plain-version dispatch).
+    On the card: the weight as the kernel reads it and the suffix of the
+    entry point for the pair, ``x``'s (``f32``, ``bf16``, ``f16``) when
+    ``w`` is in ``x``'s dtype, ``bf16_f32``/``f16_f32`` for f32 weights;
+    a weight in another half dtype, or in a half dtype under an f32 ``x``,
+    is upcast to f32 first (exact).  Raises ``TypeError`` for another
+    dtype or placement."""
+    if on_cpu(x, w, dtypes=tuple(GEMM_DTYPES), one_dtype=False):
+        return None
+    if w.dtype not in (x.dtype, torch.float32):
+        w = w.float()
+    suffix = GEMM_DTYPES[x.dtype]
+    return w, suffix if w.dtype == x.dtype else f"{suffix}_f32"
 
 
 def conv2d_shard(x: torch.Tensor, w: torch.Tensor, *,
@@ -96,27 +132,28 @@ def conv2d_shard(x: torch.Tensor, w: torch.Tensor, *,
                          f"input channels {cin}")
     if min(pads) < 0:
         raise ValueError(f"negative pads {pads}")
-    if on_cpu(x, w):
+    operands = kernel_operands(x, w)
+    if operands is None:
         return conv2d_shard_ref(x, w, pads=pads, stride=stride,
                                 depthwise=depthwise)
+    w, suffix = operands
     if x.stride(2) != 1:
         raise RuntimeError(f"conv2d_shard needs channel stride 1, got "
                            f"strides {x.stride()}")
-    out = torch.empty((out_h, out_w, cout), dtype=torch.float32,
-                      device=x.device)
+    out = torch.empty((out_h, out_w, cout), dtype=x.dtype, device=x.device)
     lib = build.load("conv2d_shard")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     pt, _, pl_, _ = pads
     sxh, sxw, _ = x.stride()
     swh, sww, swi, swo = w.stride()
     if depthwise:
-        rc = lib.conv2d_shard_dw_f32(
+        rc = getattr(lib, f"conv2d_shard_dw_{suffix}")(
             x.data_ptr(), w.data_ptr(), out.data_ptr(), Hl, Wl, cin, K,
             stride, pt, pl_, out_h, out_w, sxh, sxw, swh, sww, swo, stream)
     else:
         ws, ws_ptr, tail = gemm.launch_args(x, w, out_h * out_w, cout,
                                             K * K * cin, cin)
-        rc = lib.conv2d_shard_dense_f32(
+        rc = getattr(lib, f"conv2d_shard_dense_{suffix}")(
             x.data_ptr(), w.data_ptr(), out.data_ptr(), ws_ptr, Hl, Wl, cin,
             cout, K, stride, pt, pl_, out_h, out_w, sxh, sxw, swh, sww, swi,
             swo, *tail, stream)

@@ -1,5 +1,5 @@
 // conv2d_shard for Hopper (sm_90a): one conv shard over the NT-mode local
-// slice, f32 in, f32 accumulation, f32 out.
+// slice, f32 accumulation, the output in the input's type.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/conv2d.py::conv2d_shard
 // (body _shard_kernel).  Like it, the kernel consumes the node's raw local
@@ -34,11 +34,20 @@
 // under-filled, the K loop is split into chunks whose partial tiles a
 // second pass sums in a fixed order (deterministic, no atomics).  The
 // load width is chosen per call from alignment: 16-byte copies along the
-// channels where Cin % 4 == 0 and the view is aligned, 4-byte otherwise.
+// channels (4 in f32, 8 in a 2-byte type) where Cin is a multiple of that
+// and the view is aligned, one element a copy otherwise.
 //
 // Depthwise layers do 2*K*K flops per output element and are bound by
 // bytes; their kernel gives each thread one (ho, wo, c) output with c
 // fastest, so every tap is a coalesced load (neighbouring taps hit L1).
+//
+// Types: like the TPU kernel, which casts both operands to f32 and writes
+// x.dtype, each entry point converts every element to f32 when it reads
+// it, accumulates in f32 and rounds the output once to x's type (round to
+// nearest even).  Entry points by (x, w) type, the output in x's: _f32
+// (f32, f32), _bf16 and _f16 (both operands in the 2-byte type), _bf16_f32
+// and _f16_f32 (a 2-byte x with f32 weights).  The wrapper reaches every
+// other pair the TPU kernel takes by an exact upcast of the weight to f32.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (see repro_torch/kernels/build.py).  Plain C
@@ -49,13 +58,17 @@
 
 namespace {
 
+using gemm_f32::from_f32;
+using gemm_f32::to_f32;
+
 constexpr int DW_THREADS = 256;
 
+template <typename TX, typename TW, typename TO>
 __global__ void conv_dw_kernel(
-    const float* __restrict__ x, const float* __restrict__ w,
-    float* __restrict__ out, int Hl, int Wl, int C, int K, int S, int pt,
-    int pl, int Ho, int Wo, long long sxh, long long sxw, long long swh,
-    long long sww, long long swc) {
+    const TX* __restrict__ x, const TW* __restrict__ w, TO* __restrict__ out,
+    int Hl, int Wl, int C, int K, int S, int pt, int pl, int Ho, int Wo,
+    long long sxh, long long sxw, long long swh, long long sww,
+    long long swc) {
   const long long idx = (long long)blockIdx.x * DW_THREADS + threadIdx.x;
   const long long total = (long long)Ho * Wo * C;
   if (idx >= total) return;
@@ -72,25 +85,23 @@ __global__ void conv_dw_kernel(
     for (int kw = 0; kw < K; ++kw) {
       const int wi = w0 + kw;
       if (wi < 0 || wi >= Wl) continue;  // zero pad column
-      acc = fmaf(x[hi * sxh + wi * sxw + c], w[kh * swh + kw * sww + c * swc],
-                 acc);
+      acc = fmaf(to_f32(x[hi * sxh + wi * sxw + c]),
+                 to_f32(w[kh * swh + kw * sww + c * swc]), acc);
     }
   }
-  out[idx] = acc;
+  out[idx] = from_f32<TO>(acc);
 }
 
-}  // namespace
-
-extern "C" int conv2d_shard_dense_f32(
-    const float* x, const float* w, float* out, float* ws, int Hl, int Wl,
-    int Cin, int Cout, int K, int S, int pt, int pl, int Ho, int Wo,
-    long long sxh, long long sxw, long long swh, long long sww,
-    long long swi, long long swo, int cfg, int splits, int kchunk, int avec,
-    int bvec, void* stream) {
-  gemm_f32::Problem p;
-  p.x = x;
-  p.w = w;
-  p.out = out;
+template <typename TX, typename TW>
+int dense(const void* x, const void* w, void* out, float* ws, int Hl, int Wl,
+          int Cin, int Cout, int K, int S, int pt, int pl, int Ho, int Wo,
+          long long sxh, long long sxw, long long swh, long long sww,
+          long long swi, long long swo, int cfg, int splits, int kchunk,
+          int avec, int bvec, void* stream) {
+  gemm_f32::Problem<TX, TW, TX> p;
+  p.x = static_cast<const TX*>(x);
+  p.w = static_cast<const TW*>(w);
+  p.out = static_cast<TX*>(out);
   p.ws = ws;
   p.M = Ho * Wo;
   p.N = Cout;
@@ -116,13 +127,68 @@ extern "C" int conv2d_shard_dense_f32(
   return rc ? rc : (int)cudaGetLastError();
 }
 
-extern "C" int conv2d_shard_dw_f32(
-    const float* x, const float* w, float* out, int Hl, int Wl, int C, int K,
-    int S, int pt, int pl, int Ho, int Wo, long long sxh, long long sxw,
-    long long swh, long long sww, long long swc, void* stream) {
+template <typename TX, typename TW>
+int depthwise(const void* x, const void* w, void* out, int Hl, int Wl, int C,
+              int K, int S, int pt, int pl, int Ho, int Wo, long long sxh,
+              long long sxw, long long swh, long long sww, long long swc,
+              void* stream) {
   const long long total = (long long)Ho * Wo * C;
   dim3 grid((unsigned)((total + DW_THREADS - 1) / DW_THREADS));
-  conv_dw_kernel<<<grid, DW_THREADS, 0, (cudaStream_t)stream>>>(
-      x, w, out, Hl, Wl, C, K, S, pt, pl, Ho, Wo, sxh, sxw, swh, sww, swc);
+  conv_dw_kernel<TX, TW, TX><<<grid, DW_THREADS, 0, (cudaStream_t)stream>>>(
+      static_cast<const TX*>(x), static_cast<const TW*>(w),
+      static_cast<TX*>(out), Hl, Wl, C, K, S, pt, pl, Ho, Wo, sxh, sxw, swh,
+      sww, swc);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// The entry points: conv2d_shard_dense_<suffix> and conv2d_shard_dw_<suffix>
+// for x of type TX and w of type TW, the output in TX.
+#define DENSE_PARAMS                                                         \
+  const void *x, const void *w, void *out, float *ws, int Hl, int Wl,        \
+      int Cin, int Cout, int K, int S, int pt, int pl, int Ho, int Wo,       \
+      long long sxh, long long sxw, long long swh, long long sww,            \
+      long long swi, long long swo, int cfg, int splits, int kchunk,         \
+      int avec, int bvec, void *stream
+#define DENSE_ARGS                                                           \
+  x, w, out, ws, Hl, Wl, Cin, Cout, K, S, pt, pl, Ho, Wo, sxh, sxw, swh,     \
+      sww, swi, swo, cfg, splits, kchunk, avec, bvec, stream
+#define DW_PARAMS                                                            \
+  const void *x, const void *w, void *out, int Hl, int Wl, int C, int K,     \
+      int S, int pt, int pl, int Ho, int Wo, long long sxh, long long sxw,   \
+      long long swh, long long sww, long long swc, void *stream
+#define DW_ARGS                                                              \
+  x, w, out, Hl, Wl, C, K, S, pt, pl, Ho, Wo, sxh, sxw, swh, sww, swc, stream
+
+extern "C" int conv2d_shard_dense_f32(DENSE_PARAMS) {
+  return dense<float, float>(DENSE_ARGS);
+}
+extern "C" int conv2d_shard_dense_bf16(DENSE_PARAMS) {
+  return dense<__nv_bfloat16, __nv_bfloat16>(DENSE_ARGS);
+}
+extern "C" int conv2d_shard_dense_f16(DENSE_PARAMS) {
+  return dense<__half, __half>(DENSE_ARGS);
+}
+extern "C" int conv2d_shard_dense_bf16_f32(DENSE_PARAMS) {
+  return dense<__nv_bfloat16, float>(DENSE_ARGS);
+}
+extern "C" int conv2d_shard_dense_f16_f32(DENSE_PARAMS) {
+  return dense<__half, float>(DENSE_ARGS);
+}
+
+extern "C" int conv2d_shard_dw_f32(DW_PARAMS) {
+  return depthwise<float, float>(DW_ARGS);
+}
+extern "C" int conv2d_shard_dw_bf16(DW_PARAMS) {
+  return depthwise<__nv_bfloat16, __nv_bfloat16>(DW_ARGS);
+}
+extern "C" int conv2d_shard_dw_f16(DW_PARAMS) {
+  return depthwise<__half, __half>(DW_ARGS);
+}
+extern "C" int conv2d_shard_dw_bf16_f32(DW_PARAMS) {
+  return depthwise<__nv_bfloat16, float>(DW_ARGS);
+}
+extern "C" int conv2d_shard_dw_f16_f32(DW_PARAMS) {
+  return depthwise<__half, float>(DW_ARGS);
 }

@@ -1,5 +1,6 @@
-// Shared f32 implicit-GEMM tile loop for Hopper (sm_90a), included by
-// conv2d_shard.cu and matmul_tiled.cu.
+// Shared implicit-GEMM tile loop for Hopper (sm_90a), included by
+// conv2d_shard.cu and matmul_tiled.cu.  (The file keeps its first name:
+// the loop started as f32 only.)
 //
 // out[M, N] = A[M, Kdim] @ B[Kdim, N], where A is the implicit im2col matrix
 // of a conv shard and B the weight flattened over (kh, kw, ci):
@@ -15,18 +16,26 @@
 // (channel stride 1), the weight through all four strides, so halo views
 // and OutC channel views are never copied.
 //
+// Element types: the loop is a template on the types of x (TX), w (TW) and
+// out (TO), each float, __nv_bfloat16 or __half.  Slabs sit in shared
+// memory in their own types; every element is converted to f32 when a
+// thread reads it into registers, the products are f32 FMAs on CUDA cores
+// (no tensor cores, no TF32), the K groups' sum and the split-K workspace
+// are f32, and the output is rounded once to TO (round to nearest even)
+// where it is written: by the tile's epilogue with one split, by
+// splitk_reduce after its f32 sum otherwise.
+//
 // The loop: a block owns a BM x 64 output tile and one K chunk of
 // `kchunk` (a multiple of BK).  BK-deep slabs of A and B stream through a
-// 3-stage cp.async ring in shared memory: while the block computes on
-// slab t, slabs t+1 and t+2 are in flight.  A pad tap or a ragged edge is
-// a cp.async with source size 0, which fills the shared-memory tile with
+// 3-stage ring in shared memory: while the block computes on slab t,
+// slabs t+1 and t+2 are in flight.  A pad tap or a ragged edge is a
+// cp.async with source size 0, which fills the shared-memory tile with
 // zeros without touching device memory.  Each thread keeps a TM x 4
-// register tile, so one float4 of B read from shared memory feeds 4*TM
+// register tile, so four B values read from shared memory feed 4*TM
 // FMAs; KG groups of 128 threads split each slab's depth and add their
 // tiles in shared memory at the end, in group order.  A 1x1 conv or FC
 // shard (K == 1) takes a one-tap path: each row's x offset is set once
 // per block and k is the channel, so the loaders do no tap arithmetic.
-// f32 in, f32 FMA on CUDA cores, f32 out: no tensor cores, no TF32.
 //
 // Split-K: with splits > 1 the blocks of chunk s write their partial tile
 // to ws[s, M, N] (an f32 workspace the caller allocates) and a second
@@ -35,26 +44,32 @@
 // as programmatic dependents (Hopper), so each one's launch overlaps the
 // tail of the kernel before it.
 //
-// Routes, chosen by the caller from alignment: AVEC loads A as 16-byte
-// cp.async.cg (4 channels; needs Cin % 4 == 0, a 16-byte aligned x and row
-// and column strides that are multiples of 4), else 4-byte cp.async.ca;
-// BVEC loads B as 16-byte copies along n (needs unit output-channel
-// stride, a 16-byte aligned w and the other strides multiples of 4), else
-// 4-byte copies.  The launcher re-checks each precondition and returns
-// cudaErrorInvalidValue rather than launch a misaligned copy.
+// Routes, chosen by the caller from alignment, per operand: AVEC loads A
+// as 16-byte cp.async.cg (16 / sizeof(TX) channels: 4 in f32, 8 in a
+// 2-byte type; needs Cin a multiple of that, a 16-byte aligned x and row
+// and column strides that are multiples of it), else one element a copy
+// (a 4-byte cp.async.ca in f32, a plain load in a 2-byte type, which
+// cp.async cannot copy); BVEC loads B as 16-byte copies along n (needs
+// unit output-channel stride, a 16-byte aligned w and the other strides
+// multiples of 16 / sizeof(TW)), else one element a copy.  The launcher
+// re-checks each precondition and returns cudaErrorInvalidValue rather
+// than launch a misaligned copy.
 
 #pragma once
 
 #include <climits>
 #include <cstdint>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace gemm_f32 {
 
+template <typename TX, typename TW, typename TO>
 struct Problem {
-  const float* x;
-  const float* w;
-  float* out;
+  const TX* x;
+  const TW* w;
+  TO* out;
   float* ws;  // [splits, M, N] when splits > 1
   int M, N, Kdim;
   int Hl, Wl, Cin, K, S, pt, pl, Wo;
@@ -74,18 +89,104 @@ constexpr int kGroup = 128;
 constexpr int kTX = 16;
 constexpr int kBN = kTX * 4;
 
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem,
+// elements of type T in one 16-byte copy
+template <typename T>
+constexpr int kVec = 16 / (int)sizeof(T);
+
+// ---- element conversions: f32 on read, one rounding on write ----
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float v) {
+  return __float2half_rn(v);
+}
+
+__device__ __forceinline__ unsigned bits16(__nv_bfloat16 v) {
+  return __bfloat16_as_ushort(v);
+}
+__device__ __forceinline__ unsigned bits16(__half v) {
+  return __half_as_ushort(v);
+}
+
+// Four consecutive elements in shared memory (8- or 16-byte aligned) as
+// f32.
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  // a bf16 is the high half of its f32: the conversion is a shift
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+__device__ __forceinline__ float4 load4(const __half* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(
+      __half2float(__ushort_as_half((unsigned short)(u.x & 0xffffu))),
+      __half2float(__ushort_as_half((unsigned short)(u.x >> 16))),
+      __half2float(__ushort_as_half((unsigned short)(u.y & 0xffffu))),
+      __half2float(__ushort_as_half((unsigned short)(u.y >> 16))));
+}
+
+// Four consecutive outputs, each rounded once to T (16- or 8-byte
+// aligned).
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+template <typename T>
+__device__ __forceinline__ void store4(T* p, float4 v) {
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(bits16(from_f32<T>(v.x)) | bits16(from_f32<T>(v.y)) << 16,
+                 bits16(from_f32<T>(v.z)) | bits16(from_f32<T>(v.w)) << 16);
+}
+
+// ---- copies from device to shared memory ----
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                                            int src_bytes) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
                "l"(gmem), "r"(src_bytes));
 }
 
-__device__ __forceinline__ void cp_async4(float* smem, const float* gmem,
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
                                           int src_bytes) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
                "l"(gmem), "r"(src_bytes));
+}
+
+// One element, or a zero where !ok: a 4-byte cp.async for f32; a plain
+// load and store for a 2-byte type (cp.async copies 4, 8 or 16 bytes).
+// A plain store is visible to the block after the next __syncthreads,
+// as the ring's cp.async copies are after their wait.
+template <typename T>
+__device__ __forceinline__ void copy1(T* smem, const T* gmem, bool ok) {
+  if constexpr (sizeof(T) == 4) {
+    cp_async4(smem, gmem, ok ? 4 : 0);
+  } else {
+    static_assert(sizeof(T) == 2, "f32 or a 2-byte type");
+    *reinterpret_cast<unsigned short*>(smem) =
+        ok ? *reinterpret_cast<const unsigned short*>(gmem)
+           : (unsigned short)0;
+  }
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -105,8 +206,9 @@ struct Tap {
   int kh, kw, ci;
 };
 
-__device__ __forceinline__ Tap tap_of(const Problem& p, int tap0, int kh0,
-                                      int kw0, int ci0, int d) {
+template <typename P>
+__device__ __forceinline__ Tap tap_of(const P& p, int tap0, int kh0, int kw0,
+                                      int ci0, int d) {
   int ci = ci0 + d;
   if (ci < p.Cin) return {kh0, kw0, ci};
   const int q = ci / p.Cin;
@@ -116,16 +218,22 @@ __device__ __forceinline__ Tap tap_of(const Problem& p, int tap0, int kh0,
   return {kh, tap - kh * p.K, ci};
 }
 
-// Issues the cp.async copies of one slab, flattened K index k0 .. k0+BK-1
-// (only those below ke are live), into the stage buffers as / bs.  The
-// slab's first tap is decomposed once; a row inside it costs one add.
-template <int BM, int BN, int BK, int THREADS, bool K1, bool AVEC, bool BVEC>
-__device__ __forceinline__ void load_slab(const Problem& p, const int* rowh,
-                                          const int* roww,
-                                          const long long* rowoff, float* as,
-                                          float* bs, int k0, int ke, int n0,
+// Row stride of the A slab in shared memory, in elements: BK plus one
+// 16-byte copy, so every row starts 16-byte aligned.
+template <int BK, typename TX>
+constexpr int kAStride = BK + kVec<TX>;
+
+// Issues the copies of one slab, flattened K index k0 .. k0+BK-1 (only
+// those below ke are live), into the stage buffers as / bs.  The slab's
+// first tap is decomposed once; a row inside it costs one add.
+template <int BM, int BN, int BK, int THREADS, bool K1, bool AVEC, bool BVEC,
+          typename TX, typename TW, typename TO>
+__device__ __forceinline__ void load_slab(const Problem<TX, TW, TO>& p,
+                                          const int* rowh, const int* roww,
+                                          const long long* rowoff, TX* as,
+                                          TW* bs, int k0, int ke, int n0,
                                           int tid) {
-  constexpr int AST = BK + 4;
+  constexpr int AST = kAStride<BK, TX>;
   // a 1x1 conv (or FC) has one tap: k is the channel, no decomposition
   const int tap0 = K1 ? 0 : k0 / p.Cin;
   const int ci0 = K1 ? k0 : k0 - tap0 * p.Cin;
@@ -133,12 +241,12 @@ __device__ __forceinline__ void load_slab(const Problem& p, const int* rowh,
   const int kw0 = K1 ? 0 : tap0 - kh0 * p.K;
   // A: BM rows x BK flattened (kh, kw, ci); consecutive threads take
   // consecutive channels of one row
-  constexpr int AW = AVEC ? 4 : 1;  // floats per copy
-  constexpr int ACPR = BK / AW;     // copies per row
+  constexpr int AW = AVEC ? kVec<TX> : 1;  // elements per copy
+  constexpr int ACPR = BK / AW;            // copies per row
   for (int c = tid; c < BM * ACPR; c += THREADS) {
     const int r = c / ACPR, d = (c % ACPR) * AW;
     bool ok;
-    const float* src;
+    const TX* src;
     if constexpr (K1) {
       ok = rowoff[r] >= 0 && k0 + d < ke;
       src = ok ? p.x + rowoff[r] + k0 + d : p.x;
@@ -152,17 +260,17 @@ __device__ __forceinline__ void load_slab(const Problem& p, const int* rowh,
     if constexpr (AVEC)
       cp_async16(as + r * AST + d, src, ok ? 16 : 0);
     else
-      cp_async4(as + r * AST + d, src, ok ? 4 : 0);
+      copy1(as + r * AST + d, src, ok);
   }
   // B: BK rows x BN output channels; consecutive threads take consecutive
   // channels of one row
-  const float* w0 = p.w + kh0 * p.swh + kw0 * p.sww + ci0 * p.swi;
-  constexpr int BW = BVEC ? 4 : 1;
+  const TW* w0 = p.w + kh0 * p.swh + kw0 * p.sww + ci0 * p.swi;
+  constexpr int BW = BVEC ? kVec<TW> : 1;
   constexpr int BCPR = BN / BW;
   for (int c = tid; c < BK * BCPR; c += THREADS) {
     const int d = c / BCPR, n = (c % BCPR) * BW;
     const int gn = n0 + n;
-    const float* row;
+    const TW* row;
     if (K1 || ci0 + d < p.Cin) {
       row = w0 + d * p.swi;
     } else {
@@ -170,11 +278,12 @@ __device__ __forceinline__ void load_slab(const Problem& p, const int* rowh,
       row = p.w + tp.kh * p.swh + tp.kw * p.sww + tp.ci * p.swi;
     }
     if constexpr (BVEC) {
-      const int live = k0 + d < ke ? min(4, max(0, p.N - gn)) : 0;
-      cp_async16(bs + d * BN + n, live ? row + gn : p.w, 4 * live);
+      const int live = k0 + d < ke ? min(BW, max(0, p.N - gn)) : 0;
+      cp_async16(bs + d * BN + n, live ? row + gn : p.w,
+                 live * (int)sizeof(TW));
     } else {
       const bool ok = k0 + d < ke && gn < p.N;
-      cp_async4(bs + d * BN + n, ok ? row + gn * p.swo : p.w, ok ? 4 : 0);
+      copy1(bs + d * BN + n, ok ? row + gn * p.swo : p.w, ok);
     }
   }
 }
@@ -193,23 +302,29 @@ __device__ __forceinline__ void release_dependents() {
 }
 
 template <int BM, int BK, int TM, int KG, int STAGES, bool K1, bool AVEC,
-          bool BVEC>
+          bool BVEC, typename TX, typename TW, typename TO>
 __global__ void __launch_bounds__(kGroup* KG)
-    gemm_kernel(const __grid_constant__ Problem p) {
+    gemm_kernel(const __grid_constant__ Problem<TX, TW, TO> p) {
   constexpr int THREADS = kGroup * KG;
   constexpr int BN = kBN;
   constexpr int KS = BK / KG;  // slab depth of one group
   static_assert(kTX * (BM / TM) == kGroup, "tile does not match threads");
-  static_assert(KS % 4 == 0, "a group takes whole float4 steps");
-  constexpr int AST = BK + 4;  // A row stride in floats (16-byte rows)
-  // the stage ring, or at the end the KG-1 parked tiles of the group sum
-  constexpr int RING = STAGES * (BM * AST + BK * BN);
-  constexpr int PARK = (KG - 1) * BM * BN;
-  __shared__ __align__(16) float smem[RING > PARK ? RING : PARK];
+  static_assert(KS % 4 == 0, "a group takes whole 4-element steps");
+  constexpr int AST = kAStride<BK, TX>;  // A row stride in elements
+  constexpr int A_BYTES = BM * AST * (int)sizeof(TX);
+  constexpr int B_BYTES = BK * BN * (int)sizeof(TW);
+  static_assert(A_BYTES % 16 == 0 && B_BYTES % 16 == 0,
+                "every stage buffer starts 16-byte aligned");
+  // the stage ring, or at the end the KG-1 parked f32 tiles of the group
+  // sum
+  constexpr int RING = STAGES * (A_BYTES + B_BYTES);
+  constexpr int PARK = (KG - 1) * BM * BN * (int)sizeof(float);
+  __shared__ __align__(16) unsigned char smem[RING > PARK ? RING : PARK];
   __shared__ int rowh[BM], roww[BM];
   __shared__ long long rowoff[BM];  // K1: x offset of the row's one tap
-  float* const As = smem;                      // [STAGES][BM * AST]
-  float* const Bs = smem + STAGES * BM * AST;  // [STAGES][BK * BN]
+  TX* const As = reinterpret_cast<TX*>(smem);  // [STAGES][BM * AST]
+  TW* const Bs =
+      reinterpret_cast<TW*>(smem + STAGES * A_BYTES);  // [STAGES][BK * BN]
 
   const int tid = threadIdx.x;
   const int kg = tid / kGroup;
@@ -265,17 +380,16 @@ __global__ void __launch_bounds__(kGroup* KG)
           Bs + (nxt % STAGES) * BK * BN, kb + nxt * BK, ke, n0, tid);
     cp_async_commit();
 
-    const float* as = As + (t % STAGES) * BM * AST + ty * TM * AST + kg * KS;
-    const float* bs = Bs + (t % STAGES) * BK * BN + kg * KS * BN + tx * 4;
+    const TX* as = As + (t % STAGES) * BM * AST + ty * TM * AST + kg * KS;
+    const TW* bs = Bs + (t % STAGES) * BK * BN + kg * KS * BN + tx * 4;
 #pragma unroll
     for (int k = 0; k < KS; k += 4) {
       float4 a[TM];
 #pragma unroll
-      for (int i = 0; i < TM; ++i)
-        a[i] = *reinterpret_cast<const float4*>(as + i * AST + k);
+      for (int i = 0; i < TM; ++i) a[i] = load4(as + i * AST + k);
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        const float4 b = *reinterpret_cast<const float4*>(bs + (k + q) * BN);
+        const float4 b = load4(bs + (k + q) * BN);
 #pragma unroll
         for (int i = 0; i < TM; ++i) {
           const float av = q == 0 ? a[i].x
@@ -295,9 +409,10 @@ __global__ void __launch_bounds__(kGroup* KG)
   if constexpr (KG > 1) {
     // groups 1 .. KG-1 park their tiles in the (now idle) ring; group 0
     // adds them in group order
+    float* const parked = reinterpret_cast<float*>(smem);
     __syncthreads();
     if (kg > 0) {
-      float* park = smem + (kg - 1) * BM * BN + ty * TM * BN + tx * 4;
+      float* park = parked + (kg - 1) * BM * BN + ty * TM * BN + tx * 4;
 #pragma unroll
       for (int i = 0; i < TM; ++i)
         *reinterpret_cast<float4*>(park + i * BN) =
@@ -307,7 +422,7 @@ __global__ void __launch_bounds__(kGroup* KG)
     if (kg > 0) return;
 #pragma unroll
     for (int g = 0; g < KG - 1; ++g) {
-      const float* park = smem + g * BM * BN + ty * TM * BN + tx * 4;
+      const float* park = parked + g * BM * BN + ty * TM * BN + tx * 4;
 #pragma unroll
       for (int i = 0; i < TM; ++i) {
         const float4 v = *reinterpret_cast<const float4*>(park + i * BN);
@@ -319,12 +434,10 @@ __global__ void __launch_bounds__(kGroup* KG)
     }
   }
 
-  float* dst = p.out;
-  long long ld = p.ldo;
-  if (p.splits > 1) {
-    dst = p.ws + (long long)blockIdx.z * p.M * p.N;
-    ld = p.N;
-  }
+  // one split: the output, rounded once to TO; several: this chunk's f32
+  // partial tile
+  const bool partial = p.splits > 1;
+  float* const part = p.ws + (long long)blockIdx.z * p.M * p.N;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int m = m0 + ty * TM + i;
@@ -332,18 +445,22 @@ __global__ void __launch_bounds__(kGroup* KG)
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int n = n0 + tx * 4 + j;
-      if (n < p.N) dst[m * ld + n] = acc[i][j];
+      if (n >= p.N) continue;
+      if (partial)
+        part[(long long)m * p.N + n] = acc[i][j];
+      else
+        p.out[m * p.ldo + n] = from_f32<TO>(acc[i][j]);
     }
   }
 }
 
-// out[m, n] = sum over s = 0 .. splits-1, in that order, of ws[s, m, n];
-// 4 consecutive outputs a thread (vec: M*N and ldo multiples of 4, out
-// 16-byte aligned)
-template <bool VEC>
+// out[m, n] = sum over s = 0 .. splits-1, in that order, of ws[s, m, n],
+// rounded once to TO; 4 consecutive outputs a thread (vec: M*N and ldo
+// multiples of 4, out aligned to 4 outputs)
+template <bool VEC, typename TO>
 __global__ void __launch_bounds__(256)
-    splitk_reduce(const float* __restrict__ ws, float* __restrict__ out,
-                  int M, int N, long long ldo, int splits) {
+    splitk_reduce(const float* __restrict__ ws, TO* __restrict__ out, int M,
+                  int N, long long ldo, int splits) {
   wait_prior_grid();
   release_dependents();
   const long long mn = (long long)M * N;
@@ -360,14 +477,14 @@ __global__ void __launch_bounds__(256)
         s.w += v.w;
       }
       const long long m = i / N;
-      *reinterpret_cast<float4*>(out + m * ldo + (i - m * N)) = s;
+      store4(out + m * ldo + (i - m * N), s);
     } else {
       for (long long e = i; e < i + 4 && e < mn; ++e) {
         float s = 0.f;
 #pragma unroll 8
         for (int k = 0; k < splits; ++k) s += ws[k * mn + e];
         const long long m = e / N;
-        out[m * ldo + (e - m * N)] = s;
+        out[m * ldo + (e - m * N)] = from_f32<TO>(s);
       }
     }
   }
@@ -389,25 +506,32 @@ cudaError_t launch_pdl(void (*kernel)(Params...), dim3 grid, int threads,
   return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
-template <int BM, int BK, int TM, int KG, int STAGES, bool K1>
-cudaError_t launch_tiles(const Problem& p, bool avec, bool bvec, dim3 grid,
-                         cudaStream_t st) {
+template <int BM, int BK, int TM, int KG, int STAGES, bool K1, typename TX,
+          typename TW, typename TO>
+cudaError_t launch_tiles(const Problem<TX, TW, TO>& p, bool avec, bool bvec,
+                         dim3 grid, cudaStream_t st) {
   constexpr int THREADS = kGroup * KG;
   if (avec && bvec)
-    return launch_pdl(gemm_kernel<BM, BK, TM, KG, STAGES, K1, true, true>,
-                      grid, THREADS, st, p);
+    return launch_pdl(
+        gemm_kernel<BM, BK, TM, KG, STAGES, K1, true, true, TX, TW, TO>,
+        grid, THREADS, st, p);
   if (avec)
-    return launch_pdl(gemm_kernel<BM, BK, TM, KG, STAGES, K1, true, false>,
-                      grid, THREADS, st, p);
+    return launch_pdl(
+        gemm_kernel<BM, BK, TM, KG, STAGES, K1, true, false, TX, TW, TO>,
+        grid, THREADS, st, p);
   if (bvec)
-    return launch_pdl(gemm_kernel<BM, BK, TM, KG, STAGES, K1, false, true>,
-                      grid, THREADS, st, p);
-  return launch_pdl(gemm_kernel<BM, BK, TM, KG, STAGES, K1, false, false>,
-                    grid, THREADS, st, p);
+    return launch_pdl(
+        gemm_kernel<BM, BK, TM, KG, STAGES, K1, false, true, TX, TW, TO>,
+        grid, THREADS, st, p);
+  return launch_pdl(
+      gemm_kernel<BM, BK, TM, KG, STAGES, K1, false, false, TX, TW, TO>,
+      grid, THREADS, st, p);
 }
 
-template <int BM, int BK, int TM, int KG, int STAGES>
-int launch_cfg(const Problem& p, bool avec, bool bvec, cudaStream_t st) {
+template <int BM, int BK, int TM, int KG, int STAGES, typename TX,
+          typename TW, typename TO>
+int launch_cfg(const Problem<TX, TW, TO>& p, bool avec, bool bvec,
+               cudaStream_t st) {
   if (p.kchunk % BK != 0) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)((p.N + kBN - 1) / kBN),
                   (unsigned)((p.M + BM - 1) / BM), (unsigned)p.splits);
@@ -420,12 +544,13 @@ int launch_cfg(const Problem& p, bool avec, bool bvec, cudaStream_t st) {
   const long long mn = (long long)p.M * p.N;
   const long long blocks = (mn + 1023) / 1024;
   const dim3 rgrid((unsigned)(blocks < 1056 ? blocks : 1056));
-  const bool vec = mn % 4 == 0 && p.ldo % 4 == 0 && p.N % 4 == 0 &&
-                   reinterpret_cast<uintptr_t>(p.out) % 16 == 0;
-  return (int)(vec ? launch_pdl(splitk_reduce<true>, rgrid, 256, st, p.ws,
-                                p.out, p.M, p.N, p.ldo, p.splits)
-                   : launch_pdl(splitk_reduce<false>, rgrid, 256, st, p.ws,
-                                p.out, p.M, p.N, p.ldo, p.splits));
+  const bool vec =
+      mn % 4 == 0 && p.ldo % 4 == 0 && p.N % 4 == 0 &&
+      reinterpret_cast<uintptr_t>(p.out) % (4 * sizeof(TO)) == 0;
+  return (int)(vec ? launch_pdl(splitk_reduce<true, TO>, rgrid, 256, st,
+                                p.ws, p.out, p.M, p.N, p.ldo, p.splits)
+                   : launch_pdl(splitk_reduce<false, TO>, rgrid, 256, st,
+                                p.ws, p.out, p.M, p.N, p.ldo, p.splits));
 }
 
 inline bool aligned16(const void* ptr) {
@@ -434,17 +559,19 @@ inline bool aligned16(const void* ptr) {
 
 // Checks the split and the routes' preconditions, then launches the tile
 // loop (and the split-K reduction when splits > 1) on `st`.
-inline int launch(const Problem& p, int cfg, int avec, int bvec,
-                  cudaStream_t st) {
+template <typename TX, typename TW, typename TO>
+int launch(const Problem<TX, TW, TO>& p, int cfg, int avec, int bvec,
+           cudaStream_t st) {
   if (p.M <= 0 || p.N <= 0 || p.Kdim <= 0 || p.splits < 1 ||
       p.kchunk <= 0 || (long long)(p.splits - 1) * p.kchunk >= p.Kdim ||
       (long long)p.splits * p.kchunk < p.Kdim || p.splits > 65535 ||
       (p.splits > 1 && p.ws == nullptr))
     return (int)cudaErrorInvalidValue;
-  if (avec && (p.Cin % 4 || !aligned16(p.x) || p.sxh % 4 || p.sxw % 4))
+  constexpr int EA = kVec<TX>, EB = kVec<TW>;
+  if (avec && (p.Cin % EA || !aligned16(p.x) || p.sxh % EA || p.sxw % EA))
     return (int)cudaErrorInvalidValue;
-  if (bvec && (p.swo != 1 || !aligned16(p.w) || p.swi % 4 || p.sww % 4 ||
-               p.swh % 4))
+  if (bvec && (p.swo != 1 || !aligned16(p.w) || p.swi % EB ||
+               p.sww % EB || p.swh % EB))
     return (int)cudaErrorInvalidValue;
   // cfg: <BM, BK, TM, KG, STAGES>
   switch (cfg) {

@@ -1,5 +1,5 @@
-// matmul_tiled for Hopper (sm_90a): out[M, N] = x[M, K] @ w[K, N] in f32
-// with f32 accumulation.
+// matmul_tiled for Hopper (sm_90a): out[M, N] = x[M, K] @ w[K, N] with f32
+// accumulation, the output in x's type.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/ops.py::matmul_tiled
 // (body _matmul_kernel), the engine's FC shard kernel.  The product is
@@ -21,27 +21,35 @@
 // to about three waves over the 132 SMs, so a [32, 768] @ [768, 2304]
 // shard runs 36 x 8 blocks.  x and w slabs stream through a 3-stage
 // cp.async ring (16-byte copies where the pointer and leading dimension
-// allow, 4-byte otherwise: an odd node's head view starts 1000 bytes past
-// a 16-byte boundary).  Each thread keeps a 4x4 register tile (1x4 for
+// allow, one element a copy otherwise: an odd node's f32 head view starts
+// 1000 bytes past a 16-byte boundary).  Each thread keeps a 4x4 register tile (1x4 for
 // M <= 8), and two or four groups of 128 threads split every slab's depth,
 // so a block has 8 or 16 warps on one tile.  Split-K partial tiles go to
 // an f32 workspace and a second pass sums them in a fixed order:
 // deterministic, no atomics.
+//
+// Types: as the TPU kernel, which casts both operands to f32 and writes
+// x.dtype: every element is converted to f32 when it is read, the sum is
+// f32, and the output is rounded once to x's type (round to nearest
+// even).  Entry points by (x, w) type, as conv2d_shard.cu's: _f32, _bf16,
+// _f16, _bf16_f32, _f16_f32.  In a 2-byte type a 16-byte copy is 8
+// elements, and an unaligned view takes plain 2-byte loads.
 //
 // Build: see repro_torch/kernels/build.py.  Plain C interface; the entry
 // point launches on the given stream and returns cudaGetLastError().
 
 #include "gemm_f32.cuh"
 
-extern "C" int matmul_tiled_f32(const float* x, const float* w, float* out,
-                                float* ws, int M, int N, int K,
-                                long long ldx, long long ldw, long long ldo,
-                                int cfg, int splits, int kchunk, int avec,
-                                int bvec, void* stream) {
-  gemm_f32::Problem p;
-  p.x = x;
-  p.w = w;
-  p.out = out;
+namespace {
+
+template <typename TX, typename TW>
+int matmul(const void* x, const void* w, void* out, float* ws, int M, int N,
+           int K, long long ldx, long long ldw, long long ldo, int cfg,
+           int splits, int kchunk, int avec, int bvec, void* stream) {
+  gemm_f32::Problem<TX, TW, TX> p;
+  p.x = static_cast<const TX*>(x);
+  p.w = static_cast<const TW*>(w);
+  p.out = static_cast<TX*>(out);
   p.ws = ws;
   p.M = M;
   p.N = N;
@@ -66,4 +74,32 @@ extern "C" int matmul_tiled_f32(const float* x, const float* w, float* out,
   p.splits = splits;
   const int rc = gemm_f32::launch(p, cfg, avec, bvec, (cudaStream_t)stream);
   return rc ? rc : (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// The entry points: matmul_tiled_<suffix> for x of type TX and w of type
+// TW, the output in TX.
+#define MATMUL_PARAMS                                                        \
+  const void *x, const void *w, void *out, float *ws, int M, int N, int K,   \
+      long long ldx, long long ldw, long long ldo, int cfg, int splits,      \
+      int kchunk, int avec, int bvec, void *stream
+#define MATMUL_ARGS                                                          \
+  x, w, out, ws, M, N, K, ldx, ldw, ldo, cfg, splits, kchunk, avec, bvec,    \
+      stream
+
+extern "C" int matmul_tiled_f32(MATMUL_PARAMS) {
+  return matmul<float, float>(MATMUL_ARGS);
+}
+extern "C" int matmul_tiled_bf16(MATMUL_PARAMS) {
+  return matmul<__nv_bfloat16, __nv_bfloat16>(MATMUL_ARGS);
+}
+extern "C" int matmul_tiled_f16(MATMUL_PARAMS) {
+  return matmul<__half, __half>(MATMUL_ARGS);
+}
+extern "C" int matmul_tiled_bf16_f32(MATMUL_PARAMS) {
+  return matmul<__nv_bfloat16, float>(MATMUL_ARGS);
+}
+extern "C" int matmul_tiled_f16_f32(MATMUL_PARAMS) {
+  return matmul<__half, float>(MATMUL_ARGS);
 }

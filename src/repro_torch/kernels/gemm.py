@@ -1,9 +1,11 @@
-"""Host side of the shared f32 implicit-GEMM tile loop
-(``csrc/gemm_f32.cuh``) behind :func:`~repro_torch.kernels.conv2d.
-conv2d_shard` (dense) and :func:`~repro_torch.kernels.ops.matmul_tiled`.
+"""Host side of the shared implicit-GEMM tile loop (``csrc/gemm_f32.cuh``:
+f32, bf16 or fp16 operands, f32 sums) behind :func:`~repro_torch.kernels.
+conv2d.conv2d_shard` (dense) and :func:`~repro_torch.kernels.ops.
+matmul_tiled`.
 
 Per call it picks the block tile, the split of the K loop and the load
-width of each operand, all from shapes, strides and pointers:
+width of each operand, all from shapes, strides, pointers and element
+sizes:
 
 * :func:`plan_gemm` — one of :data:`CONFIGS` by M (rows of the product:
   a shard's output pixels, an FC shard's rows), then as many K chunks as
@@ -12,7 +14,8 @@ width of each operand, all from shapes, strides and pointers:
   come from sweeping every config and split on an H100
   (``python -m repro_torch.kernels.gemm_sweep``; results in PERF.md).
 * :func:`x_vec` / :func:`w_vec` — whether 16-byte copies are legal for the
-  activations (along channels) and the weight (along output channels).
+  activations (along channels) and the weight (along output channels): 4
+  elements a copy in f32, 8 in a 2-byte dtype.
 * :func:`workspace` — the ``[splits, M, N]`` f32 buffer of the split-K
   partial tiles, or ``None`` for one split.
 * :func:`launch_args` — all of the above for one call, as the C entry
@@ -108,23 +111,34 @@ def plan_gemm(m: int, n: int, kdim: int) -> GemmPlan:
                       min(MAX_SPLITS, cfg.waves * SMS // tiles))
 
 
+def vec_elems(t: torch.Tensor) -> int:
+    """Elements of ``t``'s dtype in one 16-byte copy: 4 in f32, 8 in bf16
+    or fp16."""
+    return 16 // t.element_size()
+
+
 def x_vec(x: torch.Tensor, cin: int) -> bool:
-    """16-byte activation copies: 4 channels of one tap, so ``cin % 4 ==
-    0``, a 16-byte aligned pointer and the other strides multiples of 4."""
-    return (cin % 4 == 0 and x.data_ptr() % 16 == 0
-            and all(s % 4 == 0 for s in x.stride()[:-1]))
+    """16-byte activation copies: ``v`` = :func:`vec_elems` channels of one
+    tap, so ``cin % v == 0``, a 16-byte aligned pointer and the other
+    strides multiples of ``v``."""
+    v = vec_elems(x)
+    return (cin % v == 0 and x.data_ptr() % 16 == 0
+            and all(s % v == 0 for s in x.stride()[:-1]))
 
 
 def w_vec(w: torch.Tensor) -> bool:
     """16-byte weight copies along output channels: unit output-channel
-    stride, a 16-byte aligned pointer, the other strides multiples of 4."""
+    stride, a 16-byte aligned pointer, the other strides multiples of
+    :func:`vec_elems`."""
+    v = vec_elems(w)
     return (w.stride(-1) == 1 and w.data_ptr() % 16 == 0
-            and all(s % 4 == 0 for s in w.stride()[:-1]))
+            and all(s % v == 0 for s in w.stride()[:-1]))
 
 
 def workspace(plan: GemmPlan, m: int, n: int,
               device: torch.device) -> Optional[torch.Tensor]:
-    """The split-K partial tiles, ``[splits, m, n]`` f32, or None."""
+    """The split-K partial tiles, ``[splits, m, n]`` f32 whatever the
+    operands' dtype, or None."""
     if plan.splits == 1:
         return None
     return torch.empty((plan.splits, m, n), dtype=torch.float32,

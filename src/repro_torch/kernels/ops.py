@@ -3,10 +3,14 @@ the conv convenience wrappers.
 
 :func:`matmul_tiled` is the port of the Pallas TPU kernel
 ``repro/kernels/ops.py::matmul_tiled``: ``[M, Cin] @ [Cin, Cout]`` with f32
-accumulation, computed by the hand-written weight-streaming kernel in
-``csrc/matmul_tiled.cu`` (the 1x1 case of the implicit-GEMM tile loop in
-``csrc/gemm_f32.cuh``; no library GEMM).  :mod:`repro_torch.kernels.gemm`
-picks its tile, K split and load widths per call; a split call also runs
+accumulation and the output in ``x.dtype``, computed by the hand-written
+weight-streaming kernel in ``csrc/matmul_tiled.cu`` (the 1x1 case of the
+implicit-GEMM tile loop in ``csrc/gemm_f32.cuh``; no library GEMM).  On
+the card it takes ``x`` in f32, bf16 or fp16 and ``w`` in any of the
+three, by the rule of :func:`repro_torch.kernels.conv2d.kernel_operands`:
+every element read as f32, one rounding of the output.
+:mod:`repro_torch.kernels.gemm` picks its tile, K split and load widths
+per call; a split call also runs
 the kernel's reduction pass, and still counts one launch.  It raises
 :class:`UnsupportedGeometry` on a zero-size dimension; CPU tensors run the
 plain version, CUDA tensors launch the kernel or raise (see
@@ -35,7 +39,7 @@ from typing import Optional
 import torch
 
 from . import build, gemm
-from .conv2d import UnsupportedGeometry, conv2d_shard, on_cpu
+from .conv2d import UnsupportedGeometry, conv2d_shard, kernel_operands
 from .flash_attention import attention
 from .ref import conv2d_ref, dwconv2d_ref, matmul_ref
 
@@ -60,18 +64,20 @@ def matmul_tiled(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if M == 0 or cin == 0 or cout == 0:
         raise UnsupportedGeometry(
             f"degenerate matmul {tuple(x.shape)} @ {tuple(w.shape)}")
-    if on_cpu(x, w):
+    operands = kernel_operands(x, w)
+    if operands is None:
         return matmul_ref(x, w)
+    w, suffix = operands
     if x.stride(1) != 1 or w.stride(1) != 1:
         raise RuntimeError(f"matmul_tiled needs unit column strides, got "
                            f"{x.stride()} and {w.stride()}")
-    out = torch.empty((M, cout), dtype=torch.float32, device=x.device)
+    out = torch.empty((M, cout), dtype=x.dtype, device=x.device)
     ws, ws_ptr, tail = gemm.launch_args(x, w, M, cout, cin, cin)
     lib = build.load("matmul_tiled")
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = lib.matmul_tiled_f32(x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                              ws_ptr, M, cout, cin, x.stride(0), w.stride(0),
-                              cout, *tail, stream)
+    rc = getattr(lib, f"matmul_tiled_{suffix}")(
+        x.data_ptr(), w.data_ptr(), out.data_ptr(), ws_ptr, M, cout, cin,
+        x.stride(0), w.stride(0), cout, *tail, stream)
     if rc != 0:
         raise RuntimeError(f"matmul_tiled launch failed: cudaError {rc}")
     matmul_tiled.launches += 1

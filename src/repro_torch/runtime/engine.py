@@ -116,11 +116,16 @@ def init_weights(graph: ModelGraph, generator: torch.Generator,
     return ws
 
 
-def weights_from_numpy(graph: ModelGraph, arrays: Sequence,
-                       device="cuda") -> List[Optional[torch.Tensor]]:
+def weights_from_numpy(graph: ModelGraph, arrays: Sequence, device="cuda",
+                       dtype: torch.dtype = torch.float32
+                       ) -> List[Optional[torch.Tensor]]:
     """The port's weights from numpy arrays in the reference layout
     (``None`` for weightless layers), e.g. the JAX package's
-    ``init_weights`` output through ``np.asarray``."""
+    ``init_weights`` output through ``np.asarray``, as ``dtype`` tensors.
+    Each array goes through f32 (a bf16 or fp16 array, as ``ml_dtypes``
+    gives the reference's half weights, converts exactly) and is then cast
+    to ``dtype``: the reference's bf16 weights carried as f32 arrays come
+    back bit for bit."""
     if len(arrays) != len(graph.layers):
         raise ValueError(f"{len(arrays)} weight arrays for "
                          f"{len(graph.layers)} layers")
@@ -136,7 +141,7 @@ def weights_from_numpy(graph: ModelGraph, arrays: Sequence,
         if a.shape != spec[0]:
             raise ValueError(f"{l.name}: weight shape {a.shape} != "
                              f"{spec[0]}")
-        ws.append(torch.from_numpy(a.copy()).to(device))
+        ws.append(torch.from_numpy(a.copy()).to(device=device, dtype=dtype))
     return ws
 
 

@@ -49,6 +49,8 @@ from repro_torch.runtime.mesh_exec import (StageTimeoutError,
                                            clear_mesh_program_cache,
                                            mesh_program_cache_info)
 
+from torch_ulps import holds_one_ulp
+
 fa_mod = importlib.import_module("repro_torch.kernels.flash_attention")
 
 pytestmark = pytest.mark.gpu
@@ -1898,3 +1900,218 @@ def test_a_capture_that_reads_the_host_raises(cuda, monkeypatch):
         prog(cache, tok, 1)
     assert prog.program.graph is None
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# the two shard kernels in bf16 and fp16
+# ---------------------------------------------------------------------------
+
+#: (x dtype, w dtype) pairs: the kernel's own instantiations, then pairs it
+#: takes through an exact upcast of the weight to f32
+HALF_PAIRS = [(torch.bfloat16, torch.bfloat16), (torch.float16, torch.float16),
+              (torch.bfloat16, torch.float32), (torch.float16, torch.float32),
+              (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float16)]
+HALF_IDS = [f"{str(a)[6:]}-{str(b)[6:]}" for a, b in HALF_PAIRS]
+
+
+def _half(gen, shape, dtype, dev, scale=1.0):
+    return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+
+@pytest.mark.parametrize("xd,wd", HALF_PAIRS, ids=HALF_IDS)
+@pytest.mark.parametrize("t,k,s,p", CONV_GEOMS,
+                         ids=[f"{t.name}-k{k}-s{s}-p{p}"
+                              for t, k, s, p in CONV_GEOMS])
+def test_half_conv_kernel_within_one_ulp_of_plain(cuda, t, k, s, p, xd, wd):
+    """Every conv geometry of the edge models on every shard pad
+    signature, strided and contiguous inputs, an OutC weight view: the
+    kernel's output is in x's dtype and within one ulp of the plain
+    version's (both sum in f32 and round once)."""
+    gen = torch.Generator(device=cuda).manual_seed(k * 100 + s * 10 + p)
+    cin, cout = 24, 70
+    dw = t == ConvT.DWCONV
+    if dw:
+        w = _half(gen, (k, k, 1, cin), wd, cuda)
+    else:
+        w = _half(gen, (k, k, cin, cout + 9), wd, cuda)[..., 4:4 + cout]
+    for pads in shard_halo_pads(p):
+        h = 2 * k + 5 * s - pads[0] - pads[1]
+        wd_ = 2 * k + 4 * s + 3 - pads[2] - pads[3]
+        big = _half(gen, (h + 2, wd_ + 3, cin + 8), xd, cuda)
+        for x in (big[1:1 + h, 2:2 + wd_, 8:8 + cin],
+                  big[1:1 + h, 2:2 + wd_, 8:8 + cin].contiguous()):
+            n0 = conv2d_shard.launches
+            out = conv2d_shard(x, w, pads=pads, stride=s, depthwise=dw)
+            assert conv2d_shard.launches == n0 + 1
+            assert out.dtype == xd
+            plain = conv2d_shard_ref(x, w, pads=pads, stride=s, depthwise=dw)
+            mag = conv2d_shard_ref(x.float().abs(), w.float().abs(),
+                                   pads=pads, stride=s, depthwise=dw)
+            torch.cuda.synchronize()
+            holds_one_ulp(out, plain, mag)
+
+
+@pytest.mark.parametrize("xd,wd", HALF_PAIRS, ids=HALF_IDS)
+@pytest.mark.parametrize("m,cin,cout", [(1, 1024, 1000), (1, 512, 250),
+                                        (128, 768, 2304), (128, 3072, 768),
+                                        (32, 768, 2304), (32, 3072, 768),
+                                        (37, 16, 100), (300, 7, 9)])
+def test_half_matmul_kernel_within_one_ulp_of_plain(cuda, m, cin, cout, xd,
+                                                    wd):
+    """The FC shapes (bert's whole and 4-node shards, the heads, ragged
+    ones), with a column view and a contiguous weight."""
+    gen = torch.Generator(device=cuda).manual_seed(m + cin)
+    x = _half(gen, (m, cin), xd, cuda)
+    wide = _half(gen, (cin, cout + 5), wd, cuda, 0.05)
+    for w in (wide[:, 2:2 + cout], wide[:, 2:2 + cout].contiguous()):
+        n0 = matmul_tiled.launches
+        out = matmul_tiled(x, w)
+        assert matmul_tiled.launches == n0 + 1
+        assert out.dtype == xd
+        mag = x.float().abs() @ w.float().abs()
+        holds_one_ulp(out, matmul_ref(x, w), mag)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_half_every_route_of_the_tile_loop(cuda, monkeypatch, dtype):
+    """Each tile config x split or not x 16-byte or one-element activation
+    copies x 16-byte or one-element weight copies, in a 2-byte dtype (8
+    elements a 16-byte copy), on matmul and on a strided conv shard."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    seen = set()
+    for cfg in gemm.CONFIGS:
+        for splits in (1, 4):
+            monkeypatch.setattr(gemm, "plan_gemm", _forced(cfg, splits))
+            m, k, n = cfg.bm + 3, 96, 72
+            xb = _half(gen, (m, k + 8), dtype, cuda)
+            wb = _half(gen, (k, n + 8), dtype, cuda)
+            for x in (xb[:, :k], xb[:, 1:1 + k]):
+                for w in (wb[:, 8:8 + n], wb[:, 1:1 + n]):
+                    seen.add(_route(gemm.plan_gemm(m, n, k), x, k, w))
+                    holds_one_ulp(matmul_tiled(x, w), matmul_ref(x, w),
+                                   x.float().abs() @ w.float().abs())
+            cb = _half(gen, (9, 10, 48), dtype, cuda)
+            wc = _half(gen, (3, 3, 32, 48), dtype, cuda)
+            for x in (cb[1:8, 1:9, 8:40], cb[1:8, 1:9, 3:35]):
+                for w in (wc[..., 8:48], wc[..., 1:41]):
+                    kw = dict(pads=(0, 1, 1, 0), stride=1)
+                    holds_one_ulp(
+                        conv2d_shard(x, w, **kw), conv2d_shard_ref(x, w, **kw),
+                        conv2d_shard_ref(x.float().abs(), w.float().abs(),
+                                         **kw))
+    assert seen == {(c.index, sp, xv, wv) for c in gemm.CONFIGS
+                    for sp in (False, True) for xv in (False, True)
+                    for wv in (False, True)}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_half_kernels_on_misaligned_views(cuda, dtype):
+    """A 2-byte view the 16-byte copies cannot take (an odd Cin, a pointer
+    2 bytes past a 16-byte boundary, a weight view at an odd column)
+    takes the one-element route and is still right."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    big = _half(gen, (9, 11, 40), dtype, cuda)
+    w = _half(gen, (3, 3, 19, 30), dtype, cuda)
+    for x in (big[:, :, 1:20], big[1:8, 2:9, 3:22]):
+        assert not gemm.x_vec(x, 19)
+        kw = dict(pads=(1, 0, 1, 1), stride=2)
+        holds_one_ulp(conv2d_shard(x, w, **kw), conv2d_shard_ref(x, w, **kw),
+                       conv2d_shard_ref(x.float().abs(), w.float().abs(),
+                                        **kw))
+    xm = _half(gen, (5, 65), dtype, cuda)[:, 1:]
+    wm = _half(gen, (64, 51), dtype, cuda)[:, 1:]
+    assert not gemm.x_vec(xm, 64) and not gemm.w_vec(wm)
+    holds_one_ulp(matmul_tiled(xm, wm), matmul_ref(xm, wm),
+                   xm.float().abs() @ wm.float().abs())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_half_kernels_repeat_bit_for_bit(cuda, dtype):
+    """Split-K calls in a 2-byte dtype give the same bits twice: the f32
+    partial tiles are summed in a fixed order and rounded once."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    x = _half(gen, (32, 3072), dtype, cuda)
+    w = _half(gen, (3072, 768), dtype, cuda, 0.02)
+    assert gemm.plan_gemm(32, 768, 3072).splits > 1
+    assert torch.equal(matmul_tiled(x, w), matmul_tiled(x, w))
+    xc = _half(gen, (4, 7, 512), dtype, cuda)
+    wc = _half(gen, (3, 3, 512, 512), dtype, cuda, 0.02)
+    assert gemm.plan_gemm(14, 512, 4608).splits > 1
+    a = conv2d_shard(xc, wc, pads=(1, 0, 1, 1))
+    assert torch.equal(a, conv2d_shard(xc, wc, pads=(1, 0, 1, 1)))
+    wd = _half(gen, (3, 3, 1, 512), dtype, cuda)
+    d = conv2d_shard(xc, wd, pads=(1, 0, 1, 1), depthwise=True)
+    assert torch.equal(d, conv2d_shard(xc, wd, pads=(1, 0, 1, 1),
+                                       depthwise=True))
+
+
+def test_half_tile_loop_refuses_a_misaligned_vector_route(cuda, monkeypatch):
+    """A 16-byte route forced on a bf16 operand whose channels are not a
+    multiple of 8 is refused by the launcher and raises."""
+    x = torch.randn(8, 36, device=cuda, dtype=torch.bfloat16)
+    w = torch.randn(36, 64, device=cuda, dtype=torch.bfloat16)
+    monkeypatch.setattr(gemm, "x_vec", lambda *_: True)
+    n0 = matmul_tiled.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        matmul_tiled(x, w)
+    assert matmul_tiled.launches == n0
+
+
+def _bf16_case(case, dev):
+    g, plan = _rn_rep() if case == "rn_rep" else _mobilenet_prefix()
+    ws = [None if w is None else w.to(torch.bfloat16)
+          for w in init_weights(g, torch.Generator().manual_seed(8), dev)]
+    l0 = g.layers[0]
+    x = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (l0.in_h, l0.in_w, l0.in_c)).astype(np.float32)).to(
+            dev, torch.bfloat16)
+    return g, plan, ws, x
+
+
+@pytest.mark.parametrize("case", ["rn_rep", "mobilenet_prefix"])
+def test_bf16_captured_session_run_is_bit_equal_to_eager(cuda, case):
+    """A bf16 Session on the card: the eager, capturing and replaying runs
+    of the segment programs have the eager records' bits and ExecStats,
+    launch what they launch, and stay within the reference's bf16
+    tolerance (2e-2 of scale) of ``run_reference`` in bf16."""
+    g, plan, ws, x = _bf16_case(case, cuda)
+    n0 = _launches()
+    eager, st_e = Session(g, ws, plan, 4,
+                          ExecConfig(jit_segments=False)).run(x)
+    torch.cuda.synchronize()
+    want = tuple(b - a for a, b in zip(n0, _launches()))
+    assert want[0] > 0 and eager.dtype == torch.bfloat16
+    clear_segment_cache()
+    sess = Session(g, ws, plan, 4)
+    for run in range(3):
+        n0 = _launches()
+        out, st = sess.run(x)
+        torch.cuda.synchronize()
+        assert tuple(b - a for a, b in zip(n0, _launches())) == want, run
+        assert st == st_e
+        assert torch.equal(out, eager), run
+    assert _rel_err(eager, run_reference(g, ws, x)) < 2e-2
+    clear_segment_cache()
+
+
+@pytest.mark.parametrize("overlap", [True, False])
+def test_bf16_mesh_run_within_2e2_of_local(cuda, overlap):
+    """The bf16 mesh run: bit-equal across eager, capture and replay,
+    within 2e-2 of scale of the local executor, its ExecStats, no
+    fault."""
+    g, plan, ws, x = _bf16_case("mobilenet_prefix", cuda)
+    local, st_l = Session(g, ws, plan, 4,
+                          ExecConfig(jit_segments=False)).run(x)
+    clear_mesh_program_cache()
+    sess = Session(g, ws, plan, 4, ExecConfig(executor="mesh",
+                                              overlap=overlap))
+    outs = []
+    for _ in range(3):
+        out, st = sess.run(x)
+        torch.cuda.synchronize()
+        assert st == st_l and st.failure_count == 0
+        outs.append(out)
+    assert all(torch.equal(o, outs[0]) for o in outs)
+    assert outs[0].dtype == torch.bfloat16
+    assert _rel_err(outs[0], local) < 2e-2
+    clear_mesh_program_cache()
