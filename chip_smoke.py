@@ -23,12 +23,15 @@ seeds:
   fp16 at each geometry's first pad signature and the FC shapes: the
   output in the input's dtype and within one ulp of the plain version
   (``hold_ulp``; past one ulp only where an element cancels, within
-  ``SUM_SLACK`` of its sum of |x * w|), one launch a call, the largest
-  ulps and the share of elements that differ printed;
+  ``SUM_SLACK`` of its sum of |x * w|), one launch a call on its loop
+  (a same-type pair's dense and FC calls on the tensor cores, the mixed
+  pairs' on CUDA cores), the largest ulps, the share of elements that
+  differ and the launches by loop printed;
 * the CNN/bert path in bf16 (phase 4b) — phase 3's models, plans and
   seeds with the weights and input cast to bf16: eager records, then the
   segment programs' eager, capturing and replaying runs, bit-equal,
-  launches equal to ``kernel_records``, ``ExecStats`` equal to the f32
+  launches equal to ``kernel_records``, every dense and FC call on the
+  tensor cores (launches by loop), ``ExecStats`` equal to the f32
   run's, every call made outside a capture within one ulp of plain, the
   output within 2e-2 of scale of the f32 run, of ``run_reference`` in
   bf16 and of ``backend="torch"`` in bf16; the mesh executor, overlap on
@@ -36,8 +39,8 @@ seeds:
   output; the warm replayed run in bf16 and f32 in turns with the idle
   share, and each kernel's bf16 calls of one pass beside plain, library
   (``F.pad`` + ``F.conv2d``, ``torch.matmul``, both in bf16) and the
-  bound at 2-byte operands and 989 TFLOP/s (the ``bf16_*`` fields of the
-  kernels line);
+  bound at 2-byte operands and 989 TFLOP/s, and each FC shape's calls
+  against cuBLAS in bf16 (the ``bf16_*`` fields of the kernels line);
 * the decode path — ``plan_decode`` -> ``greedy_decode(DecodeSession(...,
   ExecConfig(backend="cuda")))`` at OLMo-1B's widths and depth (16 layers,
   d 2048, 16 heads, d_ff 8192, vocab 50304) over 4 nodes, a 480-token
@@ -326,10 +329,38 @@ def kernel_wrappers() -> dict:
 def zero_counts() -> None:
     for f in kernel_wrappers().values():
         f.launches = 0
+        for route in getattr(f, "routes", {}):
+            f.routes[route] = 0
 
 
 def read_counts() -> dict:
     return {name: f.launches for name, f in kernel_wrappers().items()}
+
+
+def read_routes() -> dict:
+    """The two shard kernels' launches by loop (``routes``)."""
+    return {name: dict(f.routes) for name, f in kernel_wrappers().items()
+            if hasattr(f, "routes")}
+
+
+def routes_text(routes) -> str:
+    return "; ".join(f"{k} " + ", ".join(f"{r} {n}" for r, n in v.items())
+                     for k, v in routes.items())
+
+
+def half_routes(conv_calls, mm_calls) -> dict:
+    """The launches by loop that same-type 2-byte calls of the two shard
+    kernels must show, from the recorded calls (x, w, kwargs[, out]):
+    every dense call and every FC call on the tensor cores."""
+    dw = sum(bool(c[2].get("depthwise")) for c in conv_calls)
+    return {"conv2d_shard": {"tensor_cores": len(conv_calls) - dw,
+                             "cuda_cores": 0, "depthwise": dw},
+            "matmul_tiled": {"tensor_cores": len(mm_calls),
+                             "cuda_cores": 0}}
+
+
+def check_routes(path, routes, want) -> None:
+    check(routes == want, f"{path}: launches by loop {routes} != {want}")
 
 
 def check_counts(path, counts, want) -> None:
@@ -756,7 +787,9 @@ def phase_kernel_grid_half(dev, ulp):
     ``MIXED_PAIRS`` at each geometry's first pad signature (both layouts),
     the skinny shapes' and the FC shapes; each call's output in x's dtype,
     within one ulp of the plain version (:func:`hold_ulp`), one launch a
-    call.  ``ulp`` gathers the counts per kernel and dtype pair."""
+    call, on its loop: the tensor cores for a same-type pair's dense and
+    FC calls, CUDA cores for the mixed pairs'.  ``ulp`` gathers the counts
+    per kernel and dtype pair."""
     import torch
     from repro_torch.kernels.conv2d import conv2d_shard
     from repro_torch.kernels.ops import matmul_tiled
@@ -768,6 +801,10 @@ def phase_kernel_grid_half(dev, ulp):
     for xd, wd in pairs:
         mixed = xd != wd
         xt, wt = getattr(torch, xd), getattr(torch, wd)
+        # the dense loop: same-type 2-byte pairs on the tensor cores, the
+        # mixed pairs (f32 weights, or upcast to them) on CUDA cores
+        dense = "cuda_cores" if mixed else "tensor_cores"
+        before = read_routes()
         seen = set()
         st = ulp.setdefault(("conv2d_shard", xd, wd), new_ulp_stats())
         for desc, x, w, kw in conv_grid_cases(dev, gen, xt, wt):
@@ -775,18 +812,23 @@ def phase_kernel_grid_half(dev, ulp):
             if mixed and (head, x.is_contiguous()) in seen:
                 continue
             seen.add((head, x.is_contiguous()))
-            n0 = conv2d_shard.launches
+            route = "depthwise" if kw.get("depthwise") else dense
+            n0, r0 = conv2d_shard.launches, conv2d_shard.routes[route]
             out = conv2d_shard(x, w, **kw)
-            check(conv2d_shard.launches == n0 + 1,
-                  f"conv2d_shard {xd} x {wd} {desc}: not one launch")
+            check(conv2d_shard.launches == n0 + 1
+                  and conv2d_shard.routes[route] == r0 + 1,
+                  f"conv2d_shard {xd} x {wd} {desc}: not one launch on "
+                  f"{route}")
             hold_ulp(f"conv2d_shard {xd} x {wd} {desc}", out,
                      conv2d_shard_ref(x, w, **kw), conv_mag(x, w, kw), st)
         stm = ulp.setdefault(("matmul_tiled", xd, wd), new_ulp_stats())
         for desc, x, wv in fc_grid_cases(dev, gen, xt, wt):
-            n0 = matmul_tiled.launches
+            n0, r0 = matmul_tiled.launches, matmul_tiled.routes[dense]
             out = matmul_tiled(x, wv)
-            check(matmul_tiled.launches == n0 + 1,
-                  f"matmul_tiled {xd} x {wd} {desc}: not one launch")
+            check(matmul_tiled.launches == n0 + 1
+                  and matmul_tiled.routes[dense] == r0 + 1,
+                  f"matmul_tiled {xd} x {wd} {desc}: not one launch on "
+                  f"{dense}")
             hold_ulp(f"matmul_tiled {xd} x {wd} {desc}", out,
                      matmul_ref(x, wv), x.float().abs() @ wv.float().abs(),
                      stm)
@@ -794,6 +836,10 @@ def phase_kernel_grid_half(dev, ulp):
         for kname, s in (("conv2d_shard", st), ("matmul_tiled", stm)):
             print(f"phase 2: {kname} x {xd}, w {wd} (out {xd}) == plain "
                   f"within one ulp: {ulp_text(s)}", flush=True)
+        routes = {k: {r: n - before[k][r] for r, n in v.items()}
+                  for k, v in read_routes().items()}
+        print(f"phase 2: x {xd}, w {wd}: launches by loop: "
+              f"{routes_text(routes)}", flush=True)
     print(f"phase 2: the half grid took {time.perf_counter() - t0:.1f} s",
           flush=True)
 
@@ -1205,6 +1251,7 @@ def phase_main_path_bf16(dev, row, ulp, card):
     from repro_torch import ExecConfig, Session, run_reference
     from repro_torch.kernels.conv2d import conv2d_shard
     from repro_torch.kernels.ops import matmul_tiled
+    from repro_torch.kernels import gemm
     from repro_torch.kernels.ref import conv2d_shard_ref, matmul_ref
     from repro_torch.runtime import engine, mesh_exec
 
@@ -1232,6 +1279,11 @@ def phase_main_path_bf16(dev, row, ulp, card):
         torch.cuda.synchronize()
         check_counts(f"{name} bf16 (eager records)", read_counts(),
                      want_counts)
+        # every dense and FC call of the bf16 pass on the tensor cores
+        want_routes = half_routes(calls["conv2d_shard"],
+                                  calls["matmul_tiled"])
+        check_routes(f"{name} bf16 (eager records)", read_routes(),
+                     want_routes)
         timed = {k: list(v) for k, v in calls.items()}
         for run in ("eager", "capture", "replay"):
             zero_counts()
@@ -1239,6 +1291,8 @@ def phase_main_path_bf16(dev, row, ulp, card):
             torch.cuda.synchronize()
             check_counts(f"{name} bf16 ({run} run)", read_counts(),
                          want_counts)
+            check_routes(f"{name} bf16 ({run} run)", read_routes(),
+                         want_routes)
             counts = read_counts()
             check(torch.equal(out_k, out_e),
                   f"{name} bf16: {run} run of the segment programs differs "
@@ -1264,7 +1318,8 @@ def phase_main_path_bf16(dev, row, ulp, card):
     check(st_t == st_e, f"{name} bf16: backend=torch ExecStats {st_t}")
     print(f"phase 4b: {name} bf16: launches conv2d_shard={want[0]} "
           f"matmul_tiled={want[1]} == plan records on the eager-records, "
-          f"eager, capture and replay runs, the three bit-equal to the "
+          f"eager, capture and replay runs, by loop "
+          f"{routes_text(want_routes)} on each, the three bit-equal to the "
           f"eager records; ExecStats equal to the f32 run's; of scale, "
           + ", ".join(f"{e:.3g} from the {w}" for w, e in errs16.items())
           + f"; calls held so far: conv2d_shard "
@@ -1292,6 +1347,11 @@ def phase_main_path_bf16(dev, row, ulp, card):
             torch.cuda.synchronize()
             check_counts(f"{name} bf16 mesh overlap={overlap} ({run} run)",
                          read_counts(), mcounts)
+            if run == "eager":
+                mroutes = half_routes(mcalls["conv2d_shard"],
+                                      mcalls["matmul_tiled"])
+            check_routes(f"{name} bf16 mesh overlap={overlap} ({run} run)",
+                         read_routes(), mroutes)
             check(st == st32 and st.failure_count == 0,
                   f"{name} bf16 mesh overlap={overlap}: {run} run "
                   f"ExecStats {st}, the local f32 run's {st32}")
@@ -1306,7 +1366,8 @@ def phase_main_path_bf16(dev, row, ulp, card):
             "not bit-equal"
         print(f"phase 4b: {name} bf16 mesh overlap={overlap}: launches "
               f"{mwant} == mesh_kernel_records on the eager, capture and "
-              f"replay runs, the three bit-equal, {e:.3g} of scale from "
+              f"replay runs, by loop {routes_text(mroutes)}, the three "
+              f"bit-equal, {e:.3g} of scale from "
               f"the local bf16 output ({same}), ExecStats equal, "
               f"failure_count 0; the eager run's "
               f"{len(mcalls['conv2d_shard'])} + "
@@ -1324,7 +1385,8 @@ def phase_main_path_bf16(dev, row, ulp, card):
     prof = {"bf16": device_profile(lambda: sess_k.run(x16), 3),
             "f32": device_profile(lambda: sess32.run(x), 3)}
     out = {"model": name, "bf16_ms": spread(walls["bf16"]),
-           "f32_ms": spread(walls["f32"]), "launches": counts}
+           "f32_ms": spread(walls["f32"]), "launches": counts,
+           "routes": want_routes}
     (bm_, blo, bhi), (fm, flo, fhi) = out["bf16_ms"], out["f32_ms"]
     print(f"phase 4b: {name}: warm replayed Session.run bf16 {bm_:.3f} ms "
           f"(range {blo:.3f}-{bhi:.3f}), f32 {fm:.3f} ms (range "
@@ -1366,6 +1428,30 @@ def phase_main_path_bf16(dev, row, ulp, card):
                                        for a, b, _ in mm_calls]),
             library_ms=graph_ms(lambda: [torch.matmul(a, b)
                                          for a, b, _ in mm_calls]))
+        # each FC shape of the pass: the kernel against cuBLAS in bf16
+        by_shape = {}
+        for xs, w, _ in mm_calls:
+            by_shape.setdefault((xs.shape[0], xs.shape[1], w.shape[1]),
+                                []).append((xs, w))
+        out["matmul_tiled"]["shapes"] = shapes = []
+        for (m, k, n), cs in sorted(by_shape.items(),
+                                    key=lambda kv: -len(kv[1])):
+            plan = gemm.plan_gemm(m, n, k, True)
+            shapes.append(dict(
+                model=name, shape=f"[{m},{k}]@[{k},{n}]", calls=len(cs),
+                cfg=plan.cfg.index, splits=plan.splits,
+                ms=graph_ms(lambda: [matmul_tiled(a, b) for a, b in cs]),
+                library_ms=graph_ms(lambda: [torch.matmul(a, b)
+                                             for a, b in cs])))
+            r = shapes[-1]
+            print(f"phase 4b: {name} bf16 matmul_tiled [{m},{k}] @ "
+                  f"[{k},{n}] (cfg {r['cfg']} x {r['splits']} splits): "
+                  f"{len(cs)} calls {r['ms']:.4f} ms "
+                  f"({r['ms'] / len(cs) * 1e3:.2f} us a call), cuBLAS "
+                  f"{r['library_ms']:.4f} ms "
+                  f"({r['library_ms'] / len(cs) * 1e3:.2f} us a call), "
+                  f"kernel / cuBLAS {r['ms'] / r['library_ms']:.2f}x "
+                  f"[{card}]", flush=True)
     parts = []
     for kname in ("conv2d_shard", "matmul_tiled"):
         r = out.get(kname)
@@ -5283,7 +5369,13 @@ def run(dev) -> dict:
                 bf16_library_ms=sum(r["library_ms"] for r in hs),
                 bf16_bound_ms=bm16, bf16_bound_by=by16,
                 bf16_max_ulp=max(v["max_ulp"] for v in held),
-                bf16_past_one_ulp=sum(v["cancel"] for v in held))
+                bf16_past_one_ulp=sum(v["cancel"] for v in held),
+                bf16_routes={r: sum(h["routes"][kname][r] for h in half)
+                             for r in half[0]["routes"][kname]})
+            if kname == "matmul_tiled":
+                lm[kname]["bf16_shapes"] = [
+                    s for h in half for s in h.get(kname, {}).get(
+                        "shapes", [])]
         kernels.append({
             "name": kname, "route": "cuda", "source": source,
             "replaces": replaces, "launches": totals[kname],
@@ -5314,7 +5406,9 @@ def run(dev) -> dict:
           "scripts_launches: phase 17's four examples; bf16_* on "
           "conv2d_shard and matmul_tiled: phase 4b's bf16 pass of the "
           "three models (graph replay; bound at 2-byte operands and the "
-          "bf16 tensor-core peak), bf16_max_ulp and bf16_past_one_ulp "
+          "bf16 tensor-core peak), bf16_routes its launches by loop, "
+          "bf16_shapes each FC shape's calls of it against cuBLAS in bf16 "
+          "(graph replay), bf16_max_ulp and bf16_past_one_ulp "
           "over every bf16 call of phases 2 and 4b",
           flush=True)
     return {"kernels": kernels}

@@ -21,12 +21,15 @@ tile loop of ``csrc/gemm_f32.cuh``, whose tile, K split and load widths
 :mod:`repro_torch.kernels.gemm` picks per call (a split call also runs
 the kernel's reduction pass); depthwise shards run their own kernel.
 ``conv2d_shard.launches`` counts the calls that ran the kernel, one per
-call.
+call, and ``conv2d_shard.routes`` the same calls by loop: the dense tile
+loop on the tensor cores (x and w in one 2-byte dtype) or on CUDA cores
+(f32 and the mixed pairs), or the depthwise kernel.
 
 Dtypes (:func:`kernel_operands`), as the reference's kernel, which casts
 both operands to f32 and writes ``x.dtype``: ``x`` in f32, bf16 or fp16,
-``w`` in any of the three.  Each element is converted to f32 when the
-kernel reads it, sums are f32, and the output is written once in
+``w`` in any of the three.  Products are exact in f32 (bf16 and fp16
+pairs on the tensor cores, every other pair converted to f32 when the
+kernel reads it), sums are f32, and the output is written once in
 ``x.dtype``, rounded to nearest even.  The kernel has an entry point for
 ``w`` in ``x``'s dtype and for a 2-byte ``x`` with f32 ``w``; any other
 pair (an f32 ``x`` with half weights, bf16 with fp16) reaches it through
@@ -147,12 +150,13 @@ def conv2d_shard(x: torch.Tensor, w: torch.Tensor, *,
     sxh, sxw, _ = x.stride()
     swh, sww, swi, swo = w.stride()
     if depthwise:
+        route = "depthwise"
         rc = getattr(lib, f"conv2d_shard_dw_{suffix}")(
             x.data_ptr(), w.data_ptr(), out.data_ptr(), Hl, Wl, cin, K,
             stride, pt, pl_, out_h, out_w, sxh, sxw, swh, sww, swo, stream)
     else:
-        ws, ws_ptr, tail = gemm.launch_args(x, w, out_h * out_w, cout,
-                                            K * K * cin, cin)
+        ws, ws_ptr, tail, route = gemm.launch_args(
+            x, w, out_h * out_w, cout, K * K * cin, cin)
         rc = getattr(lib, f"conv2d_shard_dense_{suffix}")(
             x.data_ptr(), w.data_ptr(), out.data_ptr(), ws_ptr, Hl, Wl, cin,
             cout, K, stride, pt, pl_, out_h, out_w, sxh, sxw, swh, sww, swi,
@@ -160,10 +164,15 @@ def conv2d_shard(x: torch.Tensor, w: torch.Tensor, *,
     if rc != 0:
         raise RuntimeError(f"conv2d_shard launch failed: cudaError {rc}")
     conv2d_shard.launches += 1
+    conv2d_shard.routes[route] += 1
     return out
 
 
 conv2d_shard.launches = 0
+#: launches by loop: the dense tile loop's two
+#: (:attr:`repro_torch.kernels.gemm.TileConfig.route`) and the depthwise
+#: kernel
+conv2d_shard.routes = {"tensor_cores": 0, "cuda_cores": 0, "depthwise": 0}
 
 
 def conv2d_tiled(x: torch.Tensor, w: torch.Tensor, *, padding: int = 0,

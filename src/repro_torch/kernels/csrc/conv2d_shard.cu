@@ -17,34 +17,42 @@
 // 7-14 output pixels against K*K*Cin = 4608, its 3x3 64->64 shards 784
 // pixels, the Cin = 3 stems K*K*Cin = 27 and 147.  Alone, each call is
 // bound by the bytes it moves; over a pass, by how many launches fit in
-// the time.
+// the time (188 a pass, ~1 us each replayed).  In a 2-byte type on CUDA
+// cores the many-pixel shards were bound by issuing f32 FMAs (a 784 x 64
+// x 576 shard is 58 MFLOP on 0.2 MB), so those pairs take the tensor
+// cores.
 //
 // The design: an implicit GEMM, the shared tile loop in gemm_f32.cuh.
 // M = the shard's output pixels, K = (kh, kw, ci) flattened, N = the Cout
-// slice.  32 x 64 block tiles (8 x 64 for shards of at most 8 pixels;
-// chosen per call by repro_torch/kernels/gemm.py), with 32-deep slabs of
-// the implicit im2col tile and the weight staged through a 3-stage
-// cp.async ring in shared memory, 4x4 register tiles, and four groups of
-// 128 threads splitting each slab's depth (two for shards of 9-32
-// pixels).  The graph-boundary pads are zero-fill when the A tile is filled (a
-// cp.async with source size 0), the counterpart of the TPU kernel's
-// zero-filled VMEM scratch: no padded copy exists in device memory.  The
-// slab runs over the flattened (kh, kw, ci) index, so the Cin = 3 stems
-// waste no lanes.  Where M tiles x N tiles would leave the card
-// under-filled, the K loop is split into chunks whose partial tiles a
-// second pass sums in a fixed order (deterministic, no atomics).  The
-// load width is chosen per call from alignment: 16-byte copies along the
-// channels (4 in f32, 8 in a 2-byte type) where Cin is a multiple of that
-// and the view is aligned, one element a copy otherwise.
+// slice.  Block tiles of BM x 64 (chosen per call by
+// repro_torch/kernels/gemm.py from M and the pair's loop), with 32- or
+// 64-deep slabs of the implicit im2col tile and the weight staged through
+// a 3-stage cp.async ring in shared memory, and two or four groups of 128
+// threads splitting each slab's depth.  x and w in one 2-byte type
+// (_bf16, _f16) run the tensor-core loop (ldmatrix fragments,
+// mma.sync.m16n8k16, f32 accumulators); f32 and a 2-byte x with f32
+// weights run the CUDA-core loop (4x4 register tiles of f32 FMAs).  The
+// graph-boundary pads are zero-fill when the A tile is filled (a cp.async
+// with source size 0), the counterpart of the TPU kernel's zero-filled
+// VMEM scratch: no padded copy exists in device memory.  The slab runs
+// over the flattened (kh, kw, ci) index, so the Cin = 3 stems waste no
+// lanes (a K of 27 or 147 ends in a zero-filled tail of its last slab).
+// Where M tiles x N tiles would leave the card under-filled, the K loop
+// is split into chunks whose partial tiles a second pass sums in a fixed
+// order (deterministic, no atomics).  The load width is chosen per call
+// from alignment: 16-byte copies along the channels (4 in f32, 8 in a
+// 2-byte type) where Cin is a multiple of that and the view is aligned,
+// one element a copy otherwise.
 //
 // Depthwise layers do 2*K*K flops per output element and are bound by
 // bytes; their kernel gives each thread one (ho, wo, c) output with c
 // fastest, so every tap is a coalesced load (neighbouring taps hit L1).
 //
 // Types: like the TPU kernel, which casts both operands to f32 and writes
-// x.dtype, each entry point converts every element to f32 when it reads
-// it, accumulates in f32 and rounds the output once to x's type (round to
-// nearest even).  Entry points by (x, w) type, the output in x's: _f32
+// x.dtype, each entry point forms every product exactly in f32 (on the
+// tensor cores for a same-type 2-byte pair, after converting each
+// element to f32 otherwise), accumulates in f32 and rounds the output
+// once to x's type (round to nearest even).  Entry points by (x, w) type, the output in x's: _f32
 // (f32, f32), _bf16 and _f16 (both operands in the 2-byte type), _bf16_f32
 // and _f16_f32 (a 2-byte x with f32 weights).  The wrapper reaches every
 // other pair the TPU kernel takes by an exact upcast of the weight to f32.

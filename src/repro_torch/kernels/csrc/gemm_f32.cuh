@@ -18,30 +18,43 @@
 //
 // Element types: the loop is a template on the types of x (TX), w (TW) and
 // out (TO), each float, __nv_bfloat16 or __half.  Slabs sit in shared
-// memory in their own types; every element is converted to f32 when a
-// thread reads it into registers, the products are f32 FMAs on CUDA cores
-// (no tensor cores, no TF32), the K groups' sum and the split-K workspace
-// are f32, and the output is rounded once to TO (round to nearest even)
-// where it is written: by the tile's epilogue with one split, by
-// splitk_reduce after its f32 sum otherwise.
+// memory in their own types.  Two compute loops read them:
+//
+// * the tensor-core loop (mma_kernel), for x and w in one 2-byte type:
+//   each warp reads its fragments with ldmatrix, untouched, and multiplies
+//   them with mma.sync.m16n8k16 (bf16 or fp16 operands, f32 accumulators
+//   in registers).  The products are exact in f32; how the tensor core
+//   adds a step's 16 products to the accumulator is the hardware's.
+// * the CUDA-core loop (gemm_kernel), for f32 and the mixed pairs (a
+//   2-byte x with f32 weights): every element is converted to f32 when a
+//   thread reads it into registers and the products are f32 FMAs (no
+//   TF32: the f32 route keeps the reference's 1e-4).
+//
+// Either way the K groups' sum and the split-K sum are f32, and the
+// output is rounded once to TO (round to nearest even) where it is
+// written: by the tile's epilogue with one split, after the f32 sum of
+// the splits otherwise (splitk_reduce).
 //
 // The loop: a block owns a BM x 64 output tile and one K chunk of
 // `kchunk` (a multiple of BK).  BK-deep slabs of A and B stream through a
 // 3-stage ring in shared memory: while the block computes on slab t,
 // slabs t+1 and t+2 are in flight.  A pad tap or a ragged edge is a
 // cp.async with source size 0, which fills the shared-memory tile with
-// zeros without touching device memory.  Each thread keeps a TM x 4
-// register tile, so four B values read from shared memory feed 4*TM
-// FMAs; KG groups of 128 threads split each slab's depth and add their
-// tiles in shared memory at the end, in group order.  A 1x1 conv or FC
-// shard (K == 1) takes a one-tap path: each row's x offset is set once
-// per block and k is the channel, so the loaders do no tap arithmetic.
+// zeros without touching device memory.  KG groups of 128 threads split
+// each slab's depth and add their tiles in shared memory at the end, in
+// group order.  On CUDA cores each thread keeps a TM x 4 register tile,
+// so four B values read from shared memory feed 4*TM FMAs; on the tensor
+// cores each of a group's four warps keeps MI x NI m16n8 accumulator
+// fragments.  A 1x1 conv or FC shard (K == 1) takes a one-tap path: each
+// row's x offset is set once per block and k is the channel, so the
+// loaders do no tap arithmetic.
 //
 // Split-K: with splits > 1 the blocks of chunk s write their partial tile
 // to ws[s, M, N] (an f32 workspace the caller allocates) and a second
-// pass sums the splits in the fixed order 0, 1, ..., splits-1.  No atomics:
-// the same call gives the same bits every time.  Both passes are launched
-// as programmatic dependents (Hopper), so each one's launch overlaps the
+// pass sums the splits in the fixed order 0, 1, ..., splits-1.  No
+// atomics: the same call gives the same bits every time.  Every pass is
+// launched as a
+// programmatic dependent (Hopper), so each one's launch overlaps the
 // tail of the kernel before it.
 //
 // Routes, chosen by the caller from alignment, per operand: AVEC loads A
@@ -53,12 +66,15 @@
 // unit output-channel stride, a 16-byte aligned w and the other strides
 // multiples of 16 / sizeof(TW)), else one element a copy.  The launcher
 // re-checks each precondition and returns cudaErrorInvalidValue rather
-// than launch a misaligned copy.
+// than launch a misaligned copy, a tile config that is not the pair's
+// loop (a tensor-core config for f32 or a mixed pair, a CUDA-core one for
+// a same-type 2-byte pair) or a split without a workspace.
 
 #pragma once
 
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -219,15 +235,26 @@ __device__ __forceinline__ Tap tap_of(const P& p, int tap0, int kh0, int kw0,
 }
 
 // Row stride of the A slab in shared memory, in elements: BK plus one
-// 16-byte copy, so every row starts 16-byte aligned.
+// 16-byte copy, so every row starts 16-byte aligned.  In a 2-byte type
+// that is 80 bytes (BK 32) or 144 (BK 64): an ldmatrix over 8 rows of
+// one column block then touches 8 distinct bank quads.
 template <int BK, typename TX>
 constexpr int kAStride = BK + kVec<TX>;
 
+// Row stride of the B slab in shared memory, in elements: the CUDA-core
+// loop reads rows of kBN unpadded (a thread reads 4 consecutive columns);
+// the tensor-core loop pads each row by one 16-byte copy (72 elements,
+// 144 bytes), so the 8 k-rows of one ldmatrix.trans fall on 8 distinct
+// bank quads instead of one, and every row stays 16-byte aligned.
+template <bool MMA, typename TW>
+constexpr int kBStride = MMA ? kBN + kVec<TW> : kBN;
+
 // Issues the copies of one slab, flattened K index k0 .. k0+BK-1 (only
-// those below ke are live), into the stage buffers as / bs.  The slab's
-// first tap is decomposed once; a row inside it costs one add.
-template <int BM, int BN, int BK, int THREADS, bool K1, bool AVEC, bool BVEC,
-          typename TX, typename TW, typename TO>
+// those below ke are live), into the stage buffers as (rows kAStride
+// apart) and bs (rows BST apart).  The slab's first tap is decomposed
+// once; a row inside it costs one add.
+template <int BM, int BN, int BST, int BK, int THREADS, bool K1, bool AVEC,
+          bool BVEC, typename TX, typename TW, typename TO>
 __device__ __forceinline__ void load_slab(const Problem<TX, TW, TO>& p,
                                           const int* rowh, const int* roww,
                                           const long long* rowoff, TX* as,
@@ -279,11 +306,11 @@ __device__ __forceinline__ void load_slab(const Problem<TX, TW, TO>& p,
     }
     if constexpr (BVEC) {
       const int live = k0 + d < ke ? min(BW, max(0, p.N - gn)) : 0;
-      cp_async16(bs + d * BN + n, live ? row + gn : p.w,
+      cp_async16(bs + d * BST + n, live ? row + gn : p.w,
                  live * (int)sizeof(TW));
     } else {
       const bool ok = k0 + d < ke && gn < p.N;
-      copy1(bs + d * BN + n, ok ? row + gn * p.swo : p.w, ok);
+      copy1(bs + d * BST + n, ok ? row + gn * p.swo : p.w, ok);
     }
   }
 }
@@ -301,6 +328,30 @@ __device__ __forceinline__ void release_dependents() {
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 }
 
+// The top-left input tap of each of the tile's BM output rows; rows past
+// M get a row index that fails every bound check (K1: offset -1 for a
+// row past M or a tap in the pads).
+template <int BM, int THREADS, typename P>
+__device__ __forceinline__ void set_rows(const P& p, int m0, int* rowh,
+                                         int* roww, long long* rowoff,
+                                         int tid) {
+  for (int r = tid; r < BM; r += THREADS) {
+    const int m = m0 + r;
+    if (m < p.M) {
+      const int ho = m / p.Wo;
+      rowh[r] = ho * p.S - p.pt;
+      roww[r] = (m - ho * p.Wo) * p.S - p.pl;
+    } else {
+      rowh[r] = INT_MIN / 2;
+      roww[r] = 0;
+    }
+    const bool in = (unsigned)rowh[r] < (unsigned)p.Hl &&
+                    (unsigned)roww[r] < (unsigned)p.Wl;
+    rowoff[r] = in ? rowh[r] * p.sxh + roww[r] * p.sxw : -1;
+  }
+}
+
+// The CUDA-core loop: f32 and the mixed pairs.
 template <int BM, int BK, int TM, int KG, int STAGES, bool K1, bool AVEC,
           bool BVEC, typename TX, typename TW, typename TO>
 __global__ void __launch_bounds__(kGroup* KG)
@@ -335,23 +386,7 @@ __global__ void __launch_bounds__(kGroup* KG)
   const int ke = min(p.Kdim, kb + p.kchunk);
   const int nslab = (ke - kb + BK - 1) / BK;
 
-  // top-left input tap of each output row of the tile; rows past M get a
-  // row index that fails every bound check (K1: offset -1 for a row past
-  // M or a tap in the pads)
-  for (int r = tid; r < BM; r += THREADS) {
-    const int m = m0 + r;
-    if (m < p.M) {
-      const int ho = m / p.Wo;
-      rowh[r] = ho * p.S - p.pt;
-      roww[r] = (m - ho * p.Wo) * p.S - p.pl;
-    } else {
-      rowh[r] = INT_MIN / 2;
-      roww[r] = 0;
-    }
-    const bool in = (unsigned)rowh[r] < (unsigned)p.Hl &&
-                    (unsigned)roww[r] < (unsigned)p.Wl;
-    rowoff[r] = in ? rowh[r] * p.sxh + roww[r] * p.sxw : -1;
-  }
+  set_rows<BM, THREADS>(p, m0, rowh, roww, rowoff, tid);
   __syncthreads();
   wait_prior_grid();
   release_dependents();
@@ -365,7 +400,7 @@ __global__ void __launch_bounds__(kGroup* KG)
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < nslab)
-      load_slab<BM, BN, BK, THREADS, K1, AVEC, BVEC>(
+      load_slab<BM, BN, BN, BK, THREADS, K1, AVEC, BVEC>(
           p, rowh, roww, rowoff, As + s * BM * AST, Bs + s * BK * BN,
           kb + s * BK, ke, n0, tid);
     cp_async_commit();
@@ -375,7 +410,7 @@ __global__ void __launch_bounds__(kGroup* KG)
     __syncthreads();  // slab t landed for all; stage (t-1) % STAGES is free
     const int nxt = t + STAGES - 1;
     if (nxt < nslab)
-      load_slab<BM, BN, BK, THREADS, K1, AVEC, BVEC>(
+      load_slab<BM, BN, BN, BK, THREADS, K1, AVEC, BVEC>(
           p, rowh, roww, rowoff, As + (nxt % STAGES) * BM * AST,
           Bs + (nxt % STAGES) * BK * BN, kb + nxt * BK, ke, n0, tid);
     cp_async_commit();
@@ -454,6 +489,224 @@ __global__ void __launch_bounds__(kGroup* KG)
   }
 }
 
+// ---- the tensor-core loop: x and w in one 2-byte type ----
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// Four 8x8 matrices of 2-byte elements; lane l gives the address of row
+// l % 8 of matrix l / 8 (16 bytes each, 16-byte aligned).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// The same, each matrix transposed on the way into registers.
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// d += a (16 x 16, row-major) @ b (16 x 8, column-major), f32 accumulators
+template <typename T>
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1);
+template <>
+__device__ __forceinline__ void mma16816<__nv_bfloat16>(
+    float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+template <>
+__device__ __forceinline__ void mma16816<__half>(float (&d)[4],
+                                                 const uint32_t (&a)[4],
+                                                 uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A group's four warps tile BM x 64 as WM x WN warps, each warp MI m16
+// fragments by NI n8 fragments.  The ring, its loaders, the K groups'
+// split of each slab, the group sum, split-K and the rounding are the
+// CUDA-core loop's; only the fragment reads and the products differ.
+// Per k16 step a warp issues MI + NI/2 ldmatrix and MI * NI mma for
+// MI * NI * 2048 products; on CUDA cores a warp instruction is 32 FMAs,
+// after a shared load and a conversion per element.
+// (One block an SM in the bound: ptxas then keeps every instance free
+// of spills.)
+template <int BM, int BK, int MI, int KG, int STAGES, bool K1, bool AVEC,
+          bool BVEC, typename T>
+__global__ void __launch_bounds__(kGroup* KG, 1)
+    mma_kernel(const __grid_constant__ Problem<T, T, T> p) {
+  static_assert(sizeof(T) == 2, "bf16 or fp16 operands");
+  constexpr int THREADS = kGroup * KG;
+  constexpr int BN = kBN;
+  constexpr int KS = BK / KG;  // slab depth of one group
+  static_assert(KS % 16 == 0, "a group takes whole k16 steps");
+  constexpr int WM = BM / (16 * MI);  // warps along M
+  static_assert(WM >= 1 && WM * 16 * MI == BM && 4 % WM == 0,
+                "four warps tile the block's rows");
+  constexpr int WN = 4 / WM;          // warps along N
+  constexpr int NI = BN / (8 * WN);   // n8 fragments of a warp
+  static_assert(NI % 2 == 0 && NI * 8 * WN == BN,
+                "B fragments load two n8 columns at a time");
+  constexpr int AST = kAStride<BK, T>;
+  constexpr int BST = kBStride<true, T>;
+  constexpr int A_BYTES = BM * AST * (int)sizeof(T);
+  constexpr int B_BYTES = BK * BST * (int)sizeof(T);
+  static_assert(A_BYTES % 16 == 0 && B_BYTES % 16 == 0,
+                "every stage buffer starts 16-byte aligned");
+  constexpr int RING = STAGES * (A_BYTES + B_BYTES);
+  // the ring, or at the end the KG-1 parked f32 group tiles
+  constexpr int PARK = (KG - 1) * BM * BN * (int)sizeof(float);
+  __shared__ __align__(16) unsigned char smem[RING > PARK ? RING : PARK];
+  __shared__ int rowh[BM], roww[BM];
+  __shared__ long long rowoff[BM];
+  T* const As = reinterpret_cast<T*>(smem);  // [STAGES][BM * AST]
+  T* const Bs =
+      reinterpret_cast<T*>(smem + STAGES * A_BYTES);  // [STAGES][BK * BST]
+
+  const int tid = threadIdx.x;
+  const int kg = tid / kGroup;
+  const int lane = tid % 32, warp = tid % kGroup / 32;
+  const int wr = warp / WN * 16 * MI;  // the warp's first row in the tile
+  const int wc = warp % WN * 8 * NI;   // and its first column
+  const int n0 = blockIdx.x * BN;
+  const int m0 = blockIdx.y * BM;
+  const int kb = blockIdx.z * p.kchunk;
+  const int ke = min(p.Kdim, kb + p.kchunk);
+  const int nslab = (ke - kb + BK - 1) / BK;
+
+  set_rows<BM, THREADS>(p, m0, rowh, roww, rowoff, tid);
+  __syncthreads();
+  wait_prior_grid();
+  release_dependents();
+
+  float acc[MI][NI][4];
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NI; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nslab)
+      load_slab<BM, BN, BST, BK, THREADS, K1, AVEC, BVEC>(
+          p, rowh, roww, rowoff, As + s * BM * AST, Bs + s * BK * BST,
+          kb + s * BK, ke, n0, tid);
+    cp_async_commit();
+  }
+  // lane l reads A rows l % 16 at column block l / 16, and B k-rows
+  // l % 16 at n8 block l / 16: the four 8x8 matrices of an m16k16 A
+  // fragment, and (transposed) of two k16n8 B fragments
+  const T* const a_lane = As + (wr + (lane & 15)) * AST + (lane >> 4) * 8;
+  const T* const b_lane = Bs + (lane & 15) * BST + wc + (lane >> 4) * 8;
+  for (int t = 0; t < nslab; ++t) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // slab t landed for all; stage (t-1) % STAGES is free
+    const int nxt = t + STAGES - 1;
+    if (nxt < nslab)
+      load_slab<BM, BN, BST, BK, THREADS, K1, AVEC, BVEC>(
+          p, rowh, roww, rowoff, As + (nxt % STAGES) * BM * AST,
+          Bs + (nxt % STAGES) * BK * BST, kb + nxt * BK, ke, n0, tid);
+    cp_async_commit();
+
+    const T* as = a_lane + (t % STAGES) * BM * AST + kg * KS;
+    const T* bs = b_lane + (t % STAGES) * BK * BST + kg * KS * BST;
+#pragma unroll
+    for (int k = 0; k < KS; k += 16) {
+      uint32_t a[MI][4];
+#pragma unroll
+      for (int i = 0; i < MI; ++i) ldsm_x4(a[i], as + i * 16 * AST + k);
+      uint32_t b[NI][2];
+#pragma unroll
+      for (int j = 0; j < NI / 2; ++j) {
+        uint32_t r[4];
+        ldsm_x4_t(r, bs + k * BST + j * 16);
+        b[2 * j][0] = r[0];
+        b[2 * j][1] = r[1];
+        b[2 * j + 1][0] = r[2];
+        b[2 * j + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int j = 0; j < NI; ++j)
+          mma16816<T>(acc[i][j], a[i], b[j][0], b[j][1]);
+    }
+  }
+  cp_async_wait<0>();
+
+  if constexpr (KG > 1) {
+    // groups 1 .. KG-1 park their fragments in the (now idle) ring, in
+    // fragment order (the same thread of every group holds the same
+    // outputs); group 0 adds them in group order
+    constexpr int FR = MI * NI * 4;
+    float* const parked = reinterpret_cast<float*>(smem);
+    const int lt = tid % kGroup;
+    __syncthreads();
+    if (kg > 0) {
+      float* park = parked + (kg - 1) * FR * kGroup + lt;
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int j = 0; j < NI; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            park[((i * NI + j) * 4 + e) * kGroup] = acc[i][j][e];
+    }
+    __syncthreads();
+    if (kg > 0) return;
+#pragma unroll
+    for (int g = 0; g < KG - 1; ++g) {
+      const float* park = parked + g * FR * kGroup + lt;
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int j = 0; j < NI; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[i][j][e] += park[((i * NI + j) * 4 + e) * kGroup];
+    }
+  }
+
+  // fragment element e of lane l: row l / 4 (+8 for e >= 2), column
+  // 2 * (l % 4) + e % 2
+  const bool partial = p.splits > 1;
+  float* const part = p.ws + (long long)blockIdx.z * p.M * p.N;
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wr + i * 16 + (lane >> 2) + h * 8;
+      if (m >= p.M) continue;
+#pragma unroll
+      for (int j = 0; j < NI; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int n = n0 + wc + j * 8 + 2 * (lane & 3) + e;
+          if (n >= p.N) continue;
+          const float v = acc[i][j][2 * h + e];
+          if (partial)
+            part[(long long)m * p.N + n] = v;
+          else
+            p.out[m * p.ldo + n] = from_f32<T>(v);
+        }
+    }
+}
+
 // out[m, n] = sum over s = 0 .. splits-1, in that order, of ws[s, m, n],
 // rounded once to TO; 4 consecutive outputs a thread (vec: M*N and ldo
 // multiples of 4, out aligned to 4 outputs)
@@ -506,30 +759,42 @@ cudaError_t launch_pdl(void (*kernel)(Params...), dim3 grid, int threads,
   return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
-template <int BM, int BK, int TM, int KG, int STAGES, bool K1, typename TX,
-          typename TW, typename TO>
-cudaError_t launch_tiles(const Problem<TX, TW, TO>& p, bool avec, bool bvec,
-                         dim3 grid, cudaStream_t st) {
+// One tile config on its loop: MMA picks mma_kernel (TM is then MI, the
+// m16 fragments of a warp), else gemm_kernel.
+template <bool MMA, int BM, int BK, int TM, int KG, int STAGES, bool K1,
+          bool AVEC, bool BVEC, typename TX, typename TW, typename TO>
+cudaError_t launch_one(const Problem<TX, TW, TO>& p, dim3 grid,
+                       cudaStream_t st) {
   constexpr int THREADS = kGroup * KG;
-  if (avec && bvec)
+  if constexpr (MMA)
     return launch_pdl(
-        gemm_kernel<BM, BK, TM, KG, STAGES, K1, true, true, TX, TW, TO>,
-        grid, THREADS, st, p);
-  if (avec)
+        mma_kernel<BM, BK, TM, KG, STAGES, K1, AVEC, BVEC, TX>, grid,
+        THREADS, st, p);
+  else
     return launch_pdl(
-        gemm_kernel<BM, BK, TM, KG, STAGES, K1, true, false, TX, TW, TO>,
+        gemm_kernel<BM, BK, TM, KG, STAGES, K1, AVEC, BVEC, TX, TW, TO>,
         grid, THREADS, st, p);
-  if (bvec)
-    return launch_pdl(
-        gemm_kernel<BM, BK, TM, KG, STAGES, K1, false, true, TX, TW, TO>,
-        grid, THREADS, st, p);
-  return launch_pdl(
-      gemm_kernel<BM, BK, TM, KG, STAGES, K1, false, false, TX, TW, TO>,
-      grid, THREADS, st, p);
 }
 
-template <int BM, int BK, int TM, int KG, int STAGES, typename TX,
-          typename TW, typename TO>
+template <bool MMA, int BM, int BK, int TM, int KG, int STAGES, bool K1,
+          typename TX, typename TW, typename TO>
+cudaError_t launch_tiles(const Problem<TX, TW, TO>& p, bool avec, bool bvec,
+                         dim3 grid, cudaStream_t st) {
+  if (avec && bvec)
+    return launch_one<MMA, BM, BK, TM, KG, STAGES, K1, true, true>(
+        p, grid, st);
+  if (avec)
+    return launch_one<MMA, BM, BK, TM, KG, STAGES, K1, true, false>(
+        p, grid, st);
+  if (bvec)
+    return launch_one<MMA, BM, BK, TM, KG, STAGES, K1, false, true>(
+        p, grid, st);
+  return launch_one<MMA, BM, BK, TM, KG, STAGES, K1, false, false>(
+      p, grid, st);
+}
+
+template <bool MMA, int BM, int BK, int TM, int KG, int STAGES,
+          typename TX, typename TW, typename TO>
 int launch_cfg(const Problem<TX, TW, TO>& p, bool avec, bool bvec,
                cudaStream_t st) {
   if (p.kchunk % BK != 0) return (int)cudaErrorInvalidValue;
@@ -537,9 +802,10 @@ int launch_cfg(const Problem<TX, TW, TO>& p, bool avec, bool bvec,
                   (unsigned)((p.M + BM - 1) / BM), (unsigned)p.splits);
   const cudaError_t err =
       p.K == 1
-          ? launch_tiles<BM, BK, TM, KG, STAGES, true>(p, avec, bvec, grid, st)
-          : launch_tiles<BM, BK, TM, KG, STAGES, false>(p, avec, bvec, grid,
-                                                        st);
+          ? launch_tiles<MMA, BM, BK, TM, KG, STAGES, true>(p, avec, bvec,
+                                                           grid, st)
+          : launch_tiles<MMA, BM, BK, TM, KG, STAGES, false>(p, avec, bvec,
+                                                            grid, st);
   if (err != cudaSuccess || p.splits == 1) return (int)err;
   const long long mn = (long long)p.M * p.N;
   const long long blocks = (mn + 1023) / 1024;
@@ -551,6 +817,34 @@ int launch_cfg(const Problem<TX, TW, TO>& p, bool avec, bool bvec,
                                 p.ws, p.out, p.M, p.N, p.ldo, p.splits)
                    : launch_pdl(splitk_reduce<false, TO>, rgrid, 256, st,
                                 p.ws, p.out, p.M, p.N, p.ldo, p.splits));
+}
+
+// x, w and out in one 2-byte type: the pairs the tensor-core loop takes
+template <typename TX, typename TW, typename TO>
+constexpr bool kMmaPair = std::is_same_v<TX, TW> && std::is_same_v<TX, TO> &&
+                          sizeof(TX) == 2;
+
+// A CUDA-core config <BM, BK, TM, KG, STAGES>: f32 and mixed pairs only.
+template <int BM, int BK, int TM, int KG, int STAGES, typename TX,
+          typename TW, typename TO>
+int fma_cfg(const Problem<TX, TW, TO>& p, bool avec, bool bvec,
+            cudaStream_t st) {
+  if constexpr (kMmaPair<TX, TW, TO>)
+    return (int)cudaErrorInvalidValue;
+  else
+    return launch_cfg<false, BM, BK, TM, KG, STAGES>(p, avec, bvec, st);
+}
+
+// A tensor-core config <BM, BK, MI, KG, STAGES>: same-type 2-byte pairs
+// only.
+template <int BM, int BK, int MI, int KG, int STAGES, typename TX,
+          typename TW, typename TO>
+int mma_cfg(const Problem<TX, TW, TO>& p, bool avec, bool bvec,
+            cudaStream_t st) {
+  if constexpr (kMmaPair<TX, TW, TO>)
+    return launch_cfg<true, BM, BK, MI, KG, STAGES>(p, avec, bvec, st);
+  else
+    return (int)cudaErrorInvalidValue;
 }
 
 inline bool aligned16(const void* ptr) {
@@ -573,14 +867,18 @@ int launch(const Problem<TX, TW, TO>& p, int cfg, int avec, int bvec,
   if (bvec && (p.swo != 1 || !aligned16(p.w) || p.swi % EB ||
                p.sww % EB || p.swh % EB))
     return (int)cudaErrorInvalidValue;
-  // cfg: <BM, BK, TM, KG, STAGES>
+  // cfg: the tile config, kernels/gemm.py's CONFIGS[cfg]
   switch (cfg) {
-    case 0:  // 32 x 64, 4 K groups: conv shards with many pixels
-      return launch_cfg<32, 32, 4, 4, 3>(p, avec, bvec, st);
-    case 1:  // 32 x 64, 2 K groups: FC shards, conv shards of <= 32 pixels
-      return launch_cfg<32, 32, 4, 2, 3>(p, avec, bvec, st);
-    case 2:  // 8 x 64, 4 K groups: M <= 8, GEMV-like
-      return launch_cfg<8, 32, 1, 4, 3>(p, avec, bvec, st);
+    case 0:  // CUDA cores, 32 x 64, 4 K groups: conv shards, many pixels
+      return fma_cfg<32, 32, 4, 4, 3>(p, avec, bvec, st);
+    case 1:  // CUDA cores, 32 x 64, 2 K groups: FC, conv of <= 32 pixels
+      return fma_cfg<32, 32, 4, 2, 3>(p, avec, bvec, st);
+    case 2:  // CUDA cores, 8 x 64, 4 K groups: M <= 8, GEMV-like
+      return fma_cfg<8, 32, 1, 4, 3>(p, avec, bvec, st);
+    case 3:  // tensor cores, 32 x 64, 2 K groups: M > 16
+      return mma_cfg<32, 64, 2, 2, 3>(p, avec, bvec, st);
+    case 4:  // tensor cores, 16 x 64, 2 K groups: M <= 16
+      return mma_cfg<16, 64, 1, 2, 3>(p, avec, bvec, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

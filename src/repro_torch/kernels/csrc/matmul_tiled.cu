@@ -9,31 +9,43 @@
 //
 // What bounds it on the H100: the FC shards of the main path are skinny.
 // bert-base's INH plan gives [32, K] @ [K, N] at 4 nodes (K, N in 768,
-// 2304, 3072): 2*32*K*N flops on 4*K*N weight bytes, 16 flop/byte, below
-// the f32 ridge of 67 TFLOP/s over 3.35 TB/s (~20), so the work is
-// streaming the weight.  The classifier heads ([1, K] @ [K, 250] column
-// views) are GEMVs, bound by bytes too.
+// 2304, 3072): 2*32*K*N flops on 4*K*N weight bytes in f32, 16 flop/byte,
+// below the f32 ridge of 67 TFLOP/s over 3.35 TB/s (~20), so in f32 the
+// work is streaming the weight.  In bf16 the weight is 2*K*N bytes, 32
+// flop/byte, an order of magnitude below the tensor cores' ridge (~295):
+// still bytes, not products, as long as the products run on the tensor
+// cores; on CUDA cores the same call is bound by issuing its FMAs, loads
+// and conversions (halving the bytes moved it under 1%).  The classifier
+// heads ([1, K] @ [K, 250] column views) are GEMVs, bound by bytes too.
 //
 // The design: a weight-streaming skinny GEMM, the 1x1 case of the shared
 // implicit-GEMM tile loop in gemm_f32.cuh over an [M, 1, K] map.  Each
 // block owns up to 32 rows x 64 columns and one K chunk; the grid is N
 // tiles x split-K chunks, sized by the caller (repro_torch/kernels/gemm.py)
-// to about three waves over the 132 SMs, so a [32, 768] @ [768, 2304]
-// shard runs 36 x 8 blocks.  x and w slabs stream through a 3-stage
-// cp.async ring (16-byte copies where the pointer and leading dimension
-// allow, one element a copy otherwise: an odd node's f32 head view starts
-// 1000 bytes past a 16-byte boundary).  Each thread keeps a 4x4 register tile (1x4 for
-// M <= 8), and two or four groups of 128 threads split every slab's depth,
-// so a block has 8 or 16 warps on one tile.  Split-K partial tiles go to
-// an f32 workspace and a second pass sums them in a fixed order:
-// deterministic, no atomics.
+// to the config's number of waves over the 132 SMs.  x and w slabs stream
+// through a 3-stage cp.async ring (16-byte copies where the pointer and
+// leading dimension allow, one element a copy otherwise: an odd node's
+// head view starts 1000 bytes past a 16-byte boundary), and two or four
+// groups of 128 threads split every slab's depth.  Two compute loops read
+// the ring:
+//
+// * x and w in one 2-byte type (_bf16, _f16): the tensor-core loop, each
+//   warp's fragments read by ldmatrix and multiplied by mma.sync.m16n8k16
+//   with f32 accumulators (a 32 x 16 or 16 x 16 warp tile);
+// * f32 and a 2-byte x with f32 weights (_f32, _bf16_f32, _f16_f32): the
+//   CUDA-core loop, each thread a 4x4 register tile (1x4 for M <= 8) of
+//   f32 FMAs on elements converted to f32 where they are read.
+//
+// Split-K partial tiles go to an f32 workspace and a second pass sums
+// them in a fixed order: deterministic, no atomics.
 //
 // Types: as the TPU kernel, which casts both operands to f32 and writes
-// x.dtype: every element is converted to f32 when it is read, the sum is
-// f32, and the output is rounded once to x's type (round to nearest
-// even).  Entry points by (x, w) type, as conv2d_shard.cu's: _f32, _bf16,
-// _f16, _bf16_f32, _f16_f32.  In a 2-byte type a 16-byte copy is 8
-// elements, and an unaligned view takes plain 2-byte loads.
+// x.dtype: products exact in f32 (a bf16 or fp16 product is exact in f32
+// on the tensor cores), the sum f32, and the output rounded once to x's
+// type (round to nearest even).  Entry points by (x, w) type, as
+// conv2d_shard.cu's: _f32, _bf16, _f16, _bf16_f32, _f16_f32.  In a 2-byte
+// type a 16-byte copy is 8 elements, and an unaligned view takes plain
+// 2-byte loads.
 //
 // Build: see repro_torch/kernels/build.py.  Plain C interface; the entry
 // point launches on the given stream and returns cudaGetLastError().

@@ -5,16 +5,19 @@
 On a machine with a CUDA card and the toolkit.  For the FC and dense conv
 shard shapes of the main path at 4 nodes (bert-base's four ``[32, K] @
 [K, N]`` shards, the classifier heads, ResNet-18's and MobileNet's
-costliest conv shards) it times every tile config of
-:data:`repro_torch.kernels.gemm.CONFIGS` at each K split that whole slabs
-allow, and prints the fastest few beside the split that
-:func:`~repro_torch.kernels.gemm.plan_gemm` picks and one PyTorch library
-call on the same inputs.  Times are device time per call: a pass's worth
-of calls (12 weights, 4 calls each, as four nodes share a layer's weight)
-captured as one CUDA graph and replayed between CUDA events.  It also
-prints the replayed time of one trivial kernel (the launch floor) and,
-from ``torch.profiler`` over isolated FC calls, the tile loop's device
-time alone (without the split-K reduction).  TF32 is off for the library
+costliest conv shards), in f32 and in bf16, it times every tile config
+the launcher takes for the pair (:func:`repro_torch.kernels.gemm.
+configs_for`: the CUDA-core configs in f32, the tensor-core ones in
+bf16) at each K split that whole slabs allow, and prints the fastest few
+and the fastest of each loop beside the split that
+:func:`~repro_torch.kernels.gemm.plan_gemm`
+picks and one PyTorch library call on the same inputs in the same
+dtype.  Times are device time per call: a pass's worth of calls (12
+weights, 4 calls each, as four nodes share a layer's weight) captured as
+one CUDA graph and replayed between CUDA events.  It also prints the
+replayed time of one trivial kernel (the launch floor) and, from
+``torch.profiler`` over isolated FC calls, the tile loop's device time
+alone and the split-K reduction's span.  TF32 is off for the library
 calls.  Exits non-zero without a card.
 """
 from __future__ import annotations
@@ -69,11 +72,12 @@ def replay_us(fn, calls: int) -> float:
     return start.elapsed_time(end) * 1e3 / REPS / calls
 
 
-def sweep(label, m, n, kdim, kernel, library, calls):
-    """Time ``kernel`` under every config and split; print the best."""
-    chosen = gemm.plan_gemm(m, n, kdim)
+def sweep(label, m, n, kdim, kernel, library, calls, mma):
+    """Time ``kernel`` under every config the pair's launcher takes and
+    every split; print the best, and the best of each loop."""
+    chosen = gemm.plan_gemm(m, n, kdim, mma)
     plans = {(chosen.cfg.index, chosen.splits): chosen}
-    for cfg in gemm.CONFIGS:
+    for cfg in gemm.configs_for(mma):
         for want in SPLITS:
             plan = gemm.split_plan(cfg, m, n, kdim, want)
             plans.setdefault((cfg.index, plan.splits), plan)
@@ -83,23 +87,28 @@ def sweep(label, m, n, kdim, kernel, library, calls):
         for plan in plans.values():
             gemm.plan_gemm = lambda *_a, plan=plan: plan
             rows.append((replay_us(kernel, calls), plan.cfg.index,
-                         plan.splits, plan.blocks))
+                         plan.splits, plan.blocks, plan.cfg.route))
     finally:
         gemm.plan_gemm = real
     pick = rows[0][0]
     rows.sort()
     best = "; ".join(f"cfg {c} x {s} splits ({b} blocks) {t:.2f}"
-                     for t, c, s, b in rows[:SHOW])
+                     for t, c, s, b, _ in rows[:SHOW])
+    per_loop = "; ".join(
+        f"{r}: cfg {c} x {s} splits {t:.2f}"
+        for r in ("tensor_cores", "cuda_cores")
+        for t, c, s, _, _ in [row for row in rows if row[4] == r][:1])
     print(f"{label}: chooser cfg {chosen.cfg.index} x {chosen.splits} "
           f"splits {pick:.2f} us; library {replay_us(library, calls):.2f} "
-          f"us; fastest: {best}", flush=True)
+          f"us; fastest: {best}; fastest by loop: {per_loop}", flush=True)
 
 
-def tile_loop_us(x, w) -> float:
-    """Device time of the tile loop alone over isolated calls
-    (synchronised between calls, so no call overlaps another).  The
-    reduction is launched as a programmatic dependent and starts before
-    the tile loop ends, so its span is not its own time."""
+def isolated_us(x, w):
+    """Device time of the tile loop alone and the split-K reduction's
+    span over isolated calls (synchronised between calls, so no call
+    overlaps another).  The reduction is launched as a programmatic
+    dependent and starts before the tile loop ends, so its span is not
+    its own time."""
     from torch.profiler import ProfilerActivity, profile
     matmul_tiled(x, w)
     torch.cuda.synchronize()
@@ -107,8 +116,14 @@ def tile_loop_us(x, w) -> float:
         for _ in range(20):
             matmul_tiled(x, w)
             torch.cuda.synchronize()
-    return next(ev.device_time_total / ev.count
-                for ev in prof.key_averages() if "gemm_kernel" in ev.key)
+    spans = {"loop": 0.0, "reduce": 0.0}
+    for ev in prof.key_averages():
+        key = "reduce" if "splitk_reduce" in ev.key else \
+            "loop" if "gemm_kernel" in ev.key or "mma_kernel" in ev.key \
+            else None
+        if key:
+            spans[key] += ev.device_time_total / 20
+    return spans
 
 
 def main() -> int:
@@ -127,29 +142,37 @@ def main() -> int:
     t = torch.zeros(1024, device=dev)
     floor = replay_us(lambda: [t.mul_(1.0) for _ in range(48)], 48)
     print(f"launch floor: {floor:.2f} us per trivial kernel", flush=True)
-    for m, k, n in FC_SHAPES:
-        x = torch.randn((m, k), generator=gen, device=dev)
-        ws = [torch.randn((k, 4 * n), generator=gen, device=dev)[:, n:2 * n]
-              for _ in range(12)]
-        sweep(f"fc [{m},{k}] @ [{k},{n}]", m, n, k,
-              lambda: [matmul_tiled(x, w) for w in ws for _ in range(4)],
-              lambda: [torch.matmul(x, w) for w in ws for _ in range(4)],
-              48)
-        print(f"  tile loop alone (isolated calls, torch.profiler): "
-              f"{tile_loop_us(x, ws[0]):.2f} us", flush=True)
-    for rows, width, cin, cout, k, s, pads in CONV_SHAPES:
-        x = torch.randn((rows, width + 2, cin), generator=gen,
-                        device=dev)[:, 1:1 + width]
-        ws = [torch.randn((k, k, cin, cout), generator=gen, device=dev)
-              for _ in range(4)]
-        ho, wo = shard_out_shape(rows, width, k, s, pads)
-        pt, pb, pl_, pr = pads
-        xn = F.pad(x.permute(2, 0, 1)[None], (pl_, pr, pt, pb))
-        wn = [w.permute(3, 2, 0, 1) for w in ws]
-        sweep(f"conv [{rows},{width},{cin}] k{k} s{s} pads {pads} -> "
-              f"{cout}", ho * wo, cout, k * k * cin,
-              lambda: [conv2d_shard(x, w, pads=pads, stride=s) for w in ws],
-              lambda: [F.conv2d(xn, w, stride=s) for w in wn], len(ws))
+    for dtype in (torch.float32, torch.bfloat16):
+        mma = dtype != torch.float32
+        tag = str(dtype).replace("torch.", "")
+        for m, k, n in FC_SHAPES:
+            x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+            ws = [torch.randn((k, 4 * n), generator=gen,
+                              device=dev).to(dtype)[:, n:2 * n]
+                  for _ in range(12)]
+            sweep(f"{tag} fc [{m},{k}] @ [{k},{n}]", m, n, k,
+                  lambda: [matmul_tiled(x, w) for w in ws for _ in range(4)],
+                  lambda: [torch.matmul(x, w) for w in ws for _ in range(4)],
+                  48, mma)
+            spans = isolated_us(x, ws[0])
+            print(f"  isolated calls (torch.profiler): tile loop "
+                  f"{spans['loop']:.2f} us, split-K reduction span "
+                  f"{spans['reduce']:.2f} us", flush=True)
+        for rows, width, cin, cout, k, s, pads in CONV_SHAPES:
+            x = torch.randn((rows, width + 2, cin), generator=gen,
+                            device=dev).to(dtype)[:, 1:1 + width]
+            ws = [torch.randn((k, k, cin, cout), generator=gen,
+                              device=dev).to(dtype) for _ in range(4)]
+            ho, wo = shard_out_shape(rows, width, k, s, pads)
+            pt, pb, pl_, pr = pads
+            xn = F.pad(x.permute(2, 0, 1)[None], (pl_, pr, pt, pb))
+            wn = [w.permute(3, 2, 0, 1) for w in ws]
+            sweep(f"{tag} conv [{rows},{width},{cin}] k{k} s{s} pads "
+                  f"{pads} -> {cout}", ho * wo, cout, k * k * cin,
+                  lambda: [conv2d_shard(x, w, pads=pads, stride=s)
+                           for w in ws],
+                  lambda: [F.conv2d(xn, w, stride=s) for w in wn], len(ws),
+                  mma)
     print(f"[{card}]", flush=True)
     return 0
 

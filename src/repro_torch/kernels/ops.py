@@ -8,16 +8,19 @@ weight-streaming kernel in ``csrc/matmul_tiled.cu`` (the 1x1 case of the
 implicit-GEMM tile loop in ``csrc/gemm_f32.cuh``; no library GEMM).  On
 the card it takes ``x`` in f32, bf16 or fp16 and ``w`` in any of the
 three, by the rule of :func:`repro_torch.kernels.conv2d.kernel_operands`:
-every element read as f32, one rounding of the output.
+f32 sums, one rounding of the output; x and w in one 2-byte dtype on
+the tensor cores, the other pairs on CUDA cores.
 :mod:`repro_torch.kernels.gemm` picks its tile, K split and load widths
-per call; a split call also runs
-the kernel's reduction pass, and still counts one launch.  It raises
+per call; a split call also runs the kernel's reduction pass, and still
+counts one launch.  It raises
 :class:`UnsupportedGeometry` on a zero-size dimension; CPU tensors run the
 plain version, CUDA tensors launch the kernel or raise (see
 :mod:`repro_torch.kernels.conv2d` for the dispatch rules).  The weight is
 read through its leading dimension, so the plan's column slice
 ``w[:, c0:c1]`` is not copied.  ``matmul_tiled.launches`` counts the
-calls that ran the kernel.
+calls that ran the kernel, and ``matmul_tiled.routes`` the same calls by
+loop: ``tensor_cores`` (x and w in one 2-byte dtype) or ``cuda_cores``
+(f32 and the mixed pairs).
 
 ``flash_attention`` is the reference's public attention wrapper on the
 model layout ``[B, H, S, hd]`` with ``[B, KV, S, hd]`` keys and values
@@ -72,7 +75,7 @@ def matmul_tiled(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"matmul_tiled needs unit column strides, got "
                            f"{x.stride()} and {w.stride()}")
     out = torch.empty((M, cout), dtype=x.dtype, device=x.device)
-    ws, ws_ptr, tail = gemm.launch_args(x, w, M, cout, cin, cin)
+    ws, ws_ptr, tail, route = gemm.launch_args(x, w, M, cout, cin, cin)
     lib = build.load("matmul_tiled")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = getattr(lib, f"matmul_tiled_{suffix}")(
@@ -81,10 +84,13 @@ def matmul_tiled(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(f"matmul_tiled launch failed: cudaError {rc}")
     matmul_tiled.launches += 1
+    matmul_tiled.routes[route] += 1
     return out
 
 
 matmul_tiled.launches = 0
+#: launches by loop (:attr:`repro_torch.kernels.gemm.TileConfig.route`)
+matmul_tiled.routes = {"tensor_cores": 0, "cuda_cores": 0}
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

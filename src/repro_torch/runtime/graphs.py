@@ -35,13 +35,16 @@ paused for the length of each capture and frees such graphs between
 captures.
 
 Launch counters: the ``launches`` counter of each kernel wrapper
-(:data:`COUNTED`) counts kernels that ran on the device.  A capture runs
-nothing, so what the wrappers add while one is under way is taken back
-and kept as the program's counts, which every replay adds.
+(:data:`COUNTED`), and the per-route ``routes`` counts of the two shard
+kernels, count kernels that ran on the device.  A capture runs nothing,
+so what the wrappers add while one is under way is taken back and kept
+as the program's counts, which every replay adds.
 
 Faults propagate.  An operation that a capture does not permit (a host
 sync such as ``.item()``) fails the capture and raises; nothing falls
-back to the eager path.
+back to the eager path.  The device's default generator is left with the
+state it had before the failed capture, so the process draws from it as
+before.
 """
 from __future__ import annotations
 
@@ -93,6 +96,7 @@ class GraphProgram:
         self.graph = None
         self.out = None
         self.launches = ()
+        self.routes = ()
 
     def __call__(self, *args: torch.Tensor) -> Any:
         for dst, src in zip(self.inputs, args):
@@ -106,10 +110,14 @@ class GraphProgram:
         self.graph.replay()
         for wrapper, n in self.launches:
             wrapper.launches += n
+        for wrapper, by in self.routes:
+            for route, n in by.items():
+                wrapper.routes[route] += n
         return self.out
 
-    def _capture(self) -> None:
+    def _record(self) -> None:
         before = [f.launches for f in COUNTED]
+        routed = [(f, dict(f.routes)) for f in COUNTED if hasattr(f, "routes")]
         graph = torch.cuda.CUDAGraph()
         stream = _capture_stream(self.device)
         current = torch.cuda.current_stream(self.device)
@@ -126,10 +134,31 @@ class GraphProgram:
             self.launches = tuple((f, f.launches - n)
                                   for f, n in zip(COUNTED, before)
                                   if f.launches != n)
+            self.routes = tuple(
+                (f, {r: f.routes[r] - n for r, n in by.items()
+                     if f.routes[r] != n})
+                for f, by in routed if f.routes != by)
         finally:
             if collecting:
                 gc.enable()
             for f, n in zip(COUNTED, before):
                 f.launches = n
+            for f, by in routed:
+                f.routes.update(by)
         current.wait_stream(stream)
         self.graph, self.out = graph, out
+
+    def _capture(self) -> None:
+        """:meth:`_record` with the device's default generator restored if
+        the capture fails: a capture registers the generator with its
+        graph, and a failed one ends without taking it back, after which
+        every draw on the device raises.  The generator gets back the
+        state it had before the capture (draws inside a capture do not
+        advance it)."""
+        rng = torch.cuda.default_generators[self.device.index]
+        before = rng.clone_state()
+        try:
+            self._record()
+        except BaseException:
+            rng.graphsafe_set_state(before)
+            raise

@@ -161,7 +161,7 @@ def test_wrappers_raise_on_operands_the_kernels_do_not_take(cuda):
 def _forced(cfg, splits):
     """A plan_gemm stand-in that takes tile config ``cfg`` and (at most)
     ``splits`` K chunks, to drive one route of the tile loop."""
-    return lambda m, n, k: gemm.split_plan(cfg, m, n, k, splits)
+    return lambda m, n, k, mma=False: gemm.split_plan(cfg, m, n, k, splits)
 
 
 def _route(plan, x, cin, w):
@@ -202,7 +202,8 @@ def test_matmul_kernel_on_head_column_views(cuda, cin):
     assert routes == {True, False}
 
 
-@pytest.mark.parametrize("cfg", gemm.CONFIGS, ids=lambda c: f"bm{c.bm}")
+@pytest.mark.parametrize("cfg", gemm.configs_for(False),
+                         ids=lambda c: f"bm{c.bm}")
 def test_kernels_with_k_off_the_slab(cuda, monkeypatch, cfg):
     """K not a multiple of any slab depth, with and without a split: the
     last slab's ragged end is zero-filled, not read."""
@@ -272,11 +273,12 @@ def test_pointwise_conv_kernel_with_pads_and_stride(cuda):
 
 
 def test_every_route_of_the_tile_loop(cuda, monkeypatch):
-    """Each tile config x split or not x 16- or 4-byte activation copies x
-    16- or 4-byte weight copies, on matmul and on a strided conv shard."""
+    """Each f32 tile config x split or not x 16- or 4-byte activation
+    copies x 16- or 4-byte weight copies, on matmul and on a strided conv
+    shard."""
     gen = torch.Generator(device=cuda).manual_seed(5)
     seen = set()
-    for cfg in gemm.CONFIGS:
+    for cfg in gemm.configs_for(False):
         for splits in (1, 4):
             monkeypatch.setattr(gemm, "plan_gemm", _forced(cfg, splits))
             m, k, n = cfg.bm + 3, 96, 72
@@ -295,7 +297,7 @@ def test_every_route_of_the_tile_loop(cuda, monkeypatch):
                     ref = conv2d_shard_ref(x, w, pads=(0, 1, 1, 0),
                                            stride=1)
                     assert _rel_err(out, ref) < 1e-4
-    assert seen == {(c.index, sp, xv, wv) for c in gemm.CONFIGS
+    assert seen == {(c.index, sp, xv, wv) for c in gemm.configs_for(False)
                     for sp in (False, True) for xv in (False, True)
                     for wv in (False, True)}
 
@@ -1902,6 +1904,27 @@ def test_a_capture_that_reads_the_host_raises(cuda, monkeypatch):
     torch.cuda.synchronize()
 
 
+def test_the_default_generator_draws_after_a_failed_capture(cuda):
+    """A capture that fails leaves the card's default generator as it was
+    before the capture: the process draws from it again, and draws what
+    it would have drawn had the capture not been tried."""
+    def host_read(t):
+        torch.randn(4, device=cuda)
+        return t * int(t.sum())
+
+    ones = torch.ones(4, device=cuda)
+    torch.manual_seed(3)
+    torch.randn(4, device=cuda)
+    want = torch.randn(2, 8, device=cuda)
+    torch.manual_seed(3)
+    prog = GraphProgram(host_read, ones.clone())
+    prog(ones)                       # eager: draws the first 4
+    with pytest.raises(RuntimeError):
+        prog(ones)                   # the capture reads the host
+    assert prog.graph is None
+    assert torch.equal(torch.randn(2, 8, device=cuda), want)
+
+
 # ---------------------------------------------------------------------------
 # the two shard kernels in bf16 and fp16
 # ---------------------------------------------------------------------------
@@ -1972,26 +1995,27 @@ def test_half_matmul_kernel_within_one_ulp_of_plain(cuda, m, cin, cout, xd,
         holds_one_ulp(out, matmul_ref(x, w), mag)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-def test_half_every_route_of_the_tile_loop(cuda, monkeypatch, dtype):
-    """Each tile config x split or not x 16-byte or one-element activation
-    copies x 16-byte or one-element weight copies, in a 2-byte dtype (8
-    elements a 16-byte copy), on matmul and on a strided conv shard."""
-    gen = torch.Generator(device=cuda).manual_seed(6)
+def _every_route(cuda, monkeypatch, dtype, wdtype, seed):
+    """Each of the loop's tile configs (the tensor-core ones where x and w
+    share ``dtype``, else the CUDA-core ones) x split or not x 16-byte or
+    one-element activation copies x 16-byte or one-element weight copies,
+    on matmul and on a strided conv shard, each call within one ulp of
+    plain; returns the routes taken."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
     seen = set()
-    for cfg in gemm.CONFIGS:
+    for cfg in gemm.configs_for(dtype == wdtype):
         for splits in (1, 4):
             monkeypatch.setattr(gemm, "plan_gemm", _forced(cfg, splits))
             m, k, n = cfg.bm + 3, 96, 72
             xb = _half(gen, (m, k + 8), dtype, cuda)
-            wb = _half(gen, (k, n + 8), dtype, cuda)
+            wb = _half(gen, (k, n + 8), wdtype, cuda)
             for x in (xb[:, :k], xb[:, 1:1 + k]):
                 for w in (wb[:, 8:8 + n], wb[:, 1:1 + n]):
                     seen.add(_route(gemm.plan_gemm(m, n, k), x, k, w))
                     holds_one_ulp(matmul_tiled(x, w), matmul_ref(x, w),
                                    x.float().abs() @ w.float().abs())
             cb = _half(gen, (9, 10, 48), dtype, cuda)
-            wc = _half(gen, (3, 3, 32, 48), dtype, cuda)
+            wc = _half(gen, (3, 3, 32, 48), wdtype, cuda)
             for x in (cb[1:8, 1:9, 8:40], cb[1:8, 1:9, 3:35]):
                 for w in (wc[..., 8:48], wc[..., 1:41]):
                     kw = dict(pads=(0, 1, 1, 0), stride=1)
@@ -1999,9 +2023,30 @@ def test_half_every_route_of_the_tile_loop(cuda, monkeypatch, dtype):
                         conv2d_shard(x, w, **kw), conv2d_shard_ref(x, w, **kw),
                         conv2d_shard_ref(x.float().abs(), w.float().abs(),
                                          **kw))
-    assert seen == {(c.index, sp, xv, wv) for c in gemm.CONFIGS
-                    for sp in (False, True) for xv in (False, True)
-                    for wv in (False, True)}
+    return seen
+
+
+def _all_routes(mma):
+    return {(c.index, sp, xv, wv) for c in gemm.configs_for(mma)
+            for sp in (False, True) for xv in (False, True)
+            for wv in (False, True)}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_half_every_route_of_the_tile_loop(cuda, monkeypatch, dtype):
+    """The CUDA-core loop with a 2-byte x (8 elements a 16-byte copy) and
+    f32 weights, the mixed pair it computes: every config x split x load
+    width."""
+    seen = _every_route(cuda, monkeypatch, dtype, torch.float32, 6)
+    assert seen == _all_routes(False)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_mma_every_route_of_the_tile_loop(cuda, monkeypatch, dtype):
+    """The tensor-core loop, x and w in one 2-byte dtype: every config x
+    split x load width."""
+    seen = _every_route(cuda, monkeypatch, dtype, dtype, 16)
+    assert seen == _all_routes(True)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
@@ -2032,11 +2077,11 @@ def test_half_kernels_repeat_bit_for_bit(cuda, dtype):
     gen = torch.Generator(device=cuda).manual_seed(9)
     x = _half(gen, (32, 3072), dtype, cuda)
     w = _half(gen, (3072, 768), dtype, cuda, 0.02)
-    assert gemm.plan_gemm(32, 768, 3072).splits > 1
+    assert gemm.plan_gemm(32, 768, 3072, True).splits > 1
     assert torch.equal(matmul_tiled(x, w), matmul_tiled(x, w))
     xc = _half(gen, (4, 7, 512), dtype, cuda)
     wc = _half(gen, (3, 3, 512, 512), dtype, cuda, 0.02)
-    assert gemm.plan_gemm(14, 512, 4608).splits > 1
+    assert gemm.plan_gemm(14, 512, 4608, True).splits > 1
     a = conv2d_shard(xc, wc, pads=(1, 0, 1, 1))
     assert torch.equal(a, conv2d_shard(xc, wc, pads=(1, 0, 1, 1)))
     wd = _half(gen, (3, 3, 1, 512), dtype, cuda)
@@ -2055,6 +2100,168 @@ def test_half_tile_loop_refuses_a_misaligned_vector_route(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="launch failed"):
         matmul_tiled(x, w)
     assert matmul_tiled.launches == n0
+
+
+# ---------------------------------------------------------------------------
+# the 2-byte tile loop on the tensor cores
+# ---------------------------------------------------------------------------
+
+HALF = [torch.bfloat16, torch.float16]
+HALF_NAMES = ["bf16", "f16"]
+
+
+def _mma_matmul(x, w):
+    """matmul_tiled on a same-type 2-byte pair: one launch, on the
+    tensor-core loop, within one ulp of plain."""
+    n0, t0 = matmul_tiled.launches, matmul_tiled.routes["tensor_cores"]
+    out = matmul_tiled(x, w)
+    assert matmul_tiled.launches == n0 + 1
+    assert matmul_tiled.routes["tensor_cores"] == t0 + 1
+    assert out.dtype == x.dtype
+    holds_one_ulp(out, matmul_ref(x, w), x.float().abs() @ w.float().abs())
+    return out
+
+
+def _mma_conv(x, w, **kw):
+    """conv2d_shard (dense) on a same-type 2-byte pair: one launch, on the
+    tensor-core loop, within one ulp of plain."""
+    n0, t0 = conv2d_shard.launches, conv2d_shard.routes["tensor_cores"]
+    out = conv2d_shard(x, w, **kw)
+    assert conv2d_shard.launches == n0 + 1
+    assert conv2d_shard.routes["tensor_cores"] == t0 + 1
+    assert out.dtype == x.dtype
+    holds_one_ulp(out, conv2d_shard_ref(x, w, **kw),
+                  conv2d_shard_ref(x.float().abs(), w.float().abs(), **kw))
+    return out
+
+
+@pytest.mark.parametrize("dtype", HALF, ids=HALF_NAMES)
+@pytest.mark.parametrize("m", [1, 8, 32, 128])
+@pytest.mark.parametrize("cin,cout", [(768, 2304), (2304, 768), (768, 3072),
+                                      (3072, 768)])
+def test_mma_matmul_on_bert_shard_shapes(cuda, dtype, m, cin, cout):
+    """bert-base's four FC weights at 1, 8, 32 (its 4-node shards) and 128
+    (its whole sequence) rows, on the tensor-core loop as planned."""
+    gen = torch.Generator(device=cuda).manual_seed(m + cin + cout)
+    x = _half(gen, (m, cin), dtype, cuda)
+    w = _half(gen, (cin, cout), dtype, cuda, cin ** -0.5)
+    assert gemm.plan_gemm(m, cout, cin, True).cfg.mma
+    _mma_matmul(x, w)
+
+
+@pytest.mark.parametrize("dtype", HALF, ids=HALF_NAMES)
+def test_mma_kernels_with_k_off_16(cuda, dtype):
+    """K not a multiple of 16: the Cin = 3 stems (K = 27 and 147, 6-byte
+    pixels on the one-element route) on halo views of the 224-wide input,
+    and the 200-deep head; the slab's tail is zero-filled."""
+    gen = torch.Generator(device=cuda).manual_seed(27)
+    img = _half(gen, (224, 230, 3), dtype, cuda)
+    for k, rows, cout in ((3, 59, 32), (7, 63, 64)):
+        w = _half(gen, (k, k, 3, cout), dtype, cuda, 1.0 / k)
+        p = k // 2
+        for r0, pads in ((0, (p, 0, p, p - 1)),
+                         (224 - rows, (0, p - 1, p, p - 1))):
+            x = img[r0:r0 + rows, 3:227]
+            assert not gemm.x_vec(x, 3)
+            _mma_conv(x, w, pads=pads, stride=2)
+    for m in (1, 32, 45):
+        x = _half(gen, (m, 200), dtype, cuda)
+        w = _half(gen, (200, 108), dtype, cuda, 0.07)
+        _mma_matmul(x, w[:, 8:108])
+        _mma_matmul(x, w[:, 3:103])
+
+
+@pytest.mark.parametrize("dtype", HALF, ids=HALF_NAMES)
+@pytest.mark.parametrize("cout", [1000, 250, 100])
+def test_mma_matmul_on_ragged_column_views(cuda, dtype, cout):
+    """Ragged N: the 1000-column head, its four 250-column node views (two
+    16-byte aligned, two not), and a 100-column head, at 1 and 32 rows."""
+    gen = torch.Generator(device=cuda).manual_seed(cout)
+    w = _half(gen, (1024, cout), dtype, cuda, 1.0 / 32)
+    share = -(-cout // 4)
+    views = [w] + [w[:, share * i:min(cout, share * (i + 1))]
+                   for i in range(4)]
+    routes = set()
+    for m in (1, 32):
+        x = _half(gen, (m, 1024), dtype, cuda)
+        for wv in views:
+            routes.add(gemm.w_vec(wv))
+            _mma_matmul(x, wv)
+    assert routes == ({True, False} if cout == 1000 else {False})
+
+
+@pytest.mark.parametrize("dtype", HALF, ids=HALF_NAMES)
+def test_mma_conv_on_outc_and_misaligned_views(cuda, dtype):
+    """OutC weight views (16-byte aligned and 2 bytes off) and activation
+    views 2 bytes off a 16-byte boundary on the tensor-core loop;
+    ResNet-18's late 3x3 512->512 shard with a node's 128 output channels;
+    the depthwise kernel stays on its own route."""
+    gen = torch.Generator(device=cuda).manual_seed(41)
+    cb = _half(gen, (9, 10, 48), dtype, cuda)
+    wc = _half(gen, (3, 3, 32, 48), dtype, cuda, 0.05)
+    for x in (cb[1:8, 1:9, 8:40], cb[1:8, 1:9, 3:35]):
+        for w in (wc[..., 8:48], wc[..., 1:41]):
+            _mma_conv(x, w, pads=(0, 1, 1, 0), stride=1)
+    big = _half(gen, (6, 9, 512), dtype, cuda)
+    wl = _half(gen, (3, 3, 512, 512), dtype, cuda, 1.0 / 48)
+    for pads in ((1, 0, 1, 1), (0, 0, 1, 1), (0, 1, 1, 1)):
+        _mma_conv(big[1:5, 1:8], wl[..., 128:256], pads=pads, stride=1)
+    wd = _half(gen, (3, 3, 1, 512), dtype, cuda)
+    d0 = conv2d_shard.routes["depthwise"]
+    t0 = conv2d_shard.routes["tensor_cores"]
+    conv2d_shard(big[1:5, 1:8], wd, pads=(1, 0, 1, 1), depthwise=True)
+    assert conv2d_shard.routes["depthwise"] == d0 + 1
+    assert conv2d_shard.routes["tensor_cores"] == t0
+
+
+@pytest.mark.parametrize("dtype", HALF, ids=HALF_NAMES)
+def test_mma_kernels_repeat_bit_for_bit(cuda, monkeypatch, dtype):
+    """Every tensor-core config, one split and several: the same call
+    twice, and once more in a replayed CUDA graph, gives the same bits
+    (the K groups summed in group order, split-K partials in split order,
+    no atomics)."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    x = _half(gen, (32, 3072), dtype, cuda)
+    w = _half(gen, (3072, 768), dtype, cuda, 0.02)
+    xc = _half(gen, (4, 7, 512), dtype, cuda)
+    wc = _half(gen, (3, 3, 512, 512), dtype, cuda, 0.02)
+    for cfg in gemm.configs_for(True):
+        for splits in (1, 5, 32):
+            monkeypatch.setattr(gemm, "plan_gemm", _forced(cfg, splits))
+            a = _mma_matmul(x, w)
+            assert torch.equal(a, matmul_tiled(x, w)), (cfg, splits)
+            c = _mma_conv(xc, wc, pads=(1, 0, 1, 1))
+            assert torch.equal(c, conv2d_shard(xc, wc, pads=(1, 0, 1, 1)))
+            prog = GraphProgram(lambda u, v: matmul_tiled(u, v), x, w)
+            for _ in range(3):
+                assert torch.equal(prog(x, w), a), (cfg, splits)
+
+
+def test_launcher_refuses_a_config_of_the_other_loop(cuda, monkeypatch):
+    """A tensor-core config forced on f32 or a mixed pair, or a CUDA-core
+    config forced on a same-type bf16 pair, is refused
+    (cudaErrorInvalidValue) and raises; no counter moves."""
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    x32 = torch.randn((32, 64), generator=gen, device=cuda)
+    w32 = torch.randn((64, 64), generator=gen, device=cuda)
+    xc = torch.randn((5, 5, 16), generator=gen, device=cuda)
+    wc = torch.randn((3, 3, 16, 24), generator=gen, device=cuda)
+    bf = torch.bfloat16
+    cases = [(c, x32, w32, xc, wc) for c in gemm.CONFIGS if c.mma]
+    cases += [(c, x32.to(bf), w32, xc.to(bf), wc) for c in gemm.CONFIGS
+              if c.mma]
+    cases += [(c, x32.to(bf), w32.to(bf), xc.to(bf), wc.to(bf))
+              for c in gemm.configs_for(False)]
+    for cfg, x, w, xs, ws in cases:
+        monkeypatch.setattr(gemm, "plan_gemm", _forced(cfg, 1))
+        before = (matmul_tiled.launches, dict(matmul_tiled.routes),
+                  conv2d_shard.launches, dict(conv2d_shard.routes))
+        with pytest.raises(RuntimeError, match="launch failed"):
+            matmul_tiled(x, w)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            conv2d_shard(xs, ws, pads=(1, 1, 1, 1))
+        assert before == (matmul_tiled.launches, dict(matmul_tiled.routes),
+                          conv2d_shard.launches, dict(conv2d_shard.routes))
 
 
 def _bf16_case(case, dev):

@@ -10,8 +10,10 @@ themselves are held against the plain versions on the card
 (``tests/test_torch_gpu.py``, ``chip_smoke.py``).
 """
 import functools
+import importlib
 import re
 import shutil
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -265,6 +267,41 @@ def test_gemm_plan_k_chunks_cover_k_exactly_once(shapes):
         assert plan.blocks == plan.m_tiles * plan.n_tiles * plan.splits
 
 
+@pytest.mark.parametrize("shapes", list(MAIN_MODELS) + ["odd"])
+def test_mma_plan_k_chunks_cover_k_exactly_once(shapes):
+    """The tensor-core plans of the same products: a tensor-core config;
+    every split a non-empty, slab-aligned K range, together [0, K) once;
+    a split plan an [splits, M, N] f32 workspace, an unsplit one none."""
+    for m, n, k in ODD_GEMMS if shapes == "odd" else main_path_gemms(shapes):
+        plan = gemm.plan_gemm(m, n, k, True)
+        cfg = plan.cfg
+        assert cfg.mma and cfg in gemm.configs_for(True)
+        assert plan.kchunk % cfg.bk == 0
+        assert 1 <= plan.splits <= gemm.MAX_SPLITS
+        assert (plan.splits - 1) * plan.kchunk < k <= \
+            plan.splits * plan.kchunk
+        assert plan.m_tiles == -(-m // cfg.bm)
+        assert plan.n_tiles == -(-n // cfg.bn)
+        ws = gemm.workspace(plan, m, n, torch.device("cpu"))
+        if plan.splits > 1:
+            assert tuple(ws.shape) == (plan.splits, m, n)
+            assert ws.dtype == torch.float32
+        else:
+            assert ws is None
+
+
+@pytest.mark.parametrize("want", [1, 2, 8, 9, 32])
+def test_split_plan_keeps_to_the_splits_asked(want):
+    """Every config, on either loop, plans at most the K chunks it is
+    asked for, each a whole number of its slabs, together covering K."""
+    for cfg in gemm.CONFIGS:
+        plan = gemm.split_plan(cfg, 32, 768, 4608, want)
+        assert 1 <= plan.splits <= want
+        assert plan.kchunk % cfg.bk == 0
+        assert (plan.splits - 1) * plan.kchunk < 4608 <= \
+            plan.splits * plan.kchunk
+
+
 @pytest.mark.parametrize("name", MAIN_MODELS)
 def test_gemm_plan_fills_the_card_on_the_main_path(name):
     """Each dense conv and FC shard of the main path at 4 nodes: the
@@ -298,18 +335,126 @@ def test_gemm_plan_picks_the_tile_by_rows():
 
 
 def test_gemm_configs_match_the_cuda_switch():
-    """CONFIGS mirrors the cases of gemm_f32::launch: <BM, BK, TM, KG,
-    stages> at each index, 16 thread columns of 4 outputs each (a 64-wide
-    tile), each K group a whole number of float4 steps deep."""
+    """CONFIGS mirrors the cases of gemm_f32::launch: at each index the
+    loop (fma_cfg: CUDA cores, mma_cfg: tensor cores) and <BM, BK, TM or
+    MI, KG, stages>, three stages in every case.  CUDA cores: 16 thread
+    columns of 4 outputs each (a 64-wide tile), each K group a whole
+    number of float4 steps deep.
+    Tensor cores: four warps tile BM rows in m16 fragments and 64
+    columns in pairs of n8 fragments, each K group whole k16 steps
+    deep."""
     src = (build.CSRC / "gemm_f32.cuh").read_text()
-    cases = re.findall(r"case (\d+):[^\n]*\n\s*return launch_cfg<(\d+), "
-                       r"(\d+), (\d+), (\d+), \d+>", src)
-    assert [tuple(map(int, c)) for c in cases] == \
-        [(c.index, c.bm, c.bk, c.tm, c.kg) for c in gemm.CONFIGS]
+    cases = re.findall(r"case (\d+):[^\n]*\n\s*return (fma|mma)_cfg<(\d+), "
+                       r"(\d+), (\d+), (\d+), 3>", src)
+    assert [(int(i), loop == "mma", int(bm), int(bk), int(tm), int(kg))
+            for i, loop, bm, bk, tm, kg in cases] == \
+        [(c.index, c.mma, c.bm, c.bk, c.tm, c.kg) for c in gemm.CONFIGS]
+    assert [c.index for c in gemm.CONFIGS] == list(range(len(gemm.CONFIGS)))
     assert "constexpr int kBN = kTX * 4;" in src
     assert "constexpr int kTX = 16;" in src
-    assert all(c.bn == 64 and c.bm // c.tm * 16 == 128
-               and c.bk % (4 * c.kg) == 0 for c in gemm.CONFIGS)
+    for c in gemm.CONFIGS:
+        assert c.bn == 64
+        if c.mma:
+            wm = c.bm // (16 * c.tm)
+            assert wm * 16 * c.tm == c.bm and 4 % wm == 0, c
+            assert (c.bn // (8 * (4 // wm))) % 2 == 0, c
+            assert c.bk % (16 * c.kg) == 0, c
+        else:
+            assert c.bm // c.tm * 16 == 128 and c.bk % (4 * c.kg) == 0, c
+    assert gemm.configs_for(False) + gemm.configs_for(True) == gemm.CONFIGS
+    assert not any(c.mma for c in gemm.configs_for(False))
+    assert all(c.mma for c in gemm.configs_for(True))
+
+
+#: (x dtype, w dtype, the dense loop the pair runs on): x and w in one
+#: 2-byte dtype on the tensor cores; f32, a 2-byte x with f32 weights,
+#: and the pairs the wrapper upcasts to f32 weights on CUDA cores
+ROUTE_PAIRS = [
+    (torch.bfloat16, torch.bfloat16, "tensor_cores"),
+    (torch.float16, torch.float16, "tensor_cores"),
+    (torch.float32, torch.float32, "cuda_cores"),
+    (torch.bfloat16, torch.float32, "cuda_cores"),
+    (torch.float16, torch.float32, "cuda_cores"),
+    (torch.float32, torch.bfloat16, "cuda_cores"),
+    (torch.float32, torch.float16, "cuda_cores"),
+    (torch.bfloat16, torch.float16, "cuda_cores"),
+    (torch.float16, torch.bfloat16, "cuda_cores"),
+]
+
+
+@pytest.mark.parametrize("kernel", ["matmul", "conv", "depthwise"])
+@pytest.mark.parametrize("xd,wd,route", ROUTE_PAIRS,
+                         ids=[f"{str(a)[6:]}-{str(b)[6:]}"
+                              for a, b, _ in ROUTE_PAIRS])
+def test_the_tensor_cores_take_only_same_type_2_byte_pairs(
+        monkeypatch, kernel, xd, wd, route):
+    """The wrappers' CUDA branch, run with a stand-in library: a same-type
+    bf16 or fp16 pair gets a tensor-core config, every other pair a
+    CUDA-core one, at the main path's FC and conv shard shapes; the
+    depthwise kernel plans no tile loop.  Each call counts one launch on
+    its route, and the arguments match the declared C signature."""
+    conv_mod = importlib.import_module("repro_torch.kernels.conv2d")
+    calls = []
+
+    class Lib:
+        def __getattr__(self, name):
+            return lambda *args: calls.append((name, args)) or 0
+
+    planned = []
+    real_plan = gemm.plan_gemm
+
+    def plan(*args):
+        planned.append(args)
+        return real_plan(*args)
+
+    monkeypatch.setattr(conv_mod, "on_cpu", lambda *a, **k: False)
+    monkeypatch.setattr(build, "load", lambda name: Lib())
+    monkeypatch.setattr(gemm, "plan_gemm", plan)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(
+                            cuda_stream=0))
+    if kernel == "matmul":
+        wrapper, entry, at = matmul_tiled, "matmul_tiled", 10
+        cases = [(torch.zeros(m, k, dtype=xd),
+                  torch.zeros(k, n, dtype=wd), {})
+                 for m, k, n in ((32, 768, 2304), (32, 3072, 768),
+                                 (1, 1024, 250), (128, 768, 2304))]
+    else:
+        wrapper, entry, at = conv2d_shard, "conv2d_shard", 20
+        dw = kernel == "depthwise"
+        cases = [(torch.zeros(rows, width, cin, dtype=xd),
+                  torch.zeros(k, k, 1 if dw else cin, cout, dtype=wd),
+                  dict(pads=pads, stride=s, depthwise=dw))
+                 for rows, width, cin, cout, k, s, pads in (
+                     (16, 56, 64, 64, 3, 1, (0, 0, 1, 1)),
+                     (4, 7, 512, 512, 3, 1, (0, 0, 1, 1)),
+                     (63, 224, 3, 64, 7, 2, (0, 0, 3, 2)))
+                 if not dw or cin == cout]
+    n0, r0 = wrapper.launches, dict(wrapper.routes)
+    for x, w, kw in cases:
+        out = wrapper(x, w, **kw)
+        assert out.dtype == xd
+    taken = "depthwise" if kernel == "depthwise" else route
+    assert wrapper.launches - n0 == len(cases)
+    assert {r: wrapper.routes[r] - n for r, n in r0.items()} == \
+        {r: len(cases) if r == taken else 0 for r in r0}
+    suffix = {torch.float32: "f32", torch.bfloat16: "bf16",
+              torch.float16: "f16"}[xd]
+    if route == "cuda_cores" and xd != torch.float32:
+        suffix += "_f32"
+    kind = {"matmul": "", "conv": "dense_", "depthwise": "dw_"}[kernel]
+    name = f"{entry}_{kind}{suffix}"
+    assert [c[0] for c in calls] == [name] * len(cases)
+    assert all(len(args) == len(build.SIGNATURES[entry][name])
+               for _, args in calls)
+    if kernel == "depthwise":
+        assert planned == []
+        return
+    assert [a[-1] for a in planned] == [route == "tensor_cores"] * len(cases)
+    for _, args in calls:
+        cfg = gemm.CONFIGS[args[at]]
+        assert cfg.mma == (route == "tensor_cores"), cfg
+        assert cfg in gemm.configs_for(cfg.mma)
 
 
 @pytest.mark.parametrize("m,n,k", [(32, 2304, 768), (1, 250, 512),
