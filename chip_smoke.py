@@ -337,10 +337,31 @@ def read_counts() -> dict:
     return {name: f.launches for name, f in kernel_wrappers().items()}
 
 
-def read_routes() -> dict:
-    """The two shard kernels' launches by loop (``routes``)."""
-    return {name: dict(f.routes) for name, f in kernel_wrappers().items()
-            if hasattr(f, "routes")}
+SHARD_KERNELS = ("conv2d_shard", "matmul_tiled")
+
+
+def read_routes(names=SHARD_KERNELS) -> dict:
+    """Launches by route (``routes``) of the wrappers ``names``: by
+    default the two shard kernels' loops."""
+    wrappers = kernel_wrappers()
+    return {name: dict(wrappers[name].routes) for name in names}
+
+
+def decode_routes() -> dict:
+    """The paged decode kernel's launches by route: ``per_row`` (groups =
+    1) and ``grouped``."""
+    return read_routes(("flash_decode_paged",))["flash_decode_paged"]
+
+
+def check_decode_routes(path, since, per_row, grouped) -> None:
+    """Since ``since`` (an earlier :func:`decode_routes`), the decode
+    kernel took the per-row route ``per_row`` times and the grouped one
+    ``grouped`` times."""
+    now = decode_routes()
+    got = {r: now[r] - since.get(r, 0) for r in now}
+    want = {"per_row": per_row, "grouped": grouped}
+    check(got == want, f"{path}: flash_decode_paged launches by route "
+          f"{got} != {want}")
 
 
 def routes_text(routes) -> str:
@@ -1510,6 +1531,7 @@ def phase_decode_grid(dev, errs):
     gen = torch.Generator(device=dev).manual_seed(12)
     length = torch.zeros((1,), dtype=torch.int32, device=dev)
     n_pages, n = 256, 0
+    r0 = decode_routes()
     for lh in (4, 16):
         for hd in (64, 128):
             for ps in (1, 16):
@@ -1541,44 +1563,51 @@ def phase_decode_grid(dev, errs):
                         errs["flash_decode_paged"] = max(
                             errs["flash_decode_paged"], abs_err(out, ref))
                         n += 1
+    check_decode_routes("phase 5", r0, 2 * n, 0)
     print(f"phase 5: flash_decode_paged == plain on {n} cases (heads 4/16 "
           f"x hd 64/128 x ps 1/16 x 6 lengths x 4 windows, NaN in unread "
           f"pages); max abs err {errs['flash_decode_paged']:.3g}; kv_len "
-          f"from device memory bit-equal to by value in all {n}",
-          flush=True)
+          f"from device memory bit-equal to by value in all {n}; all "
+          f"{2 * n} calls on the per-row route", flush=True)
 
 
 def decode_launch_shape(kp, vp, n_logical, groups=1) -> dict:
-    """The split-KV launch of a paged decode call on pools ``kp``/``vp``
-    behind a table of ``n_logical`` pages, ``groups`` query rows a pool
-    row: splits (the cluster size), warps a block, blocks, the clusters
-    the card holds at once and the waves the grid takes."""
+    """The launch of a paged decode call on pools ``kp``/``vp`` behind a
+    table of ``n_logical`` pages, ``groups`` query rows a pool row, as
+    ``flash_attention.decode_shape`` chooses it: splits (the cluster
+    size), warps a block, query rows a block (1: the per-row route),
+    blocks, the clusters the card holds at once and the waves the grid
+    takes."""
     import ctypes
     import importlib
     import torch
     from repro_torch.kernels import build
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
     rows, _, ps, hd = kp.shape
-    bh = rows * groups
-    splits = fa.decode_splits(bh, n_logical)
-    warps = fa.decode_warps(n_logical, ps, splits)
+    shape = fa.decode_shape(rows, groups, n_logical, ps)
+    qblocks = rows * -(-groups // shape.group_rows)
     info = (ctypes.c_int * 4)()
     lib = build.load("flash_decode_paged")
     fn = (lib.flash_decode_paged_occupancy if kp.dtype == torch.float32
           else lib.flash_decode_paged_occupancy_bf16)
-    rc = fn(bh, hd, int(fa.decode_vec(hd, kp, vp)), splits, warps, info)
+    rc = fn(rows * groups, hd, int(fa.decode_vec(hd, kp, vp)), shape.splits,
+            shape.warps, groups, shape.group_rows, n_logical, ps, info)
     check(rc == 0, f"flash_decode_paged_occupancy failed: cudaError {rc}")
-    threads, smem, clusters, rows = info
-    return dict(splits=splits, warps=warps, blocks=bh * splits,
-                clusters=clusters, waves=bh / clusters,
-                rows_a_round=rows, smem_bytes=smem)
+    threads, smem, clusters, per_round = info
+    return dict(splits=shape.splits, warps=shape.warps,
+                group_rows=shape.group_rows, blocks=qblocks * shape.splits,
+                clusters=clusters, waves=qblocks / clusters,
+                rows_a_round=per_round, smem_bytes=smem)
 
 
 def shape_text(shape) -> str:
-    return (f"{shape['blocks']} blocks of {shape['warps']} warps in "
-            f"clusters of {shape['splits']} ({shape['clusters']} clusters "
-            f"resident, {shape['waves']:.2f} waves; {shape['rows_a_round']} "
-            f"keys a block a round)")
+    rows = "one query row" if shape["group_rows"] == 1 else \
+        f"{shape['group_rows']} query rows"
+    return (f"{shape['blocks']} blocks of {shape['warps']} warps, "
+            f"{rows} each, in clusters of {shape['splits']} "
+            f"({shape['clusters']} clusters resident, {shape['waves']:.2f} "
+            f"waves; {shape['rows_a_round']} keys a block a round; "
+            f"{shape['smem_bytes']} shared bytes)")
 
 
 def phase_decode_long(dev, errs, card):
@@ -1731,6 +1760,7 @@ def phase_decode_path(dev, errs, card):
     run_s = time.perf_counter() - t0
     counts = read_counts()
     check_counts("decode", counts, {"flash_decode_paged": want})
+    check_decode_routes("decode", {}, want, 0)
     check(sess_k._step_fn.graph is not None
           and sess_k._step_fn.calls == n_steps,
           "decode: the step was not captured and replayed")
@@ -1817,11 +1847,13 @@ def phase_decode_path(dev, errs, card):
         return out
 
     decode_mod.flash_decode_paged = rec
+    r0 = decode_routes()
     try:
         greedy_decode(session("cuda", graphed=False), prompt, N_NEW)
     finally:
         decode_mod.flash_decode_paged = flash_decode_paged
     check(len(calls) == want, f"decode: recorded {len(calls)} calls")
+    check_decode_routes("decode (eager body)", r0, want, 0)
     lengths = torch.cat([c[4] for c in calls]).tolist()
     check(lengths == [t + 1 for t in range(n_steps) for _ in
                       range(want // n_steps)],
@@ -2264,6 +2296,7 @@ def phase_mesh_decode(dev, dec, card):
     run_s = time.perf_counter() - t0
     counts = read_counts()
     check_counts("mesh decode", counts, {"flash_decode_paged": want})
+    check_decode_routes("mesh decode", {}, want, 0)
     check(sess._step_fn.graph is not None and sess._step_fn.calls == n_steps,
           "mesh decode: the step was not captured and replayed")
     check(bool(torch.isfinite(lg).all()), "mesh decode: non-finite logits")
@@ -3700,26 +3733,37 @@ def phase_lm_kernels(dev, cfg, served, card):
         work = [lm_decode_work(B * KV, groups, hd, n, 2, ps) for n in lens]
         nbytes, flops = sum(w[0] for w in work), sum(w[1] for w in work)
         bound = max(nbytes / PEAK_BYTES, flops / PEAK_BF16_FLOPS) * 1e3
-        lib_out = library()[0].reshape(B * H, hd)
-        k_out = kern()[0]
+        r0 = decode_routes()
+        k_outs, p_outs = kern(), plain()
+        lib_outs = library()
         torch.cuda.synchronize()
-        e = rel_err(k_out, lib_out)
-        check(e < BF16_TOL, f"phase 14d decode {name}: kernel against "
-              f"gather + sdpa {e}")
+        e = max(rel_err(k, lb.reshape(B * H, hd))
+                for k, lb in zip(k_outs, lib_outs))
+        e_plain = max(rel_err(k, pl) for k, pl in zip(k_outs, p_outs))
+        check(e < BF16_TOL and e_plain < BF16_TOL, f"phase 14d decode "
+              f"{name}: kernel against gather + sdpa {e}, against plain "
+              f"{e_plain}")
+        check_decode_routes(f"phase 14d decode {name}", r0, 0, len(k_outs))
+        del k_outs, p_outs, lib_outs
         row = dict(ms=graph_ms(kern, reps=10) / copies,
                    plain_ms=graph_ms(plain, reps=3) / copies,
                    library_ms=graph_ms(library, reps=10) / copies,
                    bound_ms=bound, calls=len(lens), layers=layers)
         shape = decode_launch_shape(pools[0][0], pools[0][1], cap // ps,
                                     groups)
+        row["shape"] = {k: shape[k] for k in ("group_rows", "splits",
+                                              "blocks", "waves")}
         print(f"phase 14d: flash_decode_paged {name} (B{B} H{H} KV{KV} "
               f"hd{hd} bf16, cap {cap}, ps {ps}, {len(lens)} calls "
               f"kv_len {lens[0]}..{lens[-1]}; {copies} cache copies "
-              f"rotated): {row['ms'] * 1e3:.2f} us, plain "
+              f"rotated): {row['ms'] * 1e3:.2f} us, "
+              f"{bound / row['ms'] * 100:.1f}% of the bound {bound * 1e3:.3f} "
+              f"us by bytes ({nbytes / 1e6:.3f} MB), plain "
               f"{row['plain_ms'] * 1e3:.2f} us, gather + sdpa "
-              f"{row['library_ms'] * 1e3:.2f} us, bound "
-              f"{bound * 1e3:.3f} us by bytes ({nbytes / 1e6:.3f} MB); "
-              f"{shape_text(shape)} [{card}]", flush=True)
+              f"{row['library_ms'] * 1e3:.2f} us; every call within "
+              f"{max(e, e_plain):.3g} of scale of both and on the grouped "
+              f"route; decode_shape's pick: {shape_text(shape)} [{card}]",
+              flush=True)
         out[name] = row
         del caches, pools
     # prefill: one forward's flash calls at the 4 x (P + G) and the
@@ -3760,14 +3804,19 @@ def phase_lm_kernels(dev, cfg, served, card):
         out[name] = row
         del q, k, v
     served_dec = out["served"]
+    long_dec = out[f"{LM_DECODE_KEYS} keys"]
     fwd = [out["served forward"], out[f"{LM_LONG} prefill"]]
 
     def per_pass(rows, key):
         return sum(r[key] * r["layers"] for r in rows)
     return {
         "flash_decode_paged": {
-            f"lm_{k}": served_dec[k] * served_dec["layers"]
-            for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+            **{f"lm_{k}": served_dec[k] * served_dec["layers"]
+               for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+            **{f"lm_{LM_DECODE_KEYS}_{k}": long_dec[k]
+               for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+            "lm_shape": served_dec["shape"],
+            f"lm_{LM_DECODE_KEYS}_shape": long_dec["shape"]},
         "flash_attention_bh": {
             f"lm_{k}": per_pass(fwd, k)
             for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
@@ -3951,13 +4000,17 @@ def phase_lm(dev, errs, card):
     counts = read_counts()
     check_counts("phase 14 serve", counts,
                  {"flash_decode_paged": cfg.n_layers * steps})
+    # every call has 4 query rows a KV head: the grouped route, eager and
+    # replayed
+    check_decode_routes("phase 14 serve", {}, 0, cfg.n_layers * steps)
     check(rec_prog.calls["flash_decode_paged"] == cfg.n_layers
           and rec_prog.captured["flash_decode_paged"] == cfg.n_layers,
           f"phase 14b: the program's eager call held {rec_prog.calls}, "
           f"its capture passed {rec_prog.captured} through; "
           f"{cfg.n_layers} each expected")
     lm = {"flash_decode_paged": {"lm_launches":
-                                 counts["flash_decode_paged"]},
+                                 counts["flash_decode_paged"],
+                                 "lm_routes": decode_routes()},
           "flash_attention_bh": {"lm_launches": 0}}
     print(f"phase 14b: serve.main({' '.join(argv)}): llama3-8b bf16, "
           f"{cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} heads "
@@ -3970,15 +4023,18 @@ def phase_lm(dev, errs, card):
           f"included), {res.decode_ms_per_token:.3f} ms a generated token "
           f"(replays); launches {counts} (the program's counts: its eager "
           f"call's {cfg.n_layers} held against plain, max "
-          f"{rec_prog.err['flash_decode_paged']:.3g} of scale) [{card}]",
-          flush=True)
+          f"{rec_prog.err['flash_decode_paged']:.3g} of scale), decode by "
+          f"route {decode_routes()} [{card}]", flush=True)
 
     # the same prompts eagerly, every kernel call held against plain: the
     # captured run's tokens and logits, bit for bit
     rec = LMRecorder()
+    r0 = decode_routes()
     with rec:
         eager = serve.generate(model, res.prompts, G, eager=True)
     torch.cuda.synchronize()
+    check_decode_routes("phase 14b eager generate", r0, 0,
+                        cfg.n_layers * steps)
     n_equal = sum(torch.equal(a, b) for a, b in zip(eager.step_logits,
                                                     res.step_logits))
     check(torch.equal(eager.tokens, res.tokens) and n_equal == steps
@@ -3992,8 +4048,9 @@ def phase_lm(dev, errs, card):
           f"and all {steps} steps' logits bit-equal to the captured run's; "
           f"{rec.calls['flash_decode_paged']} eager decode calls held "
           f"against plain (max {rec.err['flash_decode_paged']:.3g} of "
-          f"scale); eager {eager.decode_ms_per_token:.3f} ms a generated "
-          f"token [{card}]", flush=True)
+          f"scale), all on the grouped route; eager "
+          f"{eager.decode_ms_per_token:.3f} ms a generated token [{card}]",
+          flush=True)
 
     # prefill forwards: the served tokens, then B = 1 at LM_LONG
     toks = torch.cat([res.prompts, res.tokens], dim=1)
@@ -5054,6 +5111,7 @@ held.update(lm.calls)
 errs.update(lm.abs)
 print("PHASE17 " + json.dumps({
     "launches": launches, "held": held, "errs": errs,
+    "decode_routes": cs.decode_routes(),
     "shapes": sorted(str(s) for s in shapes | lm.shapes)}))
 sys.exit(code)
 """
@@ -5108,6 +5166,22 @@ def example_launches(script, flags) -> dict:
         return {"flash_attention_bh":
                 train_flash_launches(cfg) * int(a.steps)}
     return {}
+
+
+def example_decode_routes(script, flags, launches) -> dict:
+    """The routes of an example's ``launches`` decode calls: the serving
+    example's arch has several query heads a KV head in its reduced config
+    (the grouped route on every call) or one (the per-row route)."""
+    grouped = 0
+    if Path(script).stem == "torch_serve_llm":
+        import argparse
+        from repro_torch.configs.registry import get_config
+        ap = argparse.ArgumentParser()
+        ap.add_argument("--arch")
+        a, _ = ap.parse_known_args(flags)
+        cfg = get_config(a.arch).reduced()
+        grouped = launches if cfg.n_heads > cfg.n_kv else 0
+    return {"per_row": launches - grouped, "grouped": grouped}
 
 
 def example_held(script, flags) -> dict:
@@ -5213,6 +5287,11 @@ def phase_scripts(errs, card) -> dict:
             launches, held = got["launches"], got["held"]
             want = example_launches(script, flags)
             check_counts(f"phase 17: {script}", launches, want)
+            routes = example_decode_routes(script, flags,
+                                           launches["flash_decode_paged"])
+            check(got["decode_routes"] == routes, f"phase 17: {script}: "
+                  f"flash_decode_paged by route {got['decode_routes']} != "
+                  f"{routes}")
             # a captured program's replays (a segment's, an LM step's)
             # launch without a call; its first call, eager, was held
             want_held = example_held(script, flags)
@@ -5231,7 +5310,8 @@ def phase_scripts(errs, card) -> dict:
             print(f"phase 17: {script} {' '.join(flags)}: exit 0 in "
                   f"{secs:.1f} s; {' | '.join(head)}; launches "
                   f"{ {k: v for k, v in launches.items() if v} } as its "
-                  f"plans and config give; calls held against their "
+                  f"plans and config give (decode by route "
+                  f"{got['decode_routes']}); calls held against their "
                   f"plain versions {held} (TOL f32, BF16_TOL bf16; max abs "
                   f"{ {k: got['errs'][k] for k, v in launches.items() if v} })"
                   f" at {len(got['shapes'])} call shapes: "
@@ -5396,7 +5476,9 @@ def run(dev) -> dict:
           "replay; lm_* on the attention kernels: phase 14's llama3-8b "
           "bf16 serving pass (flash_decode_paged: the served decode's "
           f"{LM_SERVE[3]} x ({LM_SERVE[5]} + {LM_SERVE[7]}) tokens' "
-          "calls, kv_len from 1; "
+          "calls, kv_len from 1, by route in lm_routes, "
+          f"lm_{LM_DECODE_KEYS}_* one call at {LM_DECODE_KEYS} keys, "
+          "lm_*shape the launch decode_shape picks; "
           "flash_attention_bh: one prefill forward of the served tokens "
           f"and one of 1 x {LM_LONG}); train_* on flash_attention_bh: "
           f"phase 15's {TRAIN_ARCH} bf16 step of {TRAIN_BATCH} x "

@@ -58,12 +58,12 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         + [_P] for s in GEMM_SUFFIXES
     },
     "flash_decode_paged": {
-        "flash_decode_paged_f32": [_P] * 5 + [_I] * 6 + [_P] + [_I] * 5
+        "flash_decode_paged_f32": [_P] * 5 + [_I] * 6 + [_P] + [_I] * 6
         + [_F, _P],
-        "flash_decode_paged_bf16": [_P] * 5 + [_I] * 6 + [_P] + [_I] * 5
+        "flash_decode_paged_bf16": [_P] * 5 + [_I] * 6 + [_P] + [_I] * 6
         + [_F, _P],
-        "flash_decode_paged_occupancy": [_I] * 5 + [_P],
-        "flash_decode_paged_occupancy_bf16": [_I] * 5 + [_P],
+        "flash_decode_paged_occupancy": [_I] * 9 + [_P],
+        "flash_decode_paged_occupancy_bf16": [_I] * 9 + [_P],
     },
     "flash_attention": {
         "flash_attention_f32": [_P] * 5 + [_I] * 7 + [_F, _P],

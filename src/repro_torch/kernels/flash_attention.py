@@ -17,23 +17,28 @@ the hand-written kernels in ``csrc/flash_decode_paged.cu`` and
 ``csrc/flash_attention.cu`` or raise: a wrong device or dtype is a
 ``TypeError``; a non-contiguous operand, an unsupported head dim and a
 failed build or launch are a ``RuntimeError``.  Both take float32 or
-bfloat16 (f32 accumulation, output in the input dtype), and both read
-grouped-query heads by index: ``flash_decode_paged``'s ``groups`` query
-rows share one pool row, ``flash_attention_bh``'s ``H / KV`` query heads
-one KV head.  ``flash_decode_paged.launches``
-and ``flash_attention_bh.launches`` count kernel launches.
+bfloat16 (f32 accumulation, output in the input dtype), and neither copies
+a grouped-query KV head: ``flash_attention_bh`` reads one KV head for its
+``H / KV`` query heads by index, and ``flash_decode_paged``'s grouped
+route (``groups > 1``) gives one block the query rows of one pool row, so
+each live key and value is fetched once for all of them.
+``flash_decode_paged.launches`` and ``flash_attention_bh.launches`` count
+kernel launches; ``flash_decode_paged.routes`` counts the decode launches
+by route (``per_row``: ``groups = 1``; ``grouped``).
 
 The paged decode kernel's launch shape is chosen here, on the host, so the
-CPU tests reach it: :func:`decode_splits` cuts each head's page table into
-split-KV runs (one block each, a head's blocks one cluster),
-:func:`decode_warps` sizes the blocks and :func:`decode_vec` chooses the
-load width; split ``s`` reads the live keys of logical pages
-``s * P .. (s + 1) * P - 1``, ``P = ceil(n_logical / splits)``.
+CPU tests reach it: :func:`decode_shape` gives a call's split count
+(a block of query rows' splits one cluster), block width and query rows a
+block, from :func:`decode_splits` and :func:`decode_warps` for the per-row
+route and :func:`decode_group_rows` and :func:`decode_grouped_splits` for
+the grouped one; :func:`decode_vec` chooses the load width.  Split ``s``
+reads the live keys of logical pages ``s * P .. (s + 1) * P - 1``, ``P =
+ceil(n_logical / splits)``.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -55,6 +60,28 @@ MAX_SPLITS = 16
 #: splits of at most this many keys take a block of 8 warps; longer ones
 #: a block of 32 warps, which keeps more rows in flight on its SM
 NARROW_KEYS = 64
+#: the grouped route's blocks: 8 warps (32 would hold 64 registers a
+#: thread, too few for several query rows' state), two to an SM
+GROUPED_WARPS = 8
+#: the query rows a grouped block holds, by instance
+GROUP_ROWS = (2, 4)
+#: tables of at most this many keys make latency-bound grouped calls
+#: (the served decode's 32): blocks of the fewest query rows and one split,
+#: whose block writes its rows with no cluster merge
+GROUPED_SHORT_KEYS = 64
+#: the grouped route's target of blocks a launch on longer tables: three
+#: quarters of two blocks an SM, so every cluster of the launch is resident
+#: at once (one wave)
+GROUPED_BLOCKS = 3 * SMS // 2
+
+
+class DecodeShape(NamedTuple):
+    """A paged decode launch: ``splits`` of the page table (a cluster of
+    blocks), ``warps`` a block, ``group_rows`` query rows a block (1: the
+    per-row route)."""
+    splits: int
+    warps: int
+    group_rows: int
 
 
 def _need_contiguous(name: str, *tensors: torch.Tensor) -> None:
@@ -92,6 +119,56 @@ def decode_warps(n_logical: int, page_size: int, splits: int) -> int:
     return 8 if keys <= NARROW_KEYS else 32
 
 
+def decode_group_rows(groups: int, keys: int) -> int:
+    """Query rows of one grouped block on a table of ``keys`` keys: 1 (the
+    per-row route) for ``groups = 1``; the fewest (:data:`GROUP_ROWS`) on a
+    short table or where they hold all ``groups``, else the most; a pool
+    row's rows then take ``ceil(groups / rows)`` blocks, the last one
+    partly idle."""
+    if groups <= 1:
+        return 1
+    few, most = GROUP_ROWS[0], GROUP_ROWS[-1]
+    return few if groups <= few or keys <= GROUPED_SHORT_KEYS else most
+
+
+def decode_grouped_splits(blocks: int, n_logical: int, keys: int) -> int:
+    """Splits of each grouped block's page table: one on a table of at most
+    :data:`GROUPED_SHORT_KEYS` keys; else as many as keep the ``blocks x
+    splits`` blocks within :data:`GROUPED_BLOCKS`, at most
+    :data:`MAX_SPLITS` and one a page, then as few as cut the table into
+    runs of the same whole number of pages."""
+    if blocks < 1 or n_logical < 1 or keys <= GROUPED_SHORT_KEYS:
+        return 1
+    want = max(1, min(MAX_SPLITS, n_logical, GROUPED_BLOCKS // blocks))
+    pages = -(-n_logical // want)
+    return -(-n_logical // pages)
+
+
+def decode_shape(rows: int, groups: int, n_logical: int,
+                 page_size: int) -> DecodeShape:
+    """The launch shape of a call on ``rows`` pool rows of ``groups`` query
+    rows each, behind a table of ``n_logical`` pages of ``page_size`` keys.
+    ``groups = 1``: the per-row route, one block a query row
+    (:func:`decode_splits`, :func:`decode_warps`).  ``groups > 1``: the
+    grouped route, blocks of :data:`GROUPED_WARPS` warps holding
+    :func:`decode_group_rows` query rows each, split by
+    :func:`decode_grouped_splits`.  Never a function of ``kv_len``: one
+    launch shape serves every position of a decode.  The head dim and the
+    dtype do not move it: the sweep that chose these rules (``python -m
+    repro_torch.kernels.decode_sweep``) found the best grouped shapes set
+    by the blocks and clusters the card holds at once (one wave), not by
+    the bytes of a row."""
+    if groups <= 1:
+        splits = decode_splits(rows, n_logical)
+        return DecodeShape(splits, decode_warps(n_logical, page_size, splits),
+                           1)
+    keys = n_logical * page_size
+    gr = decode_group_rows(groups, keys)
+    blocks = rows * -(-groups // gr)
+    return DecodeShape(decode_grouped_splits(blocks, n_logical, keys),
+                       GROUPED_WARPS, gr)
+
+
 def decode_vec(hd: int, *pools: torch.Tensor) -> bool:
     """Whether the kernel reads K/V rows 16 bytes a lane: a row of ``hd``
     elements is a whole number of 16-byte pieces (``hd % 4 == 0`` in f32,
@@ -111,8 +188,11 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
 
     ``q``: [BH, hd]; ``k_pages``/``v_pages``: [BH / groups, n_phys_pages,
     page_size, hd] physical page pool, pool row ``bh // groups`` serving
-    query row ``bh`` (grouped-query heads: the KV head's rows are read, not
-    repeated; ``groups=1`` is the reference's signature); ``page_table``:
+    query row ``bh`` (grouped-query heads, never repeated: on the card a
+    ``groups > 1`` call takes the grouped route, whose blocks each hold
+    several query rows of one pool row and read its live keys once for
+    them, or raises; ``groups=1`` is the reference's signature and the
+    per-row route); ``page_table``:
     [n_logical_pages] int32 mapping logical page ``i`` (keys ``i*ps .. (i+1)*ps - 1``) to its
     physical slot — on the card an int32 CUDA tensor on the pools' device
     (the cache keeps one), on the CPU any int sequence; ``kv_len``: number
@@ -186,23 +266,26 @@ def _flash_decode_paged(q, k_pages, v_pages, page_table, kv_len, *,
           else lib.flash_decode_paged_bf16)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     n_logical = len(page_table)
-    splits = decode_splits(bh, n_logical)
+    shape = decode_shape(rows, groups, n_logical, ps)
     rc = fn(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         page_table.data_ptr(), out.data_ptr(), bh, k_pages.shape[1],
         n_logical, ps, hd, 0 if on_device else kv_len,
         kv_len.data_ptr() if on_device else None,
         -1 if window is None else int(window),
-        splits, decode_warps(n_logical, ps, splits),
-        int(decode_vec(hd, k_pages, v_pages)), groups, scale, stream)
+        shape.splits, shape.warps, int(decode_vec(hd, k_pages, v_pages)),
+        groups, shape.group_rows, scale, stream)
     if rc != 0:
         raise RuntimeError(f"flash_decode_paged launch failed: cudaError "
                            f"{rc}")
     flash_decode_paged.launches += 1
+    flash_decode_paged.routes[
+        "per_row" if shape.group_rows == 1 else "grouped"] += 1
     return out
 
 
 flash_decode_paged.launches = 0
+flash_decode_paged.routes = {"per_row": 0, "grouped": 0}
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

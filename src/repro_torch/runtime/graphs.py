@@ -36,7 +36,7 @@ captures.
 
 Launch counters: the ``launches`` counter of each kernel wrapper
 (:data:`COUNTED`), and the per-route ``routes`` counts of the two shard
-kernels, count kernels that ran on the device.  A capture runs nothing,
+kernels and the paged decode kernel, count kernels that ran on the device.  A capture runs nothing,
 so what the wrappers add while one is under way is taken back and kept
 as the program's counts, which every replay adds.
 

@@ -118,13 +118,18 @@ def test_load_width_follows_head_dim_and_alignment():
 
 
 def test_decode_constants_match_the_cuda_source():
-    """The host's cluster limit and block widths are the ones the CUDA
-    entry point accepts."""
+    """The host's cluster limit, block widths and grouped rows a block are
+    the ones the CUDA entry point accepts."""
     src = (build.CSRC / "flash_decode_paged.cu").read_text()
     assert int(re.search(r"constexpr int MAX_SPLITS = (\d+);",
                          src).group(1)) == fa.MAX_SPLITS
     widths = {int(w) for w in re.findall(r"warps != (\d+)", src)}
     assert widths == {fa.decode_warps(1, 1, 1), fa.decode_warps(1000, 1, 1)}
+    assert int(re.search(r"constexpr int GROUPED_WARPS = (\d+);",
+                         src).group(1)) == fa.GROUPED_WARPS
+    assert fa.GROUPED_WARPS in widths
+    assert int(re.search(r"constexpr int MAX_GROUP_ROWS = (\d+);",
+                         src).group(1)) == max(fa.GROUP_ROWS)
 
 
 def test_wrapper_launch_arguments(monkeypatch):
@@ -168,6 +173,17 @@ def test_wrapper_launch_arguments(monkeypatch):
     assert shapes == {(16, 8, 1)}
     assert by_value == [1, 17, 300, 512, 0, 0]
     assert pointers == [None] * 4 + [t.data_ptr() for t in lengths]
+    # groups = 1 is the per-row route (one query row a block); a grouped
+    # call passes its rows a block, the same for every kv_len
+    assert {args[16:18] for args in calls} == {(1, 1)}
+    r0 = dict(fa.flash_decode_paged.routes)
+    calls.clear()
+    for kv_len in (1, 300, 512, lengths[0]):
+        fa.flash_decode_paged(q[:MAIN_BH // 2].repeat(4, 1), kp[:2], kp[:2],
+                              table, kv_len, groups=4)
+    assert {args[13:18] for args in calls} == {(16, 8, 1, 4, 4)}
+    assert fa.flash_decode_paged.routes == {
+        "per_row": r0["per_row"], "grouped": r0["grouped"] + 4}
 
 
 def _paged(rng, bh, n_pages, ps, hd):

@@ -510,7 +510,7 @@ def test_decode_launch_shape_fits_one_wave(cuda):
     warps = fa_mod.decode_warps(n_pages, ps, splits)
     info = (ctypes.c_int * 4)()
     rc = build.load("flash_decode_paged").flash_decode_paged_occupancy(
-        lh, hd, 1, splits, warps, info)
+        lh, hd, 1, splits, warps, 1, 1, n_pages, ps, info)
     assert rc == 0
     threads, smem, clusters, rows = info
     assert lh * splits >= 32 and threads == warps * 32
@@ -1465,34 +1465,350 @@ def test_decode_kernel_bf16_on_the_2_byte_route(cuda, hd, offset):
         assert _rel_err(out, ref) < 2e-2, (kv_len, window)
 
 
+def _decode_forced(shape):
+    """A ``decode_shape`` stand-in that launches every call at ``shape``
+    (splits, warps, query rows a block)."""
+    return lambda *_a: shape
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("groups", [1, 2, 4, 8])
-def test_decode_kernel_groups_equal_repeated_pools(cuda, dtype, groups):
+@pytest.mark.parametrize("groups", [1, 2, 3, 4, 5, 7, 8])
+def test_decode_kernel_groups_equal_repeated_pools(cuda, monkeypatch, dtype,
+                                                   groups):
     """``groups`` query rows read one pool row: bit-equal to the ungrouped
-    call on pools repeated ``groups`` times (the same launch shape, the
-    same sums), for the by-value and the device ``kv_len`` alike."""
-    rows, ps, n_pages, hd = 4, 16, 64, 128
+    call on pools repeated ``groups`` times, for the by-value and the
+    device ``kv_len`` alike.  The grouped call runs at the wrapper's own
+    launch shape; the per-row call is forced onto the same splits and
+    block width (``decode_shape`` patched), where each query row's sums
+    are the grouped route's."""
+    rows, ps, hd = 4, 16, 128
     gen = torch.Generator(device=cuda).manual_seed(groups)
+    q = torch.randn((rows * groups, hd), generator=gen, device=cuda).to(dtype)
+    length = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    # a long table (split clusters) and the served decode's 32 keys (one
+    # split, no cluster merge)
+    for n_pages, cases in ((64, ((1, None), (300, None), (1024, 50))),
+                           (2, ((1, None), (17, None), (32, 5)))):
+        kp = torch.randn((rows, n_pages, ps, hd), generator=gen,
+                         device=cuda).to(dtype)
+        vp = torch.randn_like(kp)
+        table = torch.randperm(n_pages, generator=gen, device=cuda).int()
+        kr, vr = (t.repeat_interleave(groups, dim=0) for t in (kp, vp))
+        shape = fa_mod.decode_shape(rows, groups, n_pages, ps)
+        assert (shape.group_rows > 1) == (groups > 1)
+        for kv_len, window in cases:
+            length.fill_(kv_len)
+            got = flash_decode_paged(q, kp, vp, table, kv_len, window=window,
+                                     groups=groups)
+            by_ptr = flash_decode_paged(q, kp, vp, table, length,
+                                        window=window, groups=groups)
+            with monkeypatch.context() as mp:
+                mp.setattr(fa_mod, "decode_shape",
+                           _decode_forced(shape._replace(group_rows=1)))
+                want = flash_decode_paged(q, kr, vr, table, kv_len,
+                                          window=window)
+            plain = flash_decode_paged_ref(q, kp, vp, table, kv_len,
+                                           window=window, groups=groups)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want) and torch.equal(by_ptr, got), \
+                (n_pages, kv_len)
+            tol = 1e-5 if dtype == torch.float32 else 2e-2
+            assert _rel_err(got, plain) < tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_decode_bit_equal_to_per_row_over_seeds(cuda, monkeypatch,
+                                                        dtype):
+    """The grouped route's sums are the per-row route's at the same launch
+    shape over many random inputs, short tables (one split) and long ones
+    (split clusters): a sum the compiler contracted another way in one of
+    the two kernels shows here as a differing element now and then."""
+    rows, ps, hd = 4, 16, 128
+    for seed in range(12):
+        for groups in (2, 4, 8):
+            for n_pages, lens in ((2, (9, 17, 32)), (64, (300, 1024))):
+                gen = torch.Generator(device=cuda).manual_seed(
+                    seed * 100 + groups)
+                q, kp, vp = (torch.randn(shape, generator=gen,
+                                         device=cuda).to(dtype)
+                             for shape in ((rows * groups, hd),
+                                           (rows, n_pages, ps, hd),
+                                           (rows, n_pages, ps, hd)))
+                table = torch.randperm(n_pages, generator=gen,
+                                       device=cuda).int()
+                kr, vr = (t.repeat_interleave(groups, dim=0)
+                          for t in (kp, vp))
+                shape = fa_mod.decode_shape(rows, groups, n_pages, ps)
+                for kv_len in lens:
+                    got = flash_decode_paged(q, kp, vp, table, kv_len,
+                                             groups=groups)
+                    with monkeypatch.context() as mp:
+                        mp.setattr(fa_mod, "decode_shape", _decode_forced(
+                            shape._replace(group_rows=1)))
+                        want = flash_decode_paged(q, kr, vr, table, kv_len)
+                    assert torch.equal(got, want), (seed, groups, kv_len)
+
+
+def _grouped_pools(gen, dev, rows, hd, ps, n_pages, kv_len, window, dtype):
+    """``_paged_pools`` in ``dtype`` (NaN in every page the kernel must not
+    read, zeros there in the plain version's copy)."""
+    return tuple(t.to(dtype) if t.is_floating_point() else t
+                 for t in _paged_pools(gen, dev, rows, hd, ps, n_pages,
+                                       kv_len, window))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("groups,hd", [(2, 64), (3, 64), (4, 128), (5, 128),
+                                       (7, 128), (8, 128), (4, 256)])
+def test_grouped_decode_matches_plain(cuda, dtype, groups, hd):
+    """The grouped route at the wrapper's own launch shape against the
+    plain version: the registry's ratios (granite 3 at hd 64, llama3-8b 4,
+    qwen2.5-14b 5, qwen2-vl-7b 7, qwen2-72b 8), kv_len at page and split
+    edges, windows that land mid-page; NaN in every page it must not
+    read; one launch a call, counted as grouped."""
+    rows, ps, n_pages = 8, 16, 96
+    gen = torch.Generator(device=cuda).manual_seed(groups * 1000 + hd)
+    q = torch.randn((rows * groups, hd), generator=gen, device=cuda).to(dtype)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    shape = fa_mod.decode_shape(rows, groups, n_pages, ps)
+    keys = -(-n_pages // shape.splits) * ps
+    for kv_len in (1, 15, 16, 17, keys - 1, keys + 1, 1000, n_pages * ps):
+        for window in (None, 7, 100):
+            kp, vp, kz, vz, table = _grouped_pools(
+                gen, cuda, rows, hd, ps, n_pages, kv_len, window, dtype)
+            n0, r0 = (flash_decode_paged.launches,
+                      flash_decode_paged.routes["grouped"])
+            out = flash_decode_paged(q, kp, vp, table, kv_len,
+                                     window=window, groups=groups)
+            assert flash_decode_paged.launches == n0 + 1
+            assert flash_decode_paged.routes["grouped"] == r0 + 1
+            ref = flash_decode_paged_ref(q, kz, vz, table, kv_len,
+                                         window=window, groups=groups)
+            torch.cuda.synchronize()
+            assert out.dtype == dtype
+            assert bool(torch.isfinite(out).all()), (kv_len, window)
+            assert _rel_err(out, ref) < tol, (kv_len, window)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("groups,hd", [(16, 128), (8, 256), (5, 128)])
+def test_grouped_decode_with_more_groups_than_a_block_holds(cuda, dtype,
+                                                            groups, hd):
+    """groups above the rows a block holds: a pool row's query rows in
+    ceil(groups / rows) blocks, the last one partly idle, each block
+    reading the pool row's keys; against plain."""
+    rows, ps, n_pages = 4, 16, 40
+    shape = fa_mod.decode_shape(rows, groups, n_pages, ps)
+    assert 1 < shape.group_rows < groups
+    gen = torch.Generator(device=cuda).manual_seed(groups + hd)
+    q = torch.randn((rows * groups, hd), generator=gen, device=cuda).to(dtype)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for kv_len, window in ((1, None), (333, None), (640, 50)):
+        kp, vp, kz, vz, table = _grouped_pools(
+            gen, cuda, rows, hd, ps, n_pages, kv_len, window, dtype)
+        out = flash_decode_paged(q, kp, vp, table, kv_len, window=window,
+                                 groups=groups)
+        ref = flash_decode_paged_ref(q, kz, vz, table, kv_len,
+                                     window=window, groups=groups)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(out).all()), (kv_len, window)
+        assert _rel_err(out, ref) < tol, (kv_len, window)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("groups", [2, 3, 4, 8])
+@pytest.mark.parametrize("cap", [32, 10, 17, 64])
+def test_grouped_decode_on_short_tables(cuda, dtype, groups, cap):
+    """The LM cache of a short decode (32 keys: pages of 16; 10: one page;
+    17: pages of 1; 64: the last short table) read in place: one split of
+    blocks of the fewest query rows, each block writing its rows with no
+    cluster merge; against plain at every kv_len, with and without a
+    window."""
+    from repro_torch.models.attention import page_size, page_table
+    B, KV, hd = 2, 4, 128
+    ps = page_size(cap)
+    shape = fa_mod.decode_shape(B * KV, groups, cap // ps, ps)
+    assert shape.splits == 1 and shape.group_rows == fa_mod.GROUP_ROWS[0]
+    gen = torch.Generator(device=cuda).manual_seed(cap * 10 + groups)
+    k = torch.randn((B, KV, cap, hd), generator=gen, device=cuda).to(dtype)
+    v = torch.randn_like(k)
+    q = torch.randn((B * KV * groups, hd), generator=gen,
+                    device=cuda).to(dtype)
+    table = page_table(cap, cuda)
+    pools = [t.view(B * KV, cap // ps, ps, hd) for t in (k, v)]
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for kv_len in range(1, cap + 1):
+        for window in (None, 3):
+            out = flash_decode_paged(q, *pools, table, kv_len, window=window,
+                                     groups=groups)
+            ref = flash_decode_paged_ref(q, *pools, table, kv_len,
+                                         window=window, groups=groups)
+            torch.cuda.synchronize()
+            assert _rel_err(out, ref) < tol, (kv_len, window)
+
+
+@pytest.mark.parametrize("dtype,hd,offset", [
+    (torch.bfloat16, 36, 0), (torch.bfloat16, 128, 1),
+    (torch.float32, 33, 0), (torch.float32, 128, 1)])
+def test_grouped_decode_on_the_narrow_load_routes(cuda, dtype, hd, offset):
+    """An odd head dim and pools off 16 bytes: the grouped route reads one
+    element a lane (a 4-byte cp.async in f32; a 2-byte load in bf16, which
+    cp.async cannot copy), against plain."""
+    rows, groups, ps, n_pages = 4, 4, 16, 20
+    gen = torch.Generator(device=cuda).manual_seed(hd * 3 + offset)
+    q = torch.randn((rows * groups, hd), generator=gen, device=cuda).to(dtype)
+    n = rows * n_pages * ps * hd
+
+    def pool():
+        base = torch.randn(n + offset, generator=gen, device=cuda).to(dtype)
+        return base[offset:].view(rows, n_pages, ps, hd)
+    kp, vp = pool(), pool()
+    assert not fa_mod.decode_vec(hd, kp, vp)
+    table = torch.randperm(n_pages, generator=gen, device=cuda).int()
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for kv_len, window in ((1, None), (200, None), (320, 33)):
+        out = flash_decode_paged(q, kp, vp, table, kv_len, window=window,
+                                 groups=groups)
+        ref = flash_decode_paged_ref(q, kp, vp, table, kv_len, window=window,
+                                     groups=groups)
+        torch.cuda.synchronize()
+        assert _rel_err(out, ref) < tol, (kv_len, window)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 7, 100])
+def test_grouped_decode_device_kv_len_is_bit_equal_to_by_value(cuda, dtype,
+                                                               window):
+    """llama3-8b's grouping (32 query rows over 8 pool rows): kv_len from
+    a device int32 gives the by-value call's bits over a sweep of lengths;
+    NaN in every page it must not read."""
+    rows, groups, hd, ps, n_pages = 8, 4, 128, 16, 32
+    gen = torch.Generator(device=cuda).manual_seed(7 + (window or 0))
+    q = torch.randn((rows * groups, hd), generator=gen, device=cuda).to(dtype)
+    length = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    for kv_len in (1, 15, 16, 17, 100, 333, 511, 512):
+        kp, vp, _, _, table = _grouped_pools(
+            gen, cuda, rows, hd, ps, n_pages, kv_len, window, dtype)
+        length.fill_(kv_len)
+        a = flash_decode_paged(q, kp, vp, table, kv_len, window=window,
+                               groups=groups)
+        b = flash_decode_paged(q, kp, vp, table, length, window=window,
+                               groups=groups)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(b).all()), kv_len
+        assert torch.equal(a, b), kv_len
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_decode_repeats_bit_for_bit_and_under_graph_replay(cuda,
+                                                                   dtype):
+    """Two grouped calls give the same bits, and so does one launch
+    captured in a graph (``GraphProgram``) replayed at every length, the
+    device kv_len read by the kernel; replays count as grouped launches."""
+    rows, groups, hd, ps, n_pages = 8, 4, 128, 16, 256
+    gen = torch.Generator(device=cuda).manual_seed(29)
     q = torch.randn((rows * groups, hd), generator=gen, device=cuda).to(dtype)
     kp = torch.randn((rows, n_pages, ps, hd), generator=gen,
                      device=cuda).to(dtype)
     vp = torch.randn_like(kp)
     table = torch.randperm(n_pages, generator=gen, device=cuda).int()
-    kr, vr = (t.repeat_interleave(groups, dim=0) for t in (kp, vp))
-    length = torch.zeros((1,), dtype=torch.int32, device=cuda)
-    for kv_len, window in ((1, None), (300, None), (1024, 50)):
+    first = flash_decode_paged(q, kp, vp, table, 3000, groups=groups)
+    assert torch.equal(first, flash_decode_paged(q, kp, vp, table, 3000,
+                                                 groups=groups))
+    length = torch.ones((1,), dtype=torch.int32, device=cuda)
+    prog = GraphProgram(
+        lambda n: flash_decode_paged(q, kp, vp, table, n, groups=groups),
+        length)
+    lens = (1, 2, 17, 300, 3000, 4096)
+    r0 = dict(flash_decode_paged.routes)
+    for kv_len in lens:
         length.fill_(kv_len)
-        got = flash_decode_paged(q, kp, vp, table, kv_len, window=window,
-                                 groups=groups)
-        by_ptr = flash_decode_paged(q, kp, vp, table, length, window=window,
-                                    groups=groups)
-        want = flash_decode_paged(q, kr, vr, table, kv_len, window=window)
-        plain = flash_decode_paged_ref(q, kp, vp, table, kv_len,
-                                       window=window, groups=groups)
-        torch.cuda.synchronize()
-        assert torch.equal(got, want) and torch.equal(by_ptr, got)
-        tol = 1e-5 if dtype == torch.float32 else 2e-2
-        assert _rel_err(got, plain) < tol
+        got = prog(length).clone()
+        assert torch.equal(got, flash_decode_paged(
+            q, kp, vp, table, kv_len, groups=groups)), kv_len
+    assert prog.graph is not None
+    assert flash_decode_paged.routes["grouped"] - r0["grouped"] == \
+        2 * len(lens)
+    assert flash_decode_paged.routes["per_row"] == r0["per_row"]
+
+
+def test_decode_routes_count_every_launch(cuda):
+    """``routes`` counts ``per_row`` for every groups = 1 launch and
+    ``grouped`` for every groups > 1 launch, eager and replayed, and
+    sums to ``launches``."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    table = torch.arange(8, dtype=torch.int32, device=cuda)
+    calls = []
+    for groups in (1, 2, 4, 1, 8, 3):
+        q = torch.randn((4 * groups, 64), generator=gen,
+                        device=cuda).bfloat16()
+        kp = torch.randn((4, 8, 16, 64), generator=gen,
+                         device=cuda).bfloat16()
+        calls.append((q, kp, groups))
+    n0, r0 = flash_decode_paged.launches, dict(flash_decode_paged.routes)
+
+    def run():
+        return [flash_decode_paged(q, kp, kp, table, 100, groups=g)
+                for q, kp, g in calls]
+    run()
+    prog = GraphProgram(lambda x: run(), torch.zeros(1, device=cuda))
+    for _ in range(3):                  # eager, capture and replay, replay
+        prog(torch.zeros(1, device=cuda))
+    torch.cuda.synchronize()
+    runs = 1 + 3
+    assert flash_decode_paged.routes["per_row"] - r0["per_row"] == 2 * runs
+    assert flash_decode_paged.routes["grouped"] - r0["grouped"] == 4 * runs
+    assert flash_decode_paged.launches - n0 == 6 * runs
+
+
+def test_grouped_launcher_refuses_the_per_row_route(cuda):
+    """No fallback: the C entry point refuses a grouped call without a
+    grouped instance (1 query row a block, 32-warp blocks, a row count no
+    instance has) and a per-row call with several rows a block, so a
+    host-side slip raises rather than reading each KV head once a query
+    row."""
+    lib = build.load("flash_decode_paged")
+    rows, groups, ps, n_pages, hd = 4, 4, 16, 8, 128
+    q = torch.zeros((rows * groups, hd), device=cuda)
+    kp = torch.zeros((rows, n_pages, ps, hd), device=cuda)
+    table = torch.arange(n_pages, dtype=torch.int32, device=cuda)
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(groups, warps, gr, hd=hd):
+        return lib.flash_decode_paged_f32(
+            q.data_ptr(), kp.data_ptr(), kp.data_ptr(), table.data_ptr(),
+            out.data_ptr(), rows * groups, n_pages, n_pages, ps, hd, 100,
+            None, -1, 2, warps, 1, groups, gr, 0.1, stream)
+    assert launch(groups, 8, 4) == 0
+    assert launch(1, 8, 1) == 0
+    for g, warps, gr, width in ((4, 8, 1, hd), (4, 32, 4, hd),
+                                (4, 8, 3, hd), (4, 8, 8, hd), (1, 8, 2, hd),
+                                (4, 8, 16, hd)):
+        assert launch(g, warps, gr, width) != 0, (g, warps, gr, width)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_launch_shape(cuda, dtype):
+    """The grouped launch shape at llama3-8b's 4096-key call (32 pool rows
+    of 4 query rows, 256 pages of 16): the occupancy entry takes it,
+    blocks of 256 threads whose ring and cluster slots fit, at least one
+    cluster resident, splits within the cluster limit."""
+    import ctypes
+    rows, groups, n_pages, ps, hd = 32, 4, 256, 16, 128
+    shape = fa_mod.decode_shape(rows, groups, n_pages, ps)
+    info = (ctypes.c_int * 4)()
+    lib = build.load("flash_decode_paged")
+    fn = (lib.flash_decode_paged_occupancy if dtype == torch.float32
+          else lib.flash_decode_paged_occupancy_bf16)
+    rc = fn(rows * groups, hd, 1, shape.splits, shape.warps, groups,
+            shape.group_rows, n_pages, ps, info)
+    assert rc == 0
+    threads, smem, clusters, rows_a_round = info
+    assert threads == fa_mod.GROUPED_WARPS * 32 and shape.group_rows == 4
+    assert 0 < smem <= 227 * 1024 and clusters >= 1
+    assert 1 <= shape.splits <= fa_mod.MAX_SPLITS
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
